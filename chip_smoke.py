@@ -6,18 +6,32 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles the CUDA kernel from facegen_torch/csrc (seconds);
-3. kernels: the upsample + conv kernel against its plain PyTorch version
-   (the phase conv) at G's two sampler shapes (N = 1024), at the odd
-   shapes of tests/test_upsample_conv.py and at N = 3, in fp32 (TF32 off)
-   and in bf16; then times the kernel, the plain phase conv and the
-   composed F.interpolate + F.conv2d at the two G shapes;
-4. main path: writes a G32 + D32b colour checkpoint (full width, seeded
+2. build: compiles the CUDA kernels from facegen_torch/csrc, one nvcc per
+   source, in parallel (seconds), and prints ptxas's registers and spills;
+3. kernels: the upsample + conv forward kernel against its plain PyTorch
+   version (the phase conv) at G's two layers at the sampler's batch
+   (N = 1024) and at every batch of the training path (16, 32, 100,
+   300), at the odd shapes of tests/test_upsample_conv.py and at N = 3,
+   in fp32 (TF32 off) and in bf16; then times the kernel, the plain
+   phase conv and the composed F.interpolate + F.conv2d at both layers
+   at N = 1024, 32 and 16;
+4. backward kernels: dx and dW against their plain versions at G's two
+   training shapes (N = 32), the odd shapes and N = 3, fp32 and bf16;
+   their times against the plain versions at the training shapes; the
+   autograd Function against autograd of the plain forward (dx, dW, db);
+5. sampler path: writes a G32 + D32b colour checkpoint (full width, seeded
    random weights) and a synthetic 4096-image store, runs
    ``facegen_torch.sample.main`` with --runs 2 --neighbours, checks the
    files, the kernel's launch count, the scores and the images, holds the
    card's bf16 G against the CPU's fp32 G on the same noise, and reports
-   images/s.
+   images/s;
+6. training path: ``facegen_torch.train.main`` at the default flags
+   (G32 + D32b colour, batch 32, bf16) on the store for 2 epochs of 63
+   steps with --saveFreq 1, then a resume for a third; checks every
+   kernel's launch count against the steps and grids, finite losses,
+   metrics.jsonl, the checkpoint and its .old; holds one fp32 step on the
+   card against the same step on the CPU; reports training images/s and
+   the device ms per step.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -33,20 +47,56 @@ import sys
 import tempfile
 import time
 
-KERNEL_NAME = "upsample_conv_fwd"
-KERNEL_SOURCE = "facegen_torch/csrc/upsample_conv.cu"
-KERNEL_REPLACES = "facegen/ops/pallas/upsample_conv.py:121"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "upsample_conv_fwd": ("facegen_torch/csrc/upsample_conv.cu",
+                          "facegen/ops/pallas/upsample_conv.py:121"),
+    "upsample_conv_dx": ("facegen_torch/csrc/upsample_conv_bwd.cu",
+                         "facegen/ops/pallas/upsample_conv.py:140"),
+    "upsample_conv_dw": ("facegen_torch/csrc/upsample_conv_bwd.cu",
+                         "facegen/ops/pallas/upsample_conv.py:158"),
+}
+SOURCES = ("upsample_conv", "upsample_conv_bwd")
 
 # (N, H, Cin, Cout, K): G32's upconv1 and upconv2 at the sampler's batch
 G_SHAPES = [(1024, 8, 128, 256, 5), (1024, 16, 256, 128, 5)]
 # the odd shapes of tests/test_upsample_conv.py, and a row count that
 # is not a multiple of the kernel's tile
 ODD_SHAPES = [(2, 8, 16, 24, 5), (2, 4, 8, 8, 3), (2, 16, 32, 16, 5), (3, 8, 128, 256, 5)]
+# G32's upconv1 and upconv2 in training (batch 32)
+TRAIN_SHAPES = [(32, 8, 128, 256, 5), (32, 16, 256, 128, 5)]
+# every shape the training path gives the forward: both layers in the D
+# phase (N = 16), the G phase (N = 32) and the progress grids (100, 300)
+FWD_TRAIN_SHAPES = [(n, h, cin, cout, 5) for n in (16, 32, 100, 300)
+                    for h, cin, cout in ((8, 128, 256), (16, 256, 128))]
 
 FP32_TOL = 1e-4       # fp32 accumulate on both sides; TF32 off
 BF16_ATOL = 2e-2      # plus the bf16 output rounding, half an ulp:
 BF16_RTOL = 2.0 ** -8
 G_TOL = 3e-2          # card bf16 G vs CPU fp32 G, images in [0, 1]
+# fp32 dx, and dW of both types (bf16 inputs are exact in fp32, and dW is
+# fp32): max_abs_err <= 1e-4 x the largest |entry| of the plain result.
+# Both sides sum up to 9*4*Cout (dx) or N*H*W (dW) products in other
+# orders, an error that grows with the count and size of the terms, not
+# with the entry they land in; a layout error is O(1) of the largest entry
+BWD_TOL = 1e-4
+# one fp32 train step, card against CPU (TF32 off), per network, as
+# relative l2 errors over all its parameters: the gradients (Adam's first
+# moment after one step is 0.1 x the gradient; the second, 0.001 x its
+# square) within 1e-3, the parameter updates within 1e-2, the batch-norm
+# statistics within 1e-4 of each tensor's largest entry; the counters
+# equal. D's PReLU slopes carry its largest gradients, each a sum over up
+# to 2M activations with cancellation, which the two devices add in other
+# orders (7.5e-5 of D's gradient norm on an H100). Adam's first step
+# moves each parameter by about lr x the sign of its gradient, so an
+# entry whose gradient is as small as its rounding noise moves either
+# way; such entries are few, and the l2 error of the update stays far
+# below the O(1) of a wrong gradient. G's upsample-conv biases feed batch
+# norms: their exact gradient is 0, so the check gives G nonzero biases
+# and an L2 penalty (G_L2 1e-3, with the reference's sign-term bug),
+# which makes those gradients the penalty's.
+STEP_GRAD_TOL = 1e-3
+STEP_UPDATE_TOL = 1e-2
+STEP_STAT_TOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -75,16 +125,20 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from facegen_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load("upsample_conv")
-    dt = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.build_log("upsample_conv").splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"build: upsample_conv.cu in {dt:.2f} s")
-    for ln in regs:
-        print(f"  ptxas: {ln}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc process per source
+        list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load(name)
+    print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        for ln in _build.build_log(name).splitlines():
+            if "registers" in ln or "spill" in ln or "Function properties" in ln:
+                print(f"  ptxas {name}: {ln.strip()}")
 
 
 def _inputs(n, h, cin, cout, k, dtype, seed):
@@ -113,8 +167,17 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _time_turns(fns, turns=("plain", "kernel", "kernel", "plain")):
+    """Mean ms of each function over runs taken in the given turns."""
+    times = {name: [] for name in fns}
+    for name in turns:
+        times[name].append(_time_ms(fns[name]))
+    return {name: sum(v) / len(v) for name, v in times.items()}, times
+
+
 def phase_kernels():
-    """Kernel vs plain version; returns the kernel's summary numbers."""
+    """Kernel vs plain version; returns the kernel's summary numbers at the
+    training path's shapes, and prints the sampler's on a line of its own."""
     import torch
     import torch.nn.functional as F
 
@@ -122,8 +185,8 @@ def phase_kernels():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    max_err_bf16 = 0.0
-    for si, (n, h, cin, cout, k) in enumerate(G_SHAPES + ODD_SHAPES):
+    max_err = {"train": 0.0, "sampler": 0.0}  # bf16, at the paths' shapes
+    for si, (n, h, cin, cout, k) in enumerate(G_SHAPES + FWD_TRAIN_SHAPES + ODD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, b = _inputs(n, h, cin, cout, k, dtype, seed=si)
             wc = uc.collapse_weights(w)
@@ -132,7 +195,7 @@ def phase_kernels():
             # reference in fp32 from the same (possibly bf16) inputs
             ref = uc.upsample_conv_reference(x.float(), wc.float(), b.float())
             err = (got.float() - ref).abs()
-            max_err = float(err.max())
+            shape_err = float(err.max())
             if dtype == torch.float32:
                 bound = FP32_TOL + FP32_TOL * ref.abs()
             else:
@@ -140,14 +203,17 @@ def phase_kernels():
             ok = bool((err <= bound).all()) and got.shape == ref.shape
             tag = "fp32" if dtype == torch.float32 else "bf16"
             print(f"kernel check {tag} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout} K={k}: "
-                  f"max_abs_err={max_err:.3e} {'ok' if ok else 'FAIL'}")
+                  f"max_abs_err={shape_err:.3e} {'ok' if ok else 'FAIL'}")
             check(ok, f"kernel disagrees with the plain version ({tag}, shape {n, h, cin, cout, k})")
-            if dtype == torch.bfloat16 and (n, h, cin, cout, k) in G_SHAPES:
-                max_err_bf16 = max(max_err_bf16, max_err)
+            if dtype == torch.bfloat16:
+                for path, shapes in (("train", FWD_TRAIN_SHAPES), ("sampler", G_SHAPES)):
+                    if (n, h, cin, cout, k) in shapes:
+                        max_err[path] = max(max_err[path], shape_err)
             del x, w, b, wc, got, ref, err
 
-    ms = plain_ms = 0.0
-    for n, h, cin, cout, k in G_SHAPES:
+    ms = {"train": 0.0, "sampler": 0.0}
+    plain_ms = {"train": 0.0, "sampler": 0.0}
+    for n, h, cin, cout, k in G_SHAPES + TRAIN_SHAPES + FWD_TRAIN_SHAPES[:2]:
         x, w, b = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         wc = uc.collapse_weights(w)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
@@ -156,23 +222,24 @@ def phase_kernels():
             up = F.interpolate(x_cl, scale_factor=2, mode="nearest")
             return F.conv2d(up, w, b, padding=(k - 1) // 2).permute(0, 2, 3, 1)
 
-        fns = {"kernel": lambda: uc.upsample_conv(x, wc, b),
-               "plain": lambda: uc.upsample_conv_reference(x, wc, b),
-               "composed": composed}
-        times = {name: [] for name in fns}
-        for name in ("plain", "kernel", "composed", "composed", "kernel", "plain"):
-            times[name].append(_time_ms(fns[name]))
-        t = {name: sum(v) / len(v) for name, v in times.items()}
+        t, runs = _time_turns({"kernel": lambda: uc.upsample_conv(x, wc, b),
+                               "plain": lambda: uc.upsample_conv_reference(x, wc, b),
+                               "composed": composed},
+                              ("plain", "kernel", "composed", "composed", "kernel", "plain"))
         flop = 2 * n * h * h * 4 * cout * 9 * cin
         print(f"time bf16 N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
               f"kernel {t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), "
-              f"plain phase conv {t['plain']:.4f} ms, "
-              f"interpolate+conv2d {t['composed']:.4f} ms "
-              f"(runs {', '.join(f'{k_}={v}' for k_, v in times.items())})")
-        ms += t["kernel"]
-        plain_ms += t["plain"]
+              f"plain phase conv {t['plain']:.4f} ms ({flop / t['plain'] / 1e9:.1f} TFLOP/s), "
+              f"interpolate+conv2d {t['composed']:.4f} ms (runs {runs})")
+        # the kernels line's time: the G phase's two layers (N = 32)
+        for path, shapes in (("train", TRAIN_SHAPES), ("sampler", G_SHAPES)):
+            if (n, h, cin, cout, k) in shapes:
+                ms[path] += t["kernel"]
+                plain_ms[path] += t["plain"]
         del x, w, b, wc, x_cl
-    return {"max_abs_err": max_err_bf16, "ms": ms, "plain_ms": plain_ms}
+    print(f"forward at the sampler's shapes (N = 1024, both layers): kernel {ms['sampler']:.4f} "
+          f"ms, plain {plain_ms['sampler']:.4f} ms, bf16 max_abs_err {max_err['sampler']:.3e}")
+    return {"max_abs_err": max_err["train"], "ms": ms["train"], "plain_ms": plain_ms["train"]}
 
 
 def calibrate_batch_norm(g, noise):
@@ -199,13 +266,11 @@ def calibrate_batch_norm(g, noise):
             h.remove()
 
 
-def phase_main_path(tmp: str):
+def phase_main_path(tmp: str, store: str):
     """Drive the sampler's CLI end to end; returns the kernel launch count."""
-    import numpy as np
     import torch
 
     from facegen_torch import sample
-    from facegen_torch.data.synthetic import draw_synthetic_faces
     from facegen_torch.models import gan
     from facegen_torch.ops import upsample_conv as uc
     from facegen_torch.utils import checkpoint as ckpt
@@ -213,7 +278,6 @@ def phase_main_path(tmp: str):
 
     save_dir = os.path.join(tmp, "logs")
     out_dir = os.path.join(tmp, "samples")
-    store = os.path.join(tmp, "store.npy")
     runs, seed = 2, 1
     # scheme init (reference_init=False) and calibrated batch norms: the
     # reference's N(0, 0.005^2) overwrite, like the init's statistics,
@@ -222,10 +286,7 @@ def phase_main_path(tmp: str):
     calibrate_batch_norm(g, GanInference(g, d, 100).noise(torch.Generator().manual_seed(9), 256))
     ckpt.save_gan(save_dir, "adversarial", g, d,
                   {"scale": 32, "grayscale": False, "noise_dim": 100, "noise_view": "nhwc"})
-    faces = draw_synthetic_faces(torch.Generator().manual_seed(0), 4096)
-    np.save(store, faces.numpy())
-    print(f"main path: wrote a G32 + D32b colour checkpoint and a {faces.shape[0]}-image "
-          f"synthetic store")
+    print("main path: wrote a G32 + D32b colour checkpoint")
 
     argv = ["--save_base", save_dir, "--runs", str(runs), "--seed", str(seed), "--neighbours",
             "--datasetDir", store, "--writeto", out_dir]
@@ -282,6 +343,266 @@ def phase_main_path(tmp: str):
     return launches
 
 
+def phase_bwd_kernels():
+    """dx and dW kernels vs their plain versions, their times, and the
+    autograd Function vs autograd of the plain forward; returns the
+    summary numbers of both kernels."""
+    import torch
+
+    from facegen_torch.ops import upsample_conv as uc
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = {"dx": 0.0, "dw": 0.0}
+    for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + ODD_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, _ = _inputs(n, h, cin, cout, k, dtype, seed=100 + si)
+            dy = torch.randn(n, 2 * h, 2 * h, cout, generator=torch.Generator().manual_seed(si))
+            dy = dy.to("cuda", dtype)
+            wc = uc.collapse_weights(w)
+            dx, dwc = uc.upsample_conv_dx(dy, wc), uc.upsample_conv_dw(x, dy)
+            torch.cuda.synchronize()
+            ref_dx = uc.upsample_conv_dx_reference(dy.float(), wc.float())
+            ref_dw = uc.upsample_conv_dw_reference(x.float(), dy.float())
+            e_dx = (dx.float() - ref_dx).abs()
+            e_dw = (dwc - ref_dw).abs()
+            if dtype == torch.float32:
+                dx_ok = float(e_dx.max()) <= BWD_TOL * float(ref_dx.abs().max())
+            else:  # plus the bf16 rounding of dx, as the forward's output
+                dx_ok = bool((e_dx <= BF16_ATOL + BF16_RTOL * ref_dx.abs()).all())
+            dw_ok = float(e_dw.max()) <= BWD_TOL * float(ref_dw.abs().max())
+            ok = dx_ok and dw_ok and dx.shape == ref_dx.shape and dwc.shape == ref_dw.shape
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            print(f"bwd check {tag} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
+                  f"dx max_abs_err={float(e_dx.max()):.3e} (|dx| <= {float(ref_dx.abs().max()):.2f}), "
+                  f"dW max_abs_err={float(e_dw.max()):.3e} (|dW| <= {float(ref_dw.abs().max()):.1f}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"backward kernels disagree with the plain versions ({tag}, {n, h, cin, cout})")
+            if dtype == torch.bfloat16 and (n, h, cin, cout, k) in TRAIN_SHAPES:
+                err["dx"] = max(err["dx"], float(e_dx.max()))
+                err["dw"] = max(err["dw"], float(e_dw.max()))
+
+    ms = {"dx": 0.0, "dw": 0.0}
+    plain_ms = {"dx": 0.0, "dw": 0.0}
+    for n, h, cin, cout, k in TRAIN_SHAPES:
+        x, w, _ = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
+        dy = torch.randn(n, 2 * h, 2 * h, cout, device="cuda", dtype=torch.bfloat16)
+        wc = uc.collapse_weights(w)
+        for which, kern, plain, flop in (
+                ("dx", lambda: uc.upsample_conv_dx(dy, wc),
+                 lambda: uc.upsample_conv_dx_reference(dy, wc), 2 * n * h * h * cin * 9 * 4 * cout),
+                ("dw", lambda: uc.upsample_conv_dw(x, dy),
+                 lambda: uc.upsample_conv_dw_reference(x, dy), 2 * n * h * h * cin * 9 * 4 * cout)):
+            t, runs = _time_turns({"kernel": kern, "plain": plain})
+            print(f"time bf16 {which} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
+                  f"kernel {t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), "
+                  f"plain {t['plain']:.4f} ms ({flop / t['plain'] / 1e9:.1f} TFLOP/s) "
+                  f"(runs {runs})")
+            ms[which] += t["kernel"]
+            plain_ms[which] += t["plain"]
+
+    # the Function's gradients against autograd of the plain forward, fp32
+    for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + ODD_SHAPES[:2]):
+        x, w, b = _inputs(n, h, cin, cout, k, torch.float32, seed=200 + si)
+        wc = uc.collapse_weights(w)
+        dy = torch.randn(n, 2 * h, 2 * h, cout, device="cuda")
+        grads = []
+        for fn in (uc.UpsampleConvFunction.apply, uc.upsample_conv_reference):
+            xs, wcs, bs = (t.clone().requires_grad_() for t in (x, wc, b))
+            fn(xs, wcs, bs).backward(dy)
+            grads.append((xs.grad, wcs.grad, bs.grad))
+        torch.cuda.synchronize()
+        errs = [float((a - r).abs().max()) for a, r in zip(*grads)]
+        bounds = [float(FP32_TOL * (1 + r.abs().max())) for r in grads[1]]
+        ok = all(e <= bnd for e, bnd in zip(errs, bounds))
+        print(f"autograd Function vs plain forward's autograd, fp32 N={n} {h}x{h}x{cin}->{cout}: "
+              f"dx {errs[0]:.3e}, dWc {errs[1]:.3e}, db {errs[2]:.3e} {'ok' if ok else 'FAIL'}")
+        check(ok, f"UpsampleConvFunction's gradients disagree ({n, h, cin, cout})")
+    return {w: {"max_abs_err": err[w], "ms": ms[w], "plain_ms": plain_ms[w]} for w in ms}
+
+
+def write_store(tmp: str) -> str:
+    """A 4096-image synthetic store (64x64 uint8 faces) under ``tmp``."""
+    import numpy as np
+    import torch
+
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+
+    store = os.path.join(tmp, "store.npy")
+    faces = draw_synthetic_faces(torch.Generator().manual_seed(0), 4096)
+    np.save(store, faces.numpy())
+    print(f"wrote a {faces.shape[0]}-image synthetic store")
+    return store
+
+
+def _reset_launches():
+    from facegen_torch.ops import upsample_conv as uc
+
+    uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0
+
+
+def _launches():
+    from facegen_torch.ops import upsample_conv as uc
+
+    return {"upsample_conv_fwd": uc.KERNEL_LAUNCHES, "upsample_conv_dx": uc.DX_LAUNCHES,
+            "upsample_conv_dw": uc.DW_LAUNCHES}
+
+
+def phase_training(tmp: str, store: str):
+    """Drive the trainer's CLI end to end; returns the kernels' launch
+    counts in its 2-epoch run."""
+    import json as _json
+    import math
+
+    import torch
+
+    from facegen_torch import train
+    from facegen_torch.train.step import steps_per_epoch
+
+    save = os.path.join(tmp, "train_logs")
+    argv = ["--datasetDir", store, "--save", save, "--saveFreq", "1"]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train.main(argv + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    steps = 2 * steps_per_epoch(trainer.cfg)
+    viz_calls = 2  # one progress grid set per epoch: G on 100 fixed + 300 random noise
+    print(f"training path: train.main --epochs 2 took {run_s:.3f} s for {steps} steps; "
+          f"launches {launches}")
+    check(steps == 126, f"expected 2 x 63 steps at the default flags, got {steps}")
+    check(launches["upsample_conv_dx"] == 2 * steps,
+          f"dx launches {launches['upsample_conv_dx']} != 2 x {steps} steps")
+    check(launches["upsample_conv_dw"] == 2 * steps,
+          f"dW launches {launches['upsample_conv_dw']} != 2 x {steps} steps")
+    # per step: G in the D phase and in the G phase, 2 upsample-convs each;
+    # per grid set: G on the fixed and on the random noise
+    want_fwd = 4 * steps + 4 * viz_calls
+    check(launches["upsample_conv_fwd"] == want_fwd,
+          f"forward launches {launches['upsample_conv_fwd']} != {want_fwd}")
+    for name in ("adversarial", "adversarial.old"):
+        check(os.path.exists(os.path.join(save, name, "arrays.npz")), f"missing checkpoint {name}")
+    for name in ("samples_fixed", "best50", "worst50", "real100"):
+        path = os.path.join(save, "viz", f"{name}.png")
+        check(os.path.exists(path) and os.path.getsize(path) > 0, f"missing grid {path}")
+
+    trainer2 = train.main(argv + ["--epochs", "1", "--network", "adversarial"])
+    check(trainer2.state.epoch == 4, f"resumed run ends at epoch {trainer2.state.epoch}, want 4")
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        rows = [_json.loads(line) for line in f if line.strip()]
+    check(len(rows) == 3, f"metrics.jsonl has {len(rows)} rows, want 3")
+    check([r["epoch"] for r in rows] == [1, 2, 3], f"epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        check(math.isfinite(r["loss_d_mean"]) and math.isfinite(r["loss_g_mean"]),
+              f"non-finite losses in {r}")
+    print("training path: metrics.jsonl " + "; ".join(
+        f"epoch {r['epoch']}: loss_d {r['loss_d_mean']:.4f} loss_g {r['loss_g_mean']:.4f} "
+        f"acc_d {r['acc_d_mean']:.4f} trained D {r['trained_d']}/"
+        f"{r['trained_d'] + r['not_trained_d']} {r['images_per_sec']:.1f} images/s"
+        for r in rows))
+    print(f"training path: warm epoch (2) {rows[1]['images_per_sec']:.1f} images/s "
+          f"(1000 examples per epoch, host clock {rows[1]['seconds']:.3f} s for 63 steps "
+          f"with the epoch's read-back; grids and pool outside the clock)")
+
+    # time per step on the stream, CUDA events over 30 steps after 5 warm-up
+    # steps: the device's work and its waits for the host's launches
+    gen = torch.Generator(device=trainer2.device).manual_seed(11)
+    pool = trainer2.source.epoch_pool(gen, trainer2.pool_n)
+    trainer2.run_steps(pool, gen, 5)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer2.run_steps(pool, gen, 30)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 30
+    n_epoch, per_epoch = trainer2.cfg.n_epoch, steps_per_epoch(trainer2.cfg)
+    print(f"training path: {step_ms:.4f} ms per step on the stream (CUDA events over 30 "
+          f"steps, batch 32, bf16, waits for the host included): "
+          f"{n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at the epoch's count of "
+          f"{n_epoch} examples per {per_epoch} steps")
+    return launches
+
+
+def phase_step_parity():
+    """One fp32 train step on the card against the same step on the CPU:
+    the same weights, pool and injected draws."""
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.models import gan
+    from facegen_torch.train.step import (
+        DDraws,
+        GDraws,
+        StepDraws,
+        TrainStep,
+        draw_step,
+        init_state,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
+    dev = torch.device("cuda", 0)
+
+    def build(device):
+        g, d = gan.init_gan(torch.Generator().manual_seed(5), cfg.scale, cfg.channels,
+                            cfg.noise_dim, reference_init=False, device=device)
+        bias_gen = torch.Generator().manual_seed(8)
+        with torch.no_grad():
+            for name, p in g.named_parameters():
+                if name.endswith("bias"):
+                    p.copy_(torch.rand(p.shape, generator=bias_gen) * 0.2 - 0.1)
+        return init_state(cfg, g, d), TrainStep(cfg, g, d)
+
+    cpu_state, cpu_step = build("cpu")
+    gpu_state, gpu_step = build(dev)
+    pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32, 3)
+    draws = draw_step(torch.Generator().manual_seed(7), cfg, pool.shape[0], cpu_step.mask_specs)
+    moved = StepDraws(
+        tuple(DDraws(x.idx.to(dev), x.noise.to(dev), {k: m.to(dev) for k, m in x.masks.items()})
+              for x in draws.d),
+        tuple(GDraws(x.noise.to(dev), {k: m.to(dev) for k, m in x.masks.items()})
+              for x in draws.g))
+    before = {net: [p.detach().clone() for p in getattr(cpu_state, net).parameters()]
+              for net in ("g", "d")}
+    cpu_m = cpu_step(cpu_state, pool, draws)
+    gpu_m = gpu_step(gpu_state, pool.to(dev), moved)
+    torch.cuda.synchronize()
+
+    def rel_l2(ours, ref):
+        num = sum(float(((o.detach().cpu() - r.detach()) ** 2).sum()) for o, r in zip(ours, ref))
+        den = sum(float((r.detach() ** 2).sum()) for r in ref)
+        return (num / max(den, 1e-300)) ** 0.5
+
+    ok, lines = True, []
+    for net in ("g", "d"):
+        gpu_net, cpu_net = getattr(gpu_state, net), getattr(cpu_state, net)
+        opt_gpu, opt_cpu = getattr(gpu_state, f"opt_{net}"), getattr(cpu_state, f"opt_{net}")
+        ok &= int(opt_gpu["count"]) == int(opt_cpu["count"]) == 1
+        errs = {kind: rel_l2(opt_gpu[kind], opt_cpu[kind]) for kind in ("mu", "nu")}
+        errs["update"] = rel_l2([p.cpu() - b for p, b in zip(gpu_net.parameters(), before[net])],
+                                [p - b for p, b in zip(cpu_net.parameters(), before[net])])
+        stat = max((float((a.cpu() - cpu_net.get_buffer(n)).abs().max())
+                    / float(cpu_net.get_buffer(n).abs().max())
+                    for n, a in gpu_net.named_buffers()), default=0.0)
+        ok &= (errs["mu"] <= STEP_GRAD_TOL and errs["nu"] <= STEP_GRAD_TOL
+               and errs["update"] <= STEP_UPDATE_TOL and stat <= STEP_STAT_TOL)
+        lines.append(f"{net.upper()}: gradient (mu) {errs['mu']:.3e}, nu {errs['nu']:.3e}, "
+                     f"update {errs['update']:.3e}, BN statistics {stat:.3e}")
+    for key in ("accs", "accs_n", "confusion", "trained_d", "not_trained_d"):
+        ok &= torch.equal(getattr(gpu_state, key).cpu(), getattr(cpu_state, key))
+    print(f"step parity fp32, card vs CPU, G32 + D32b batch 32, relative l2 errors: "
+          f"{'; '.join(lines)} (tolerances {STEP_GRAD_TOL}, {STEP_UPDATE_TOL}, "
+          f"{STEP_STAT_TOL}); loss_d {float(gpu_m.loss_d):.6f} / {float(cpu_m.loss_d):.6f}, "
+          f"loss_g {float(gpu_m.loss_g):.6f} / {float(cpu_m.loss_g):.6f}; counters equal; "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the card's fp32 train step disagrees with the CPU's")
+
+
 def main() -> int:
     try:
         name = phase_device()
@@ -292,18 +613,24 @@ def main() -> int:
 
     try:
         phase_build()
-        summary = phase_kernels()
+        summary = {"upsample_conv_fwd": phase_kernels()}
+        bwd = phase_bwd_kernels()
+        summary["upsample_conv_dx"], summary["upsample_conv_dw"] = bwd["dx"], bwd["dw"]
         with tempfile.TemporaryDirectory() as tmp:
-            launches = phase_main_path(tmp)
+            store = write_store(tmp)
+            sampler_launches = phase_main_path(tmp, store)
+            launches = phase_training(tmp, store)
+        phase_step_parity()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [{
-        "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"],
-    }]}))
+    print(f"launches: sampler path {sampler_launches} forward; training path {launches}")
+    # launches: the training path's 2-epoch run, which runs all three
+    # kernels; max_abs_err (bf16) and ms (both layers at N = 32) at its shapes
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], **summary[name]}
+        for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,13 +1,124 @@
-"""Run configuration of the port's sampler.
+"""Run configurations of the port's trainer and sampler.
 
-Fields of facegen/config.py:SampleConfig (flags of ``th sample.lua``),
-copied rather than imported: importing facegen pulls in JAX.
+Fields of facegen/config.py:TrainConfig and SampleConfig (flags of
+``th train.lua`` and ``th sample.lua``), copied rather than imported:
+importing facegen pulls in JAX. TrainConfig keeps facegen's field names,
+so a checkpoint's stored config reads the same in both packages.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import math
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Flags of ``th train.lua`` (train.lua:16-50) and facegen's
+    additions. Not carried: facegen's trace_dir and debug_nans (JAX
+    tooling), and guard_nonfinite and g_train_in_d_phase, ablations no
+    flag sets (the port always trains G's statistics in the D phase and
+    never skips a non-finite update, as facegen's defaults do).
+    ``validate`` rejects the paths that are not ported."""
+
+    batch_size: int = 32          # --batchSize (even, >= 4; train.lua:56-60)
+    save: str = "logs"            # --save
+    save_freq: int = 30           # --saveFreq
+    network: str = ""             # --network (checkpoint to resume)
+    noplot: bool = False          # --noplot
+    n_epoch: int = 1000           # --N_epoch (examples per epoch, -1 = all)
+    g_sgd_lr: float = 0.02        # --G_SGD_lr
+    g_sgd_momentum: float = 0.0   # --G_SGD_momentum
+    d_sgd_lr: float = 0.02        # --D_SGD_lr
+    d_sgd_momentum: float = 0.0   # --D_SGD_momentum
+    g_adam_lr: float = -1.0       # --G_adam_lr (-1 = optim default 0.001)
+    d_adam_lr: float = -1.0       # --D_adam_lr
+    g_l1: float = 0.0             # --G_L1
+    g_l2: float = 0.0             # --G_L2
+    d_l1: float = 0.0             # --D_L1
+    d_l2: float = 1e-4            # --D_L2
+    d_iterations: int = 1         # --D_iterations
+    g_iterations: int = 1         # --G_iterations
+    d_max_acc: float = 1.01       # --D_maxAcc (accuracy gate threshold)
+    d_clamp: float = 1.0          # --D_clamp (0 = off)
+    g_clamp: float = 5.0          # --G_clamp (0 = off)
+    d_optmethod: str = "adam"     # --D_optmethod: sgd|adagrad|adam
+    g_optmethod: str = "adam"     # --G_optmethod
+    threads: int = 8              # --threads (accepted; the port has no host workers)
+    noise_dim: int = 100          # --noiseDim
+    window: int = 3               # --window: non-default ids prefix viz PNGs with w{id}_
+    scale: int = 32               # --scale (16 or 32)
+    seed: int = 1                 # --seed
+    weights_vis_freq: int = 0     # --weightsVisFreq (must stay 0: not ported yet)
+    grayscale: bool = False       # --grayscale
+    denoise: bool = False         # --denoise (must stay False: not ported yet)
+    aws: bool = False             # --aws (dataset dir switch, train.lua:166)
+    coef_l1: float = 0.0          # --coefL1 (AE/denoiser trainers only)
+    coef_l2: float = 0.0          # --coefL2
+    ae_clamp: float = 1.0         # --AE_clamp
+    # facegen's additions
+    mesh_shape: Tuple[int, ...] = (1,)    # one device: multi-device is not ported yet
+    compute_dtype: str = "bfloat16"       # activations dtype; params stay fp32
+    reference_init: bool = True           # the reference's gaussian overwrite
+    reference_g_penalty_bug: bool = True  # adversarial.lua:223: G_L2 scales both
+                                          # penalty gradient terms
+    dataset_dir: Optional[str] = None
+    synthetic_data: bool = False
+    epochs: int = -1                      # stop after N epochs (-1 = forever)
+    epochs_per_compile: int = 0           # accepted and ignored: eager PyTorch
+                                          # has no compiled epoch program
+    noise_view: str = "nhwc"              # G's fc -> planes wiring ("nhwc"/"nchw")
+    boundary_pad: int = 0                 # must stay 0: not ported
+    # the port's own
+    gpu: int = 0                          # --gpu: CUDA device index
+
+    @property
+    def channels(self) -> int:
+        return 1 if self.grayscale else 3
+
+    @property
+    def img_shape(self) -> Tuple[int, int, int]:
+        return (self.scale, self.scale, self.channels)
+
+    @property
+    def accs_interval(self) -> int:
+        """The D accuracy gate's window: max(20, min(1000/batchSize,
+        250)) batches, floored (train.lua:207, adversarial.lua:157-159)."""
+        return int(math.floor(max(20.0, min(1000.0 / self.batch_size, 250.0))))
+
+    @property
+    def d_adam_lr_effective(self) -> float:
+        return self.d_adam_lr if self.d_adam_lr > 0 else 1e-3
+
+    @property
+    def g_adam_lr_effective(self) -> float:
+        return self.g_adam_lr if self.g_adam_lr > 0 else 1e-3
+
+    def validate(self) -> "TrainConfig":
+        if self.batch_size % 2 != 0 or self.batch_size < 4:
+            raise ValueError("batch size must be a multiple of 2 and >= 4 (train.lua:56-60)")
+        if self.scale not in (16, 32):
+            raise ValueError(f"--scale {self.scale}: G16/G32 only (16 or 32)")
+        for which, method in (("D", self.d_optmethod), ("G", self.g_optmethod)):
+            if method not in ("sgd", "adagrad", "adam"):
+                raise ValueError(f"unknown {which} optimizer {method!r}")
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute dtype {self.compute_dtype!r}: bfloat16 or float32")
+        if self.noise_view not in ("nhwc", "nchw"):
+            raise ValueError(f"unknown noise_view {self.noise_view!r}")
+        if self.boundary_pad > 0:
+            raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
+                             "on the TPU); leave it at 0")
+        if self.denoise:
+            raise ValueError("--denoise: the denoiser is not ported yet")
+        if self.weights_vis_freq > 0:
+            raise ValueError("--weightsVisFreq: activation dumps are not ported yet")
+        if tuple(self.mesh_shape) not in ((1,), (-1,)):
+            raise ValueError(f"--meshShape {self.mesh_shape}: multi-device training "
+                             f"is not ported yet")
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +151,86 @@ class SampleConfig:
     @property
     def channels(self) -> int:
         return 1 if self.grayscale else 3
+
+
+def _add_bool(p: argparse.ArgumentParser, name: str, help: str):
+    p.add_argument(name, action="store_true", default=False, help=help)
+
+
+def train_arg_parser() -> argparse.ArgumentParser:
+    """facegen's trainer CLI (facegen/config.py:271-349), flag for flag."""
+    p = argparse.ArgumentParser(
+        description="facegen_torch GAN trainer on one CUDA GPU (reference: th train.lua)")
+    p.add_argument("--batchSize", type=int, default=32, dest="batch_size")
+    p.add_argument("--save", type=str, default="logs")
+    p.add_argument("--saveFreq", type=int, default=30, dest="save_freq")
+    p.add_argument("--network", type=str, default="")
+    _add_bool(p, "--noplot", "do not write visualization grids")
+    p.add_argument("--N_epoch", type=int, default=1000, dest="n_epoch")
+    p.add_argument("--G_SGD_lr", type=float, default=0.02, dest="g_sgd_lr")
+    p.add_argument("--G_SGD_momentum", type=float, default=0.0, dest="g_sgd_momentum")
+    p.add_argument("--D_SGD_lr", type=float, default=0.02, dest="d_sgd_lr")
+    p.add_argument("--D_SGD_momentum", type=float, default=0.0, dest="d_sgd_momentum")
+    p.add_argument("--G_adam_lr", type=float, default=-1.0, dest="g_adam_lr")
+    p.add_argument("--D_adam_lr", type=float, default=-1.0, dest="d_adam_lr")
+    p.add_argument("--G_L1", type=float, default=0.0, dest="g_l1")
+    p.add_argument("--G_L2", type=float, default=0.0, dest="g_l2")
+    p.add_argument("--D_L1", type=float, default=0.0, dest="d_l1")
+    p.add_argument("--D_L2", type=float, default=1e-4, dest="d_l2")
+    p.add_argument("--D_iterations", type=int, default=1, dest="d_iterations")
+    p.add_argument("--G_iterations", type=int, default=1, dest="g_iterations")
+    p.add_argument("--D_maxAcc", type=float, default=1.01, dest="d_max_acc")
+    p.add_argument("--D_clamp", type=float, default=1.0, dest="d_clamp")
+    p.add_argument("--G_clamp", type=float, default=5.0, dest="g_clamp")
+    p.add_argument("--D_optmethod", type=str, default="adam", dest="d_optmethod")
+    p.add_argument("--G_optmethod", type=str, default="adam", dest="g_optmethod")
+    p.add_argument("--threads", type=int, default=8, help="accepted; unused")
+    p.add_argument("--gpu", type=int, default=0, help="CUDA device index")
+    p.add_argument("--noiseDim", type=int, default=100, dest="noise_dim")
+    p.add_argument("--window", type=int, default=3)
+    p.add_argument("--scale", type=int, default=32)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--weightsVisFreq", type=int, default=0, dest="weights_vis_freq",
+                   help="not ported yet: must stay 0")
+    _add_bool(p, "--grayscale", "train on 1-channel images")
+    _add_bool(p, "--denoise", "not ported yet")
+    _add_bool(p, "--aws", "AWS dataset path (train.lua:166-170)")
+    p.add_argument("--coefL1", type=float, default=0.0, dest="coef_l1",
+                   help="AE/denoiser trainers only; unused here")
+    p.add_argument("--coefL2", type=float, default=0.0, dest="coef_l2",
+                   help="AE/denoiser trainers only; unused here")
+    p.add_argument("--AE_clamp", type=float, default=1.0, dest="ae_clamp",
+                   help="denoiser trainer only; unused here")
+    p.add_argument("--computeDtype", type=str, default="bfloat16", dest="compute_dtype",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--meshShape", type=str, default="-1", dest="mesh_shape",
+                   help="'1' or '-1' (one device); more devices are not ported yet")
+    p.add_argument("--epochs", type=int, default=-1,
+                   help="number of epochs to run (-1 = forever)")
+    p.add_argument("--epochsPerCompile", type=int, default=0, dest="epochs_per_compile",
+                   help="accepted and ignored: the port runs eagerly, epoch by epoch")
+    p.add_argument("--boundaryPad", type=int, default=0, dest="boundary_pad",
+                   help="not ported: must stay 0")
+    _add_bool(p, "--modernInit", "disable the reference's gaussian-overwrite init")
+    _add_bool(p, "--syntheticData", "use procedural faces (no LFW needed)")
+    p.add_argument("--datasetDir", type=str, default=None, dest="dataset_dir")
+    return p
+
+
+def train_config_from_args(argv=None) -> TrainConfig:
+    """Parse and validate; flags of paths that are not ported exit with
+    a parser error that says so."""
+    p = train_arg_parser()
+    a = p.parse_args(argv)
+    try:
+        mesh = tuple(int(v) for v in str(a.mesh_shape).split(","))
+    except ValueError:
+        p.error(f"--meshShape {a.mesh_shape!r}: not a comma-separated list of ints")
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    kw = {k: v for k, v in vars(a).items() if k in fields}
+    kw.update(mesh_shape=mesh, reference_init=not a.modernInit,
+              synthetic_data=a.syntheticData)
+    try:
+        return TrainConfig(**kw).validate()
+    except ValueError as e:
+        p.error(str(e))

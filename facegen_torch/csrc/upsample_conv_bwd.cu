@@ -1,0 +1,594 @@
+// Fused nearest-upsample(2x) + KxK same-pad conv, backward, for sm_90a:
+// the input gradient dx and the collapsed weight gradient dWc.
+//
+// Replaces the TPU kernels of facegen/ops/pallas/upsample_conv.py:
+//   upsample_conv_dx_pallas (conv3x3_pallas on pad(S2D(dy)) with the
+//     collapsed weight flipped and transposed), and
+//   _dw_kernel + upsample_conv_dw_pallas (nine x_pad^T @ S2D(dy) dots
+//     accumulated over batch tiles into (9, Cin, 4*Cout) fp32).
+// The forward (csrc/upsample_conv.cu) is the 3x3 phase conv
+//   y[n,i,j, p*Cout+o] = sum_{u,v,c} x[n,i+u-1,j+v-1,c] wc[(u*3+v)*Cin+c, p*Cout+o]
+// followed by depth-to-space, p = 2a+b landing at (2i+a, 2j+b). With
+// S2D(dy)[n,i,j, p*Cout+o] = dy[n,2i+a,2j+b,o], its two gradients are
+//   dx[n,i,j,c]  = sum_{u,v,col} S2D(dy)[n,i-u+1,j-v+1,col] wc[(u*3+v)*Cin+c, col]
+//   dWc[(u*3+v)*Cin+c, col] = sum_{n,i,j} x[n,i+u-1,j+v-1,c] S2D(dy)[n,i,j,col].
+//
+// Design. Both are implicit GEMMs on the forward's tiles (128 x 128 x 32,
+// four warps of 64 x 64, bf16 WMMA with fp32 accumulate, a 3-stage
+// cp.async ring; fp32: a 64 x 64 x 16 SIMT tile). Neither the padded
+// copy nor S2D(dy) is ever written: the loads read dy in space-to-depth
+// order (a K chunk of 8 columns is 8 channels of one dy pixel, since
+// Cout % 8 == 0) and mask the image border to zero.
+// - dx: rows are the N*H*W input pixels, columns Cin, K = (tap, phase,
+//   cout). The A load for tap (du, dv) reads S2D(dy) at (i-du, j-dv),
+//   which is the Pallas kernel's flipped tap, and B is wc read in place:
+//   B[col, c] = wc[tap*Cin+c, col], tap t's block read column-major, so
+//   no flipped or transposed copy of the weight exists.
+// - dW: rows are (tap, cin), columns (phase, cout), K = the N*H*W
+//   pixels. A (= x shifted by the tap) is read pixel-major, as a
+//   column-major operand.
+//
+// What bounds them. At batch 32 the GEMMs are small for 132 SMs: dx of
+// upconv1 has 16 output tiles and K = 9216, and dW has 72 output tiles
+// (1152 x 1024 and 2304 x 512) with K = 2048 and 8192 pixels. So both
+// split K over blockIdx.y into fp32 partials, which a second kernel sums
+// in a fixed order: deterministic, unlike atomics, for a workspace of at
+// most ~19 MB at G's shapes. The split is chosen here
+// (facegen_upconv_bwd_splits) so the grid holds about two blocks per SM.
+//
+// Requirements, checked by the Python wrapper: contiguous NHWC tensors,
+// Cin and Cout multiples of 8, 16-byte aligned pointers, fewer than
+// 2^31 elements per tensor.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <type_traits>
+
+namespace {
+
+using namespace nvcuda;
+
+struct Geom {
+  int n, h, w, cin, cout;  // x is (n, h, w, cin); dy is (n, 2h, 2w, cout)
+  int m;                   // input pixels n * h * w
+  int c4;                  // collapsed columns 4 * cout
+};
+
+Geom make_geom(int n, int h, int w, int cin, int cout) {
+  return Geom{n, h, w, cin, cout, n * h * w, 4 * cout};
+}
+
+__device__ __forceinline__ void pixel_of(int m, const Geom& g, int& b, int& i, int& j) {
+  const int hw = g.h * g.w;
+  b = m / hw;
+  const int r = m - b * hw;
+  i = r / g.w;
+  j = r - i * g.w;
+}
+
+__device__ __forceinline__ bool inside(int y, int x, const Geom& g) {
+  return y >= 0 && y < g.h && x >= 0 && x < g.w;
+}
+
+// Element offset of S2D(dy)[b, y, x, col] = dy[b, 2y+a, 2x+c, o], col = p*cout+o, p = 2a+c.
+__device__ __forceinline__ long long s2d_offset(int b, int y, int x, int col, const Geom& g) {
+  const int p = col / g.cout;
+  const int o = col - p * g.cout;
+  return (((long long)b * 2 * g.h + 2 * y + (p >> 1)) * (2 * g.w) + 2 * x + (p & 1)) * g.cout + o;
+}
+
+// K steps of depth `bk`: dx runs 9 taps x the (phase, cout) columns, dW the pixels.
+__host__ __device__ __forceinline__ int dx_steps(const Geom& g, int bk) { return 9 * ((g.c4 + bk - 1) / bk); }
+__host__ __device__ __forceinline__ int dw_steps(const Geom& g, int bk) { return (g.m + bk - 1) / bk; }
+
+// K steps [begin, end) of split `s` out of `splits`.
+__device__ __forceinline__ void split_range(int steps, int splits, int s, int& begin, int& end) {
+  begin = (int)((long long)steps * s / splits);
+  end = (int)((long long)steps * (s + 1) / splits);
+}
+
+// ---------------------------------------------------------------- bf16
+constexpr int BM = 128, BN = 128, BK = 32, SPAD = 8;
+constexpr int WARPS_M = 2, WARPS_N = 2;
+constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // warp tile 64 x 64
+constexpr int FM = WTM / 16, FN = WTN / 16;            // 4 x 4 fragments
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;        // 128
+constexpr int STAGES = 3;
+// An operand tile is stored either long ([128][BK+SPAD], K contiguous)
+// or wide ([BK][128+SPAD], rows or columns contiguous); a stage holds
+// the larger of the two for each operand.
+constexpr int TILE_LONG = BM * (BK + SPAD);
+constexpr int TILE_WIDE = BK * (BM + SPAD);
+constexpr int STAGE = TILE_LONG > TILE_WIDE ? TILE_LONG : TILE_WIDE;
+constexpr int SMEM_BF16 = STAGES * 2 * STAGE * 2;  // 61440 bytes
+static_assert(BM == BN, "the operand tiles share one stage size");
+static_assert(WARPS_M * WARPS_N * 16 * 16 * 4 <= SMEM_BF16, "epilogue scratch fits");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// The MMA main loop over K steps [k_begin, k_end), shared by dx and dW.
+// A_WIDE: the A tile is stored [BK][BM+SPAD] (element (r, k) at
+// k*(BM+SPAD)+r: a column-major operand), else [BM][BK+SPAD] (row-major).
+// B_WIDE: the B tile is stored [BK][BN+SPAD] (row-major), else
+// [BN][BK+SPAD] (element (k, n) at n*(BK+SPAD)+k: column-major).
+// load_tile(stage, kt) issues the cp.async copies of K step kt.
+template <bool A_WIDE, bool B_WIDE, typename LoadTile>
+__device__ __forceinline__ void mainloop(Acc (&acc)[FM][FN], const __nv_bfloat16* As,
+                                         const __nv_bfloat16* Bs, int k_begin, int k_end,
+                                         LoadTile& load_tile, int wm, int wn) {
+  using ALayout = typename std::conditional<A_WIDE, wmma::col_major, wmma::row_major>::type;
+  using BLayout = typename std::conditional<B_WIDE, wmma::row_major, wmma::col_major>::type;
+  constexpr int LDA = A_WIDE ? BM + SPAD : BK + SPAD;
+  constexpr int LDB = B_WIDE ? BN + SPAD : BK + SPAD;
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn) wmma::fill_fragment(acc[fm][fn], 0.0f);
+
+  const int steps = k_end - k_begin;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_tile(s, k_begin + s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    // step t has landed once at most STAGES-2 newer groups are pending;
+    // the barrier also frees the stage that step t-1 was read from
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = t + STAGES - 1;
+    if (next < steps) load_tile(next % STAGES, k_begin + next);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+
+    const __nv_bfloat16* as = As + (t % STAGES) * STAGE;
+    const __nv_bfloat16* bs = Bs + (t % STAGES) * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> af[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf[FN];
+#pragma unroll
+      for (int fm = 0; fm < FM; ++fm) {
+        const int r = wm * WTM + fm * 16;
+        wmma::load_matrix_sync(af[fm], as + (A_WIDE ? kk * LDA + r : r * LDA + kk), LDA);
+      }
+#pragma unroll
+      for (int fn = 0; fn < FN; ++fn) {
+        const int c = wn * WTN + fn * 16;
+        wmma::load_matrix_sync(bf[fn], bs + (B_WIDE ? kk * LDB + c : c * LDB + kk), LDB);
+      }
+#pragma unroll
+      for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+        for (int fn = 0; fn < FN; ++fn) wmma::mma_sync(acc[fm][fn], af[fm], bf[fn], acc[fm][fn]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: its start becomes the epilogue scratch
+}
+
+// Epilogue: each fragment goes through this warp's 16x16 fp32 scratch; a
+// lane then owns 8 consecutive columns of one row and hands them to
+// store8(row, col, values).
+template <typename Store8>
+__device__ __forceinline__ void epilogue(Acc (&acc)[FM][FN], unsigned char* smem, int m0, int n0,
+                                         int wm, int wn, Store8& store8) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* cs = reinterpret_cast<float*>(smem) + warp * 16 * 16;
+  const int er = lane / 2, ec = (lane % 2) * 8;
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm) {
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn) {
+      wmma::store_matrix_sync(cs, acc[fm][fn], 16, wmma::mem_row_major);
+      __syncwarp();
+      store8(m0 + wm * WTM + fm * 16 + er, n0 + wn * WTN + fn * 16 + ec, cs + er * 16 + ec);
+      __syncwarp();
+    }
+  }
+}
+
+__device__ __forceinline__ void store8_f32(float* dst, const float* v) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// dx = implicit GEMM (N*H*W pixels) x (9 * 4*Cout) x (Cin). With one
+// split it writes bf16 dx; with more, fp32 partials ws[split][m][c].
+__global__ void __launch_bounds__(THREADS)
+upconv_dx_bf16(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ wc,
+               __nv_bfloat16* __restrict__ dx, float* __restrict__ ws, Geom g, int splits) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][BK+SPAD]
+  __nv_bfloat16* Bs = As + STAGES * STAGE;                        // [STAGES][BN][BK+SPAD]
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int tiles_n = (g.cin + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM;
+  const int n0 = (blockIdx.x % tiles_n) * BN;
+
+  // A: 4 chunks of 8 K columns per row, 32 rows per pass, 4 passes; a
+  // thread loads the same 4 pixel rows at every K step.
+  constexpr int CH = BK / 8, ROWS = THREADS / CH, PASSES = BM / ROWS;
+  const int chunk = tid % CH;
+  int a_b[PASSES], a_i[PASSES], a_j[PASSES];
+  bool a_ok[PASSES];
+#pragma unroll
+  for (int s = 0; s < PASSES; ++s) {
+    const int m = m0 + tid / CH + s * ROWS;
+    a_ok[s] = m < g.m;
+    pixel_of(a_ok[s] ? m : 0, g, a_b[s], a_i[s], a_j[s]);
+  }
+  const int chunks = (g.c4 + BK - 1) / BK;
+
+  auto load_tile = [&](int stage, int kt) {
+    const int tap = kt / chunks;
+    const int col = (kt - tap * chunks) * BK + chunk * 8;
+    const int du = tap / 3 - 1, dv = tap % 3 - 1;
+    __nv_bfloat16* as = As + stage * STAGE;
+    __nv_bfloat16* bs = Bs + stage * STAGE;
+    // dx[i, j] reads S2D(dy) at (i - du, j - dv) with tap (du, dv)'s weight
+#pragma unroll
+    for (int s = 0; s < PASSES; ++s) {
+      const int y = a_i[s] - du, x = a_j[s] - dv;
+      const bool ok = a_ok[s] && col < g.c4 && inside(y, x, g);
+      const __nv_bfloat16* src = ok ? dy + s2d_offset(a_b[s], y, x, col, g) : dy;
+      cp_async16(as + (tid / CH + s * ROWS) * (BK + SPAD) + chunk * 8, src, ok);
+    }
+    // B[col, c] = wc[(tap)*Cin + c, col]: column-major, K contiguous
+#pragma unroll
+    for (int s = 0; s < PASSES; ++s) {
+      const int nr = tid / CH + s * ROWS;
+      const int c = n0 + nr;
+      const bool ok = c < g.cin && col < g.c4;
+      const __nv_bfloat16* src = ok ? wc + ((long long)tap * g.cin + c) * g.c4 + col : wc;
+      cp_async16(bs + nr * (BK + SPAD) + chunk * 8, src, ok);
+    }
+  };
+
+  int k_begin, k_end;
+  split_range(dx_steps(g, BK), splits, blockIdx.y, k_begin, k_end);
+  Acc acc[FM][FN];
+  mainloop<false, false>(acc, As, Bs, k_begin, k_end, load_tile, wm, wn);
+
+  auto store8 = [&](int m, int c, const float* v) {
+    if (m >= g.m || c >= g.cin) return;
+    if (splits == 1) {
+      __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16(v[t]);
+      *reinterpret_cast<uint4*>(dx + (long long)m * g.cin + c) = *reinterpret_cast<const uint4*>(o);
+    } else {
+      store8_f32(ws + ((long long)blockIdx.y * g.m + m) * g.cin + c, v);
+    }
+  };
+  epilogue(acc, smem, m0, n0, wm, wn, store8);
+}
+
+// dWc = implicit GEMM (9*Cin) x (N*H*W pixels) x (4*Cout), fp32 out;
+// with more than one split, into fp32 partials ws[split][row][col].
+__global__ void __launch_bounds__(THREADS)
+upconv_dw_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+               float* __restrict__ dwc, float* __restrict__ ws, Geom g, int splits) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BK][BM+SPAD]
+  __nv_bfloat16* Bs = As + STAGES * STAGE;                        // [STAGES][BK][BN+SPAD]
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int rows = 9 * g.cin;
+  const int tiles_n = (g.c4 + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM;
+  const int n0 = (blockIdx.x % tiles_n) * BN;
+
+  // 16 chunks of 8 rows (A) or 8 columns (B) per pixel, 8 pixels per
+  // pass, 4 passes; a thread keeps its chunk at every K step. 8 rows lie
+  // in one tap (Cin % 8 == 0), 8 columns in one phase (Cout % 8 == 0).
+  constexpr int CH = BM / 8, KROWS = THREADS / CH, PASSES = BK / KROWS;
+  const int chunk = tid % CH;
+  const int r = m0 + chunk * 8;
+  const bool r_ok = r < rows;
+  const int tap = r_ok ? r / g.cin : 0;
+  const int c = r - tap * g.cin;
+  const int du = tap / 3 - 1, dv = tap % 3 - 1;
+  const int col = n0 + chunk * 8;
+  const bool col_ok = col < g.c4;
+
+  auto load_tile = [&](int stage, int kt) {
+    __nv_bfloat16* as = As + stage * STAGE;
+    __nv_bfloat16* bs = Bs + stage * STAGE;
+#pragma unroll
+    for (int s = 0; s < PASSES; ++s) {
+      const int kr = tid / CH + s * KROWS;
+      const int m = kt * BK + kr;
+      const bool m_ok = m < g.m;
+      int b, i, j;
+      pixel_of(m_ok ? m : 0, g, b, i, j);
+      const int y = i + du, xx = j + dv;
+      const bool a_ok = m_ok && r_ok && inside(y, xx, g);
+      const __nv_bfloat16* a_src = a_ok ? x + (((long long)b * g.h + y) * g.w + xx) * g.cin + c : x;
+      cp_async16(as + kr * (BM + SPAD) + chunk * 8, a_src, a_ok);
+      const bool b_ok = m_ok && col_ok;
+      const __nv_bfloat16* b_src = b_ok ? dy + s2d_offset(b, i, j, col, g) : dy;
+      cp_async16(bs + kr * (BN + SPAD) + chunk * 8, b_src, b_ok);
+    }
+  };
+
+  int k_begin, k_end;
+  split_range(dw_steps(g, BK), splits, blockIdx.y, k_begin, k_end);
+  Acc acc[FM][FN];
+  mainloop<true, true>(acc, As, Bs, k_begin, k_end, load_tile, wm, wn);
+
+  float* out = splits == 1 ? dwc : ws + (long long)blockIdx.y * rows * g.c4;
+  auto store8 = [&](int rr, int cc, const float* v) {
+    if (rr < rows && cc < g.c4) store8_f32(out + (long long)rr * g.c4 + cc, v);
+  };
+  epilogue(acc, smem, m0, n0, wm, wn, store8);
+}
+
+// ---------------------------------------------------------------- fp32
+// SIMT FMA, 64 x 64 x 16 tiles, 256 threads of 4 x 4, both operands
+// stored K-major in shared memory; kept for tight checks.
+constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
+
+__device__ __forceinline__ void f32_mma(const float (&As)[FBK][FBM + 4],
+                                                  const float (&Bs)[FBK][FBN + 4],
+                                                  float (&acc)[4][4], int tx, int ty) {
+#pragma unroll
+  for (int kk = 0; kk < FBK; ++kk) {
+    const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+    const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+    const float ra[4] = {a.x, a.y, a.z, a.w}, rb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+  }
+}
+
+__global__ void __launch_bounds__(FTHREADS)
+upconv_dx_f32(const float* __restrict__ dy, const float* __restrict__ wc, float* __restrict__ dx,
+              float* __restrict__ ws, Geom g, int splits) {
+  __shared__ __align__(16) float As[FBK][FBM + 4];  // [k][pixel]
+  __shared__ __align__(16) float Bs[FBK][FBN + 4];  // [k][cin]
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tiles_n = (g.cin + FBN - 1) / FBN;
+  const int m0 = (blockIdx.x / tiles_n) * FBM;
+  const int n0 = (blockIdx.x % tiles_n) * FBN;
+
+  const int ar = tid / 4, q = tid % 4;  // row (pixel or cin) and quad of 4 K columns
+  const bool a_ok = m0 + ar < g.m;
+  int a_b, a_i, a_j;
+  pixel_of(a_ok ? m0 + ar : 0, g, a_b, a_i, a_j);
+  const bool b_ok = n0 + ar < g.cin;
+  const int chunks = (g.c4 + FBK - 1) / FBK;
+
+  int k_begin, k_end;
+  split_range(dx_steps(g, FBK), splits, blockIdx.y, k_begin, k_end);
+  float acc[4][4] = {};
+  for (int kt = k_begin; kt < k_end; ++kt) {
+    const int tap = kt / chunks;
+    const int col = (kt - tap * chunks) * FBK + q * 4;
+    const int y = a_i - (tap / 3 - 1), xx = a_j - (tap % 3 - 1);
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (a_ok && col < g.c4 && inside(y, xx, g))
+      av = *reinterpret_cast<const float4*>(dy + s2d_offset(a_b, y, xx, col, g));
+    As[q * 4 + 0][ar] = av.x;
+    As[q * 4 + 1][ar] = av.y;
+    As[q * 4 + 2][ar] = av.z;
+    As[q * 4 + 3][ar] = av.w;
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (b_ok && col < g.c4)
+      bv = *reinterpret_cast<const float4*>(wc + ((long long)tap * g.cin + n0 + ar) * g.c4 + col);
+    Bs[q * 4 + 0][ar] = bv.x;
+    Bs[q * 4 + 1][ar] = bv.y;
+    Bs[q * 4 + 2][ar] = bv.z;
+    Bs[q * 4 + 3][ar] = bv.w;
+    __syncthreads();
+    f32_mma(As, Bs, acc, tx, ty);
+    __syncthreads();
+  }
+
+  const int c = n0 + tx * 4;
+  float* out = splits == 1 ? dx : ws + (long long)blockIdx.y * g.m * g.cin;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m < g.m && c < g.cin)
+      *reinterpret_cast<float4*>(out + (long long)m * g.cin + c) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+__global__ void __launch_bounds__(FTHREADS)
+upconv_dw_f32(const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ dwc,
+              float* __restrict__ ws, Geom g, int splits) {
+  __shared__ __align__(16) float As[FBK][FBM + 4];  // [pixel][tap, cin]
+  __shared__ __align__(16) float Bs[FBK][FBN + 4];  // [pixel][phase, cout]
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int rows = 9 * g.cin;
+  const int tiles_n = (g.c4 + FBN - 1) / FBN;
+  const int m0 = (blockIdx.x / tiles_n) * FBM;
+  const int n0 = (blockIdx.x % tiles_n) * FBN;
+
+  const int kr = tid / 16, q = tid % 16;  // pixel row of the tile, quad of 4 rows / columns
+  const int r = m0 + q * 4;
+  const bool r_ok = r < rows;
+  const int tap = r_ok ? r / g.cin : 0;
+  const int c = r - tap * g.cin;
+  const int du = tap / 3 - 1, dv = tap % 3 - 1;
+  const int col = n0 + q * 4;
+  const bool col_ok = col < g.c4;
+
+  int k_begin, k_end;
+  split_range(dw_steps(g, FBK), splits, blockIdx.y, k_begin, k_end);
+  float acc[4][4] = {};
+  for (int kt = k_begin; kt < k_end; ++kt) {
+    const int m = kt * FBK + kr;
+    const bool m_ok = m < g.m;
+    int b, i, j;
+    pixel_of(m_ok ? m : 0, g, b, i, j);
+    const int y = i + du, xx = j + dv;
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m_ok && r_ok && inside(y, xx, g))
+      av = *reinterpret_cast<const float4*>(x + (((long long)b * g.h + y) * g.w + xx) * g.cin + c);
+    *reinterpret_cast<float4*>(&As[kr][q * 4]) = av;
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m_ok && col_ok) bv = *reinterpret_cast<const float4*>(dy + s2d_offset(b, i, j, col, g));
+    *reinterpret_cast<float4*>(&Bs[kr][q * 4]) = bv;
+    __syncthreads();
+    f32_mma(As, Bs, acc, tx, ty);
+    __syncthreads();
+  }
+
+  const int cc = n0 + tx * 4;
+  float* out = splits == 1 ? dwc : ws + (long long)blockIdx.y * rows * g.c4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = m0 + ty * 4 + i;
+    if (rr < rows && cc < g.c4)
+      *reinterpret_cast<float4*>(out + (long long)rr * g.c4 + cc) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// ---------------------------------------------------------------- split-K reduction
+// out[e] = sum over splits of ws[s][e], summed in split order (the same
+// result on every run), then stored as T. `total` is a multiple of 4.
+__device__ __forceinline__ void store4(float* out, float4 v) { *reinterpret_cast<float4*>(out) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* out, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  reinterpret_cast<__nv_bfloat162*>(out)[0] = lo;
+  reinterpret_cast<__nv_bfloat162*>(out)[1] = hi;
+}
+
+template <typename T>
+__global__ void reduce_splits(const float* __restrict__ ws, T* __restrict__ out, long long total,
+                              int splits) {
+  const long long n4 = total / 4;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n4;
+       e += (long long)gridDim.x * blockDim.x) {
+    float4 acc = reinterpret_cast<const float4*>(ws)[e];
+    for (int s = 1; s < splits; ++s) {
+      const float4 v = reinterpret_cast<const float4*>(ws + s * total)[e];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    store4(out + 4 * e, acc);
+  }
+}
+
+template <typename T>
+int launch_reduce(const float* ws, T* out, long long total, int splits, cudaStream_t stream) {
+  const int threads = 256;
+  const long long blocks = (total / 4 + threads - 1) / threads;
+  reduce_splits<T><<<(int)(blocks < 4096 ? blocks : 4096), threads, 0, stream>>>(ws, out, total,
+                                                                               splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int n_tiles(int rows, int cols, int bm, int bn) {
+  return ((rows + bm - 1) / bm) * ((cols + bn - 1) / bn);
+}
+
+// Splits of K that give about two blocks per SM of the H100's 132, with
+// at least 8 K steps per split and at most 16 splits.
+int choose_splits(int tiles, int steps) {
+  const int want = (264 + tiles - 1) / tiles;
+  int cap = steps / 8;
+  if (cap > 16) cap = 16;
+  int s = want < cap ? want : cap;
+  return s < 1 ? 1 : s;
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Each launches on `stream` and returns
+// cudaGetLastError() (0 = cudaSuccess) after its last launch. `h`, `w`
+// are x's spatial size; dy is (n, 2h, 2w, cout).
+
+// K splits the dx (which = 0) or dW (which = 1) kernel of the given type
+// (bf16 = 1, fp32 = 0) takes at this shape; the caller sizes the fp32
+// workspace as splits x the output when splits > 1.
+extern "C" int facegen_upconv_bwd_splits(int which, int bf16, int n, int h, int w, int cin,
+                                         int cout) {
+  const Geom g = make_geom(n, h, w, cin, cout);
+  const int bm = bf16 ? BM : FBM, bn = bf16 ? BN : FBN, bk = bf16 ? BK : FBK;
+  if (which == 0) return choose_splits(n_tiles(g.m, g.cin, bm, bn), dx_steps(g, bk));
+  return choose_splits(n_tiles(9 * g.cin, g.c4, bm, bn), dw_steps(g, bk));
+}
+
+extern "C" int facegen_upconv_dx_bf16(const void* dy, const void* wc, void* dx, void* ws, int n,
+                                      int h, int w, int cin, int cout, int splits, void* stream) {
+  const Geom g = make_geom(n, h, w, cin, cout);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(upconv_dx_bf16,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  upconv_dx_bf16<<<dim3(n_tiles(g.m, g.cin, BM, BN), splits), THREADS, SMEM_BF16, st>>>(
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(wc),
+      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(ws), g, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return launch_reduce(static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(dx),
+                       (long long)g.m * g.cin, splits, st);
+}
+
+extern "C" int facegen_upconv_dx_f32(const void* dy, const void* wc, void* dx, void* ws, int n,
+                                     int h, int w, int cin, int cout, int splits, void* stream) {
+  const Geom g = make_geom(n, h, w, cin, cout);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  upconv_dx_f32<<<dim3(n_tiles(g.m, g.cin, FBM, FBN), splits), FTHREADS, 0, st>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(wc), static_cast<float*>(dx),
+      static_cast<float*>(ws), g, splits);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dx),
+                       (long long)g.m * g.cin, splits, st);
+}
+
+extern "C" int facegen_upconv_dw_bf16(const void* x, const void* dy, void* dwc, void* ws, int n,
+                                      int h, int w, int cin, int cout, int splits, void* stream) {
+  const Geom g = make_geom(n, h, w, cin, cout);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(upconv_dw_bf16,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  upconv_dw_bf16<<<dim3(n_tiles(9 * g.cin, g.c4, BM, BN), splits), THREADS, SMEM_BF16, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<float*>(dwc), static_cast<float*>(ws), g, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dwc),
+                       (long long)9 * g.cin * g.c4, splits, st);
+}
+
+extern "C" int facegen_upconv_dw_f32(const void* x, const void* dy, void* dwc, void* ws, int n,
+                                     int h, int w, int cin, int cout, int splits, void* stream) {
+  const Geom g = make_geom(n, h, w, cin, cout);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  upconv_dw_f32<<<dim3(n_tiles(9 * g.cin, g.c4, FBM, FBN), splits), FTHREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(dwc),
+      static_cast<float*>(ws), g, splits);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dwc),
+                       (long long)9 * g.cin * g.c4, splits, st);
+}

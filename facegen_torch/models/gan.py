@@ -10,13 +10,16 @@
 Children are named ``{index:02d}_{name}`` like facegen's parameter tree,
 so a state_dict key such as ``03_upconv1.weight`` is the checkpoint leaf
 ``params_g/03_upconv1/w`` (utils/checkpoint.py). The factories return
-modules in eval mode: train mode is not ported yet.
+modules in eval mode; ``.train()`` turns on batch statistics and
+dropout. D's dropout masks are addressed by qualified module name
+(``dropout_layers``, ``set_dropout_masks``), the path along which facegen
+folds its PRNG key into each layer (facegen/nn/core.py:49-53,101-105).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -144,6 +147,46 @@ def create_d16_d(scale: int, channels: int, *, generator: torch.Generator,
         ("branches", Branches(("conv_branch", conv_branch), ("dense_branch", dense_branch))),
         ("fc_out", Dense(1024 + 128, 1, **kw)),
     ).eval()
+
+
+def dropout_layers(model: nn.Module) -> Dict[str, Dropout]:
+    """The model's dropout layers (SpatialDropout included) by qualified
+    name, e.g. ``02_spatial_dropout`` or
+    ``00_branches.01_dense_branch.03_dropout``. The indices along a name
+    are the ones facegen folds into its key on the way to that layer."""
+    return {name: m for name, m in model.named_modules() if isinstance(m, Dropout)}
+
+
+@torch.no_grad()
+def dropout_mask_shapes(model: nn.Module, batch: int, in_shape, device=None
+                        ) -> Dict[str, Tuple[int, ...]]:
+    """Each dropout layer's mask shape for a batch of ``batch`` inputs of
+    per-example shape ``in_shape``, found by one eval-mode forward of a
+    single zero input."""
+    layers = dropout_layers(model)
+    shapes, handles = {}, []
+    for name, m in layers.items():
+        def hook(mod, args, name=name):
+            shapes[name] = mod.mask_shape((batch,) + tuple(args[0].shape[1:]))
+        handles.append(m.register_forward_pre_hook(hook))
+    was_training = model.training
+    try:
+        model.eval()(torch.zeros((1,) + tuple(in_shape), device=device))
+    finally:
+        model.train(was_training)
+        for h in handles:
+            h.remove()
+    return shapes
+
+
+def set_dropout_masks(model: nn.Module, masks: Mapping[str, torch.Tensor]) -> None:
+    """Inject the keep-mask of each named dropout layer for its next
+    train-mode forward. Every dropout layer must get one."""
+    layers = dropout_layers(model)
+    if set(masks) != set(layers):
+        raise KeyError(f"dropout masks for {sorted(masks)}, layers are {sorted(layers)}")
+    for name, m in layers.items():
+        m.mask = masks[name]
 
 
 def init_gan(

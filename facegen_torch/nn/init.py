@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -52,6 +53,13 @@ def scheme_fn(scheme: str):
         raise ValueError(
             f"unknown init scheme {scheme!r}; choose one of {sorted(SCHEMES)}"
         ) from None
+
+
+def seeded_generator(device, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the given words, e.g. (seed,
+    run): the same words give the same stream on every run."""
+    seed = int(np.random.SeedSequence(list(words)).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def uniform_(t: torch.Tensor, scale: float, generator: torch.Generator) -> torch.Tensor:

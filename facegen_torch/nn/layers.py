@@ -1,4 +1,4 @@
-"""Layers of the port, eval-mode forward (counterpart of facegen/nn/layers.py).
+"""Layers of the port (counterpart of facegen/nn/layers.py).
 
 Activations are NHWC at every module boundary, as in facegen; a conv
 runs ``F.conv2d`` on the NCHW view of the NHWC tensor, which is torch's
@@ -6,9 +6,10 @@ channels_last layout. Parameters are stored in fp32 in torch's layouts
 (Linear (out, in), conv OIHW) and cast to the input's dtype at use, so
 bf16 compute is chosen by feeding bf16 activations.
 
-Train mode is not ported yet: batch-norm statistics, dropout draws and
-the upsample-conv kernel's backward come with the training slice. Those
-layers raise in train mode instead of silently running eval.
+``.train()`` / ``.eval()`` switch batch norm between batch and running
+statistics and turn dropout on and off, like facegen's ``Ctx.train``.
+Dropout masks are injected (``Dropout.mask``) or drawn from the layer's
+``generator``; training injects them (train/step.py:draw_step).
 """
 
 from __future__ import annotations
@@ -22,19 +23,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from facegen_torch.nn.init import uniform_
-from facegen_torch.ops.upsample_conv import _collapse_matrix, collapse_weights, upsample_conv
+from facegen_torch.ops.upsample_conv import (
+    UpsampleConvFunction,
+    _collapse_matrix,
+    collapse_weights,
+    upsample_conv,
+)
 
 
 def _torch_reset_scale(fan_in: int) -> float:
     """torch nn default reset(): uniform(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
     return 1.0 / math.sqrt(fan_in)
-
-
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: train mode is not ported yet; call .eval()"
-        )
 
 
 def sequential(*layers) -> nn.Sequential:
@@ -99,8 +98,14 @@ class Conv2d(nn.Module):
 
 class UpsampleConv(nn.Module):
     """Fused nearest-upsample(2) + same-pad KxK conv (K = 3 or 5), G's
-    pyramid op. Parameters as ``Conv2d``. The collapsed GEMM weight is
-    computed once per loaded weight and dtype and cached here."""
+    pyramid op. Parameters as ``Conv2d``.
+
+    Where autograd needs gradients, the collapsed weight is recomputed
+    from the weight on every call, under autograd (its einsum's backward
+    is the un-collapse), and ``UpsampleConvFunction`` runs the forward,
+    dx and dW kernels. Otherwise (eval, or training's no-grad D-phase
+    forward) the collapsed weight is computed once per weight version
+    and dtype and cached here."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 5,
                  w_std: Optional[float] = None, *, generator: torch.Generator, device=None):
@@ -127,9 +132,13 @@ class UpsampleConv(nn.Module):
         return self._collapsed[1]
 
     def forward(self, x):
-        _eval_only(self)
-        return upsample_conv(x.contiguous(), self.collapsed_weight(x.dtype),
-                             self.bias.to(x.dtype))
+        x = x.contiguous()
+        b = self.bias.to(x.dtype)
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            wc = collapse_weights(self.weight.to(x.dtype)).contiguous()
+            return UpsampleConvFunction.apply(x, wc, b)
+        return upsample_conv(x, self.collapsed_weight(x.dtype), b)
 
 
 class PReLU(nn.Module):
@@ -149,9 +158,14 @@ class Sigmoid(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Batch norm over the last (channel) axis from running statistics,
-    computed in fp32 and cast back to the input dtype
-    (facegen/nn/layers.py:205-209). eps 1e-5."""
+    """Batch norm over the last (channel) axis, computed in fp32 and cast
+    back to the input dtype (facegen/nn/layers.py:169-211), eps 1e-5. In
+    train mode it normalises by the batch's statistics and moves the
+    running ones: new = (1 - momentum) * old + momentum * batch, with the
+    unbiased variance (torch's convention, momentum 0.1); in eval mode it
+    uses the running statistics."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, channels: int, eps: float = 1e-5, *, device=None):
         super().__init__()
@@ -162,26 +176,63 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
     def forward(self, x):
-        _eval_only(self)
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * inv + self.bias).to(x.dtype)
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = xf.var(dims, unbiased=False)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * inv + self.bias).to(x.dtype)
 
 
 class Dropout(nn.Module):
-    """Inverted dropout; the identity in eval mode."""
+    """Inverted dropout (keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate)); the identity in eval mode.
+
+    The keep-mask of the next train-mode forward is ``self.mask`` when one
+    was injected (a bool tensor of ``mask_shape(x.shape)``, used once),
+    else a draw from ``self.generator`` (torch's default generator when
+    None) on the input's device."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
         self.rate = rate
+        self.mask: Optional[torch.Tensor] = None
+        self.generator: Optional[torch.Generator] = None
+
+    @staticmethod
+    def mask_shape(shape) -> tuple:
+        return tuple(shape)
 
     def forward(self, x):
-        _eval_only(self)
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = self.mask_shape(x.shape)
+        mask, self.mask = self.mask, None
+        if mask is None:
+            mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        elif tuple(mask.shape) != shape:
+            raise ValueError(f"{type(self).__name__}: mask {tuple(mask.shape)} for input "
+                             f"{tuple(x.shape)}, want {shape}")
+        return torch.where(mask, x / keep, 0).to(x.dtype)
 
 
 class SpatialDropout(Dropout):
-    """Drops whole channels (mask (N, 1, 1, C)) in training; the identity
-    in eval mode."""
+    """Drops whole channels: the mask is (N, 1, 1, C) (reference
+    nn.SpatialDropout, facegen/nn/layers.py:230-242)."""
+
+    @staticmethod
+    def mask_shape(shape) -> tuple:
+        return (shape[0], 1, 1, shape[-1])
 
 
 class AvgPool(nn.Module):

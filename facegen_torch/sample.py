@@ -27,6 +27,7 @@ import torch
 
 from facegen_torch.config import SampleConfig
 from facegen_torch.models import gan
+from facegen_torch.nn.init import seeded_generator
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_grid, save_png, to_grid
 from facegen_torch.utils.infer import GanInference, nearest_neighbours, prepare_nn_dataset
@@ -37,8 +38,7 @@ N_SAMPLES = 1024
 
 def run_generator(seed: int, run: int) -> torch.Generator:
     """The CPU generator of run ``run``'s draws, seeded from (seed, run)."""
-    state = np.random.SeedSequence([seed, run]).generate_state(1)[0]
-    return torch.Generator().manual_seed(int(state))
+    return seeded_generator("cpu", seed, run)
 
 
 def load_models(cfg: SampleConfig, device):

@@ -12,6 +12,14 @@ state_dicts: conv kernels HWIO -> OIHW, dense kernels (in, out) ->
 weight, mean -> running_mean, ...). ``torch_to_jax`` is its inverse. The
 port writes the four-leaf bundle (params_g, state_g, params_d, state_d)
 that facegen's restore_gan loads strictly.
+
+``save_train_state`` / ``load_train_state`` write and read a whole
+training state (train/step.py:GanState) under facegen's GanState leaf
+paths: the bundle, optax's optimizer leaves (``opt_g/0/count``,
+``opt_g/0/mu/<param path>``, ``opt_g/0/nu/...``; ``sum_of_squares`` for
+Adagrad, ``trace`` for SGD with momentum), ``accs``, ``accs_n``,
+``confusion``, ``trained_d``, ``not_trained_d`` and ``epoch``. A facegen
+trainer checkpoint resumes in the port and the reverse.
 """
 
 from __future__ import annotations
@@ -86,18 +94,50 @@ def load_meta(directory: str, name: str) -> dict:
         return json.load(f)
 
 
+def _torch_leaf(path: str, arr: np.ndarray) -> Tuple[str, torch.Tensor]:
+    """A leaf path below its root ('03_upconv1/w') and its array -> the
+    state_dict key ('03_upconv1.weight') and the tensor in torch's layout."""
+    *parts, leaf = path.split("/")
+    a = np.asarray(arr)
+    if leaf == "w":
+        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    return ".".join(parts + [_TORCH_NAME[leaf]]), torch.from_numpy(np.array(a))
+
+
+def _jax_leaf(key: str, t: torch.Tensor, bn_prefixes) -> Tuple[bool, str, np.ndarray]:
+    """A state_dict key and tensor -> (whether the leaf is state, not a
+    parameter; its path below the root; the array in facegen's layout).
+    ``bn_prefixes`` are the module paths of the batch norms, whose weight
+    and bias are facegen's scale and bias."""
+    prefix, name = key.rsplit(".", 1)
+    a = t.detach().cpu().numpy()
+    is_state = name in ("running_mean", "running_var")
+    if is_state:
+        leaf = name[len("running_"):]
+    elif prefix in bn_prefixes:
+        leaf = "scale" if name == "weight" else "bias"
+    elif name == "bias":
+        leaf = "b"
+    elif a.ndim == 1:  # PReLU slope
+        leaf = "a"
+    else:
+        leaf = "w"
+        a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+    return is_state, "/".join([*prefix.split("."), leaf]), np.ascontiguousarray(a)
+
+
+def _bn_prefixes(sd) -> set:
+    return {k.rsplit(".", 1)[0] for k in sd if k.endswith(".running_mean")}
+
+
 def jax_to_torch(arrays: Dict[str, np.ndarray]) -> Dict[str, Dict[str, torch.Tensor]]:
     """Checkpoint leaves -> {"g": state_dict, "d": state_dict}."""
     out = {"g": {}, "d": {}}
     for key, arr in arrays.items():
-        net = _ROOTS.get(key.split("/", 1)[0])
-        if net is None:
-            continue
-        _, *path, leaf = key.split("/")
-        a = np.asarray(arr)
-        if leaf == "w":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-        out[net][".".join(path + [_TORCH_NAME[leaf]])] = torch.from_numpy(np.array(a))
+        root, _, path = key.partition("/")
+        if root in _ROOTS:
+            name, t = _torch_leaf(path, arr)
+            out[_ROOTS[root]][name] = t
     return out
 
 
@@ -105,24 +145,74 @@ def torch_to_jax(state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, n
     """{"g": state_dict, "d": state_dict} -> checkpoint leaves."""
     arrays = {}
     for net, sd in state_dicts.items():
-        params, state = _NETS[net]
+        bn = _bn_prefixes(sd)
         for key, t in sd.items():
-            prefix, name = key.rsplit(".", 1)
-            a = t.detach().cpu().numpy()
-            root = params
-            if name in ("running_mean", "running_var"):
-                root, leaf = state, name[len("running_"):]
-            elif f"{prefix}.running_mean" in sd:  # batch norm
-                leaf = "scale" if name == "weight" else "bias"
-            elif name == "bias":
-                leaf = "b"
-            elif a.ndim == 1:  # PReLU slope
-                leaf = "a"
-            else:
-                leaf = "w"
-                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-            arrays["/".join([root, *prefix.split("."), leaf])] = np.ascontiguousarray(a)
+            is_state, path, a = _jax_leaf(key, t, bn)
+            arrays[f"{_NETS[net][is_state]}/{path}"] = a
     return arrays
+
+
+_COUNTERS = ("accs", "accs_n", "confusion", "trained_d", "not_trained_d")
+
+
+def train_state_arrays(state) -> Dict[str, np.ndarray]:
+    """Every leaf of a train/step.py:GanState under facegen's GanState path."""
+    arrays = torch_to_jax({"g": state.g.state_dict(), "d": state.d.state_dict()})
+    for net, module, opt in (("g", state.g, state.opt_g), ("d", state.d, state.opt_d)):
+        bn = _bn_prefixes(module.state_dict())
+        names = [n for n, _ in module.named_parameters()]
+        for kind, value in opt.items():
+            if kind == "count":
+                arrays[f"opt_{net}/0/count"] = value.cpu().numpy().astype(np.int32)
+                continue
+            for name, t in zip(names, value):
+                _, path, a = _jax_leaf(name, t, bn)
+                arrays[f"opt_{net}/0/{kind}/{path}"] = a
+    for key in _COUNTERS:
+        arrays[key] = getattr(state, key).cpu().numpy()
+    arrays["epoch"] = np.asarray(state.epoch, np.int32)
+    return arrays
+
+
+def save_train_state(directory: str, name: str, state, meta: Optional[dict] = None) -> str:
+    """Write a whole training state, with ``.old`` rotation."""
+    return save(directory, name, train_state_arrays(state), meta)
+
+
+@torch.no_grad()
+def load_train_state(directory: str, name: str, state) -> dict:
+    """Load a checkpoint into ``state`` in place (parameters, statistics,
+    optimizer state, counters, epoch). Strict: every leaf the state has
+    must be there with its shape; leaves of other trees are ignored, as
+    facegen's ckpt.load does. Returns the checkpoint's meta."""
+    arrays, meta = load(directory, name)
+    expected = train_state_arrays(state)
+    missing = sorted(set(expected) - set(arrays))
+    if missing:
+        raise KeyError(f"checkpoint {os.path.join(directory, name)!r} lacks {missing[:5]}"
+                       f"{' ...' if len(missing) > 5 else ''}")
+    for key, want in expected.items():
+        if tuple(np.shape(arrays[key])) != want.shape:
+            raise ValueError(f"checkpoint leaf {key!r} shape {np.shape(arrays[key])} "
+                             f"!= {want.shape}")
+    sds = jax_to_torch(arrays)
+    state.g.load_state_dict(sds["g"], strict=True)
+    state.d.load_state_dict(sds["d"], strict=True)
+    for net, module, opt in (("g", state.g, state.opt_g), ("d", state.d, state.opt_d)):
+        index = {n: i for i, (n, _) in enumerate(module.named_parameters())}
+        for kind, value in opt.items():
+            if kind == "count":
+                value.copy_(torch.as_tensor(arrays[f"opt_{net}/0/count"]))
+                continue
+            prefix = f"opt_{net}/0/{kind}/"
+            for key in expected:
+                if key.startswith(prefix):
+                    pname, t = _torch_leaf(key[len(prefix):], arrays[key])
+                    value[index[pname]].copy_(t)
+    for key in _COUNTERS:
+        getattr(state, key).copy_(torch.as_tensor(arrays[key]))
+    state.epoch = int(arrays["epoch"])
+    return meta
 
 
 def save_gan(directory: str, name: str, g: nn.Module, d: nn.Module, config: dict) -> str:

@@ -55,6 +55,22 @@ class GanInference:
         return images[order], scores[order]
 
 
+def sanity_image(scale: int, channels: int, generator: torch.Generator) -> torch.Tensor:
+    """The diagonal "non-face" probe D should reject (nn_utils.lua:157-169),
+    (scale, scale, channels) fp32 on the generator's device: U(0, 0.5)
+    background; on the first channel 1.0 on the main diagonal and 0.5 at
+    every off-diagonal crossing of rows and columns 3, 7, 11, ... (the
+    reference's 1-based multiples of 4)."""
+    dev = generator.device
+    img = torch.rand(scale, scale, channels, generator=generator, device=dev) * 0.5
+    ii = torch.arange(scale, device=dev)
+    lattice = ((ii[:, None] % 4 == 3) & (ii[None, :] % 4 == 3)
+               & (ii[:, None] != ii[None, :]))
+    img[..., 0] = torch.where(lattice, 0.5, img[..., 0])
+    img[ii, ii, 0] = 1.0
+    return img
+
+
 def prepare_nn_dataset(dataset, device) -> torch.Tensor:
     """(N, H, W, C) images -> (N, H*W*C) fp32 on ``device``, uint8
     scaled to [0, 1]; done once for repeated queries."""

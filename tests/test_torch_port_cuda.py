@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card. Every test here needs a CUDA GPU
-and skips without one: a CUDA kernel has no CPU or interpret mode. The
-file imports neither JAX nor facegen, so it runs where JAX is absent:
+"""The port's CUDA kernels on the card. Every test marked ``cuda`` needs a
+CUDA GPU and skips without one: a CUDA kernel has no CPU or interpret
+mode. The file imports neither JAX nor facegen, so it runs where JAX is
+absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
@@ -8,8 +9,16 @@ file imports neither JAX nor facegen, so it runs where JAX is absent:
 
 Tolerances: fp32, 1e-4 (rtol and atol), both sides accumulating in fp32
 with TF32 off; bf16, 2e-2 absolute plus 2^-8 relative, the same bf16
-inputs with fp32 accumulation and then the output's bf16 rounding.
+inputs with fp32 accumulation and then the output's bf16 rounding. The
+backward kernels' fp32 dx and dW (of both types; bf16 inputs are exact
+in fp32) are held to 1e-4 of the plain result's largest entry: their
+sums run over 9*4*Cout or N*H*W products, whose rounding grows with the
+terms, not with the entry they land in.
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -33,7 +42,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,cin,cout,k", [(n,) + s for s in SHAPES for n in (2, 3)]
-                         + [(5, 8, 128, 256, 5), (3, 16, 256, 128, 5)])
+                         + [(5, 8, 128, 256, 5), (3, 16, 256, 128, 5)]
+                         # G32's upconv1 and upconv2 in the D and G phases of training
+                         + [(n, h, cin, cout, 5) for n in (16, 32)
+                            for h, cin, cout in ((8, 128, 256), (16, 256, 128))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, n, h, cin, cout, k, dtype):
     g = torch.Generator().manual_seed(n * h + cin)
@@ -72,3 +84,83 @@ def test_g32_on_the_card_matches_the_cpu(cuda_device):
         torch.testing.assert_close(ours.cpu(), ref, rtol=0,
                                    atol=1e-4 if dtype == torch.float32 else 3e-2)
     assert uc.KERNEL_LAUNCHES == before + 4  # two upsample-convs per G call
+
+
+TRAIN_SHAPES = [(32, 8, 128, 256), (32, 16, 256, 128)]  # G32's upconv1, upconv2 at batch 32
+
+
+def _norm_close(got, ref, tol=1e-4):
+    err = float((got.float() - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), (err, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout", [(n, h, cin, cout) for h, cin, cout, _ in SHAPES
+                                          for n in (2, 3)] + TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_versions(cuda_device, n, h, cin, cout, dtype):
+    g = torch.Generator().manual_seed(n * h + cout)
+    x = torch.randn(n, h, h, cin, generator=g).to(cuda_device, dtype)
+    dy = torch.randn(n, 2 * h, 2 * h, cout, generator=g).to(cuda_device, dtype)
+    wc = (torch.randn(9 * cin, 4 * cout, generator=g) / (36 * cout) ** 0.5).to(cuda_device, dtype)
+    before = (uc.DX_LAUNCHES, uc.DW_LAUNCHES)
+    dx, dwc = uc.upsample_conv_dx(dy, wc), uc.upsample_conv_dw(x, dy)
+    torch.cuda.synchronize()
+    assert (uc.DX_LAUNCHES, uc.DW_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dtype and dwc.dtype == torch.float32
+    ref_dx = uc.upsample_conv_dx_reference(dy.float(), wc.float())
+    if dtype == torch.float32:
+        _norm_close(dx, ref_dx)
+    else:
+        torch.testing.assert_close(dx.float(), ref_dx, **TOLS[dtype])
+    _norm_close(dwc, uc.upsample_conv_dw_reference(x.float(), dy.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout", [(2, 8, 16, 24)] + TRAIN_SHAPES)
+def test_function_gradients_match_autograd_of_the_plain_forward(cuda_device, n, h, cin, cout):
+    g = torch.Generator().manual_seed(h + cin)
+    x = torch.randn(n, h, h, cin, generator=g).to(cuda_device)
+    w = (torch.randn(cout, cin, 5, 5, generator=g) / (25 * cin) ** 0.5).to(cuda_device)
+    b = torch.randn(cout, generator=g).to(cuda_device)
+    dy = torch.randn(n, 2 * h, 2 * h, cout, generator=g).to(cuda_device)
+    grads = []
+    for fn in (uc.UpsampleConvFunction.apply, uc.upsample_conv_reference):
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+        fn(xs, uc.collapse_weights(ws), bs).backward(dy)
+        grads.append((xs.grad, ws.grad, bs.grad))
+    for ours, ref in zip(*grads):
+        _norm_close(ours, ref)
+
+
+@pytest.mark.cuda
+def test_g32_training_step_runs_the_three_kernels(cuda_device):
+    """One bf16 G-phase pass of the default model: two launches of each
+    kernel, finite gradients for every G parameter."""
+    g, d = gan.init_gan(torch.Generator().manual_seed(0), 32, 3, 100, device=cuda_device)
+    g.train()
+    noise = torch.rand(32, 100, device=cuda_device) * 2 - 1
+    before = (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES)
+    d(g(noise.bfloat16())).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES) == tuple(b + 2 for b in before)
+    for name, p in g.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_facegen_torch_imports_without_jax():
+    """The port's every module imports with jax blocked (the card's
+    machine has no JAX): a None entry in sys.modules makes import fail."""
+    root = Path(__file__).resolve().parents[1]
+    modules = sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                     for p in (root / "facegen_torch").rglob("*.py") if p.name != "__main__.py")
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'facegen', 'optax'):\n"
+            "    sys.modules[name] = None\n"
+            f"import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n"
+            "print('imported', len(" + repr(modules) + "))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"imported {len(modules)}" in out.stdout
+    assert len(modules) >= 25

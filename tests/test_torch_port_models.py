@@ -1,4 +1,4 @@
-"""facegen_torch layers and models against facegen's, eval mode.
+"""facegen_torch layers and models against facegen's, in eval and train mode.
 
 The JAX modules are initialised, their params carried into the port with
 ``jax_to_torch`` (the checkpoint converter), and both run the same numpy
@@ -92,14 +92,68 @@ def test_layer_matches_jax(name, jax_layer, make):
     np.testing.assert_allclose(ours, _run_jax(jm, params, state, x), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("layer", [
-    lambda: L.BatchNorm(4), lambda: L.Dropout(0.5), lambda: L.SpatialDropout(0.2),
-    lambda: L.UpsampleConv(8, 8, 5, generator=_gen()),
-])
-def test_train_mode_raises_instead_of_running_eval(layer):
-    m = layer().train()
-    with pytest.raises(NotImplementedError, match="train mode"):
-        m(torch.zeros(2, 4, 4, 8 if isinstance(m, L.UpsampleConv) else 4))
+# (name, JAX layer, port layer, per-example input shape) in train mode
+TRAIN_CASES = [
+    ("batch_norm", JL.batch_norm(), lambda: L.BatchNorm(8), (5, 5, 8)),
+    ("dropout", JL.dropout(0.5), lambda: L.Dropout(0.5), (40,)),
+    ("spatial_dropout", JL.spatial_dropout(0.2), lambda: L.SpatialDropout(0.2), (5, 5, 8)),
+    ("upconv5", JL.upsample_conv(16, 5, name="upconv"),
+     lambda: L.UpsampleConv(8, 16, 5, generator=_gen()), (4, 4, 8)),
+]
+
+
+@pytest.mark.parametrize("name,jax_layer,make", [c[:3] for c in TRAIN_CASES],
+                         ids=[c[0] for c in TRAIN_CASES])
+def test_train_mode_matches_jax(name, jax_layer, make):
+    """Train mode: batch norm from the batch's statistics, with the running
+    update (momentum 0.1, unbiased variance); dropout with facegen's own
+    mask draw (the key folded with the layer's index) injected into the
+    port; the upsample-conv through its autograd Function."""
+    in_shape = dict((c[0], c[3]) for c in TRAIN_CASES)[name]
+    jm = jax_sequential(jax_layer)
+    params, state, _ = jm.init(jax.random.key(0), in_shape)
+    params = jax_init.gaussian_overwrite(params, jax.random.key(1), w_std=0.5, b_std=0.3)
+    state = _perturb_bn(state)
+    x = np.random.RandomState(2).randn(3, *in_shape).astype(np.float32) + 0.5
+    key = jax.random.key(4)
+    theirs, new_state = jm.apply(params, state, jnp.asarray(x), Ctx(key, True))
+    port = L.sequential((jax_layer.name, make())).train()
+    port.load_state_dict(_carry(params, state), strict=True)
+    drops = gan.dropout_layers(port)
+    if drops:
+        (layer_name, layer), = drops.items()
+        keep = 1.0 - layer.rate
+        shape = layer.mask_shape(x.shape)
+        mask = jax.random.bernoulli(jax.random.fold_in(key, 0), keep, shape)
+        gan.set_dropout_masks(port, {layer_name: torch.from_numpy(np.array(mask))})
+    xt = torch.from_numpy(x).requires_grad_()
+    ours = port(xt)
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(theirs), rtol=TOL, atol=TOL)
+    for key_, t in _carry(params, new_state).items():  # running statistics after the step
+        np.testing.assert_allclose(port.state_dict()[key_].numpy(), t.numpy(),
+                                   rtol=TOL, atol=TOL, err_msg=key_)
+    if drops:
+        assert layer.mask is None  # an injected mask is used once
+    ours.sum().backward()
+    assert xt.grad is not None and torch.isfinite(xt.grad).all()
+
+
+@pytest.mark.parametrize("layer", [L.Dropout(0.5), L.SpatialDropout(0.2)],
+                         ids=["dropout", "spatial_dropout"])
+def test_dropout_without_a_mask_draws_from_its_generator(layer):
+    x = torch.ones(64, 3, 3, 16)
+    layer.train()
+    outs = []
+    for _ in range(2):
+        layer.generator = torch.Generator().manual_seed(3)
+        outs.append(layer(x))
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    kept = outs[0] != 0
+    assert torch.equal(outs[0][kept], torch.full_like(outs[0][kept], 1 / (1 - layer.rate)))
+    assert abs(float(kept.float().mean()) - (1 - layer.rate)) < 0.05
+    if isinstance(layer, L.SpatialDropout):  # whole channels
+        assert torch.equal(kept, kept[:, :1, :1, :].expand_as(kept))
+    assert torch.equal(layer.eval()(x), x)
 
 
 @pytest.mark.parametrize("scale,channels,noise_view", [
