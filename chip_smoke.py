@@ -7,17 +7,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles the CUDA kernels from facegen_torch/csrc, one nvcc per
-   source, in parallel (seconds), and prints ptxas's registers and spills;
+   source, in parallel (seconds), prints ptxas's registers and spills, and
+   fails unless the bf16 forward and dx kernels hold HGMMA (wgmma)
+   instructions in their SASS (cuobjdump);
 3. kernels: the upsample + conv forward kernel against its plain PyTorch
    version (the phase conv) at G's two layers at the sampler's batch
    (N = 1024) and at every batch of the training path (16, 32, 100,
-   300), at the odd shapes of tests/test_upsample_conv.py and at N = 3,
-   in fp32 (TF32 off) and in bf16; then times the kernel, the plain
-   phase conv and the composed F.interpolate + F.conv2d at both layers
-   at N = 1024, 32 and 16;
+   300), at G16's two layers, at the odd shapes of
+   tests/test_upsample_conv.py and at N = 3, in fp32 (TF32 off) and in
+   bf16; then times, in alternating turns, the kernel, the plain version,
+   one library call (cuDNN's phase conv on pre-made operands) and the
+   composed F.interpolate + F.conv2d at both layers at N = 1024, 32 and
+   16, and prints each row of the kernel table (median ms and spread,
+   bound, share of the bound, launches per G call and per train step);
 4. backward kernels: dx and dW against their plain versions at G's two
    training shapes (N = 32), the odd shapes and N = 3, fp32 and bf16;
-   their times against the plain versions at the training shapes; the
+   their rows of the kernel table at the training shapes (the library
+   calls: cuDNN's conv of a pre-made S2D(dy), and
+   torch.nn.grad.conv2d_weight of the phase conv); the
    autograd Function against autograd of the plain forward (dx, dW, db);
 5. sampler path: writes a G32 + D32b colour checkpoint (full width, seeded
    random weights) and a synthetic 4096-image store, runs
@@ -42,6 +49,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -62,6 +70,9 @@ G_SHAPES = [(1024, 8, 128, 256, 5), (1024, 16, 256, 128, 5)]
 # the odd shapes of tests/test_upsample_conv.py, and a row count that
 # is not a multiple of the kernel's tile
 ODD_SHAPES = [(2, 8, 16, 24, 5), (2, 4, 8, 8, 3), (2, 16, 32, 16, 5), (3, 8, 128, 256, 5)]
+# G16's upconv1 (4x4) and upconv2 (8x8) in training and at the sampler's batch
+G16_SHAPES = [(n, h, cin, cout, 5) for n in (32, 1024)
+              for h, cin, cout in ((4, 128, 256), (8, 256, 128))]
 # G32's upconv1 and upconv2 in training (batch 32)
 TRAIN_SHAPES = [(32, 8, 128, 256, 5), (32, 16, 256, 128, 5)]
 # every shape the training path gives the forward: both layers in the D
@@ -97,6 +108,10 @@ BWD_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
 STEP_UPDATE_TOL = 1e-2
 STEP_STAT_TOL = 1e-4
+
+# the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -137,8 +152,15 @@ def phase_build():
     print(f"build: {', '.join(f'{n}.cu' for n in SOURCES)} in {time.perf_counter() - t0:.2f} s")
     for name in SOURCES:
         for ln in _build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln or "Function properties" in ln:
+            if any(w in ln for w in ("registers", "spill", "Function properties", "wgmma",
+                                     "setmaxnreg", "arning")):
                 print(f"  ptxas {name}: {ln.strip()}")
+    # the bf16 forward and dx must run on wgmma: HGMMA in their SASS
+    for name, kernel in (("upsample_conv", "UpconvFwd"), ("upsample_conv_bwd", "UpconvDx")):
+        counts = {k: c for k, c in _build.sass_counts(name, "HGMMA").items() if kernel in k}
+        print(f"  sass {name}: HGMMA instructions per {kernel} kernel: {counts}")
+        check(bool(counts) and all(c > 0 for c in counts.values()),
+              f"no HGMMA in the SASS of {kernel}: {counts}")
 
 
 def _inputs(n, h, cin, cout, k, dtype, seed):
@@ -153,26 +175,69 @@ def _inputs(n, h, cin, cout, k, dtype, seed):
 
 
 def _time_ms(fn, iters=20, warmup=3):
+    """Device ms per call: a CUDA graph of ``iters`` calls replayed between
+    two CUDA events, so the host's launch overhead (the Python wrapper, the
+    dispatcher) does not count, for the kernel and its yardsticks alike."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def _time_turns(fns, turns=("plain", "kernel", "kernel", "plain")):
-    """Mean ms of each function over runs taken in the given turns."""
-    times = {name: [] for name in fns}
-    for name in turns:
-        times[name].append(_time_ms(fns[name]))
-    return {name: sum(v) / len(v) for name, v in times.items()}, times
+def _time_turns(fns, rounds=3):
+    """Median ms of each function over ``rounds`` runs taken in alternating
+    turns: the functions in order, then reversed, and so on (k p l | l p k
+    | k p l), so a drift of the card's clock hits all of them alike."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            times[name].append(_time_ms(fns[name]))
+    return {name: statistics.median(v) for name, v in times.items()}, times
+
+
+def _bound(flop, nbytes):
+    """The least time the card could take: the larger of the operations at
+    the bf16 tensor-core peak and the bytes at the memory rate."""
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _row(kernel, shape, t, runs, flop, nbytes, **launches):
+    """One row of the kernel table: times (median and spread over the
+    turns), the bound, the share of it, and the launches on the paths."""
+    bound_ms, bound_by = _bound(flop, nbytes)
+    n, h, cin, cout = shape
+    row = {"kernel": kernel, "shape": f"N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}",
+           "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+           "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / t["kernel"],
+           "tflops": flop / t["kernel"] / 1e9, **launches}
+    spread = "; ".join(f"{k} {min(v):.4f}-{max(v):.4f}" for k, v in runs.items())
+    print(f"table {json.dumps(row)} spread(ms) {spread}")
+    return row
+
+
+def _sum_rows(rows):
+    """The kernels line's numbers over several rows (both layers)."""
+    flop_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    byte_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    return {"ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
 def phase_kernels():
@@ -186,7 +251,8 @@ def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     max_err = {"train": 0.0, "sampler": 0.0}  # bf16, at the paths' shapes
-    for si, (n, h, cin, cout, k) in enumerate(G_SHAPES + FWD_TRAIN_SHAPES + ODD_SHAPES):
+    for si, (n, h, cin, cout, k) in enumerate(G_SHAPES + FWD_TRAIN_SHAPES + G16_SHAPES
+                                              + ODD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, b = _inputs(n, h, cin, cout, k, dtype, seed=si)
             wc = uc.collapse_weights(w)
@@ -211,12 +277,16 @@ def phase_kernels():
                         max_err[path] = max(max_err[path], shape_err)
             del x, w, b, wc, got, ref, err
 
-    ms = {"train": 0.0, "sampler": 0.0}
-    plain_ms = {"train": 0.0, "sampler": 0.0}
+    # kernel, plain version (the phase conv, depth-to-space and bias) and
+    # one library call (cuDNN's phase conv on a pre-made NCHW view with a
+    # pre-made weight: no depth-to-space, no bias), in alternating turns
+    rows = {"train": [], "sampler": []}
     for n, h, cin, cout, k in G_SHAPES + TRAIN_SHAPES + FWD_TRAIN_SHAPES[:2]:
         x, w, b = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         wc = uc.collapse_weights(w)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
+        w_phase = wc.reshape(3, 3, cin, 4 * cout).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
 
         def composed():
             up = F.interpolate(x_cl, scale_factor=2, mode="nearest")
@@ -224,22 +294,29 @@ def phase_kernels():
 
         t, runs = _time_turns({"kernel": lambda: uc.upsample_conv(x, wc, b),
                                "plain": lambda: uc.upsample_conv_reference(x, wc, b),
-                               "composed": composed},
-                              ("plain", "kernel", "composed", "composed", "kernel", "plain"))
+                               "library": lambda: F.conv2d(x_cl, w_phase, padding=1),
+                               "composed": composed})
         flop = 2 * n * h * h * 4 * cout * 9 * cin
+        nbytes = 2 * (x.numel() + wc.numel() + cout + 4 * n * h * h * cout)
+        sampler = (n, h, cin, cout, k) in G_SHAPES
+        row = _row("upsample_conv_fwd", (n, h, cin, cout), t, runs, flop, nbytes,
+                   launches_per_g_call=1 if sampler else 0,
+                   launches_per_step=0 if sampler else 1)
         print(f"time bf16 N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
-              f"kernel {t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), "
-              f"plain phase conv {t['plain']:.4f} ms ({flop / t['plain'] / 1e9:.1f} TFLOP/s), "
-              f"interpolate+conv2d {t['composed']:.4f} ms (runs {runs})")
-        # the kernels line's time: the G phase's two layers (N = 32)
+              f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+              f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
+              f"plain {t['plain']:.4f} ms, library phase conv {t['library']:.4f} ms, "
+              f"interpolate+conv2d {t['composed']:.4f} ms")
+        # the kernels line: the G phase's two layers (N = 32)
         for path, shapes in (("train", TRAIN_SHAPES), ("sampler", G_SHAPES)):
             if (n, h, cin, cout, k) in shapes:
-                ms[path] += t["kernel"]
-                plain_ms[path] += t["plain"]
-        del x, w, b, wc, x_cl
-    print(f"forward at the sampler's shapes (N = 1024, both layers): kernel {ms['sampler']:.4f} "
-          f"ms, plain {plain_ms['sampler']:.4f} ms, bf16 max_abs_err {max_err['sampler']:.3e}")
-    return {"max_abs_err": max_err["train"], "ms": ms["train"], "plain_ms": plain_ms["train"]}
+                rows[path].append(row)
+        del x, w, b, wc, x_cl, w_phase
+    sampler = {**_sum_rows(rows["sampler"]), "max_abs_err": max_err["sampler"],
+               "launches_per_g_call": 2}
+    print(f"forward at the sampler's shapes (N = 1024, both layers): {json.dumps(sampler)}")
+    return {"max_abs_err": max_err["train"], **_sum_rows(rows["train"]),
+            "launches_per_step": 4}
 
 
 def calibrate_batch_norm(g, noise):
@@ -340,7 +417,39 @@ def phase_main_path(tmp: str, store: str):
     print(f"main path: generate_n(1024) {1024 / gen_s:.1f} images/s ({gen_s * 1e3:.3f} ms "
           f"per call); whole run {runs * 1024 / run_s:.1f} images/s ({runs} x 1024 in "
           f"{run_s:.3f} s, with checkpoint load, store preparation, NN search and PNGs)")
+    _profile_g_call(inf_gpu, gen)
     return launches
+
+
+def _profile_g_call(inf, gen, calls=3):
+    """Device time of one generate_n(1024), by kernel family (torch.profiler,
+    kernel events only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            inf.generate_n(gen, 1024)
+        torch.cuda.synchronize()
+    families = {"upsample-conv forward (igemm_sm90)": ("igemm_sm90",),
+                "batch norm": ("batch_norm", "batchnorm", "bn_"),
+                "cuDNN / cuBLAS (conv_out, fc)": ("cudnn", "xmma", "gemm", "conv", "cutlass"),
+                "PReLU": ("prelu",)}
+    us = dict.fromkeys(list(families) + ["other (casts, sigmoid, noise, copies)"], 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+        name = ev.key.lower()
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
+                   "other (casts, sigmoid, noise, copies)")
+        us[fam] += t
+    total = sum(us.values()) / calls / 1e3
+    check(total > 0, "the profiler saw no device time in generate_n")
+    print(f"main path: G call device time {total:.4f} ms (torch.profiler, {calls} calls of "
+          f"generate_n(1024), kernel events): " + "; ".join(
+              f"{f} {v / calls / 1e3:.4f} ms ({100 * v / calls / 1e3 / total:.1f} %)"
+              for f, v in sorted(us.items(), key=lambda kv: -kv[1])))
 
 
 def phase_bwd_kernels():
@@ -354,7 +463,7 @@ def phase_bwd_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     err = {"dx": 0.0, "dw": 0.0}
-    for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + ODD_SHAPES):
+    for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + G16_SHAPES[:2] + ODD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, _ = _inputs(n, h, cin, cout, k, dtype, seed=100 + si)
             dy = torch.randn(n, 2 * h, 2 * h, cout, generator=torch.Generator().manual_seed(si))
@@ -382,24 +491,38 @@ def phase_bwd_kernels():
                 err["dx"] = max(err["dx"], float(e_dx.max()))
                 err["dw"] = max(err["dw"], float(e_dw.max()))
 
-    ms = {"dx": 0.0, "dw": 0.0}
-    plain_ms = {"dx": 0.0, "dw": 0.0}
+    # kernel, plain version and one library call, in alternating turns:
+    # dx, cuDNN's conv of a pre-made S2D(dy) with the pre-made flipped and
+    # transposed phase weight; dW, torch.nn.grad.conv2d_weight of the
+    # phase conv (bf16, as the kernel's inputs)
+    rows = {"dx": [], "dw": []}
     for n, h, cin, cout, k in TRAIN_SHAPES:
         x, w, _ = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         dy = torch.randn(n, 2 * h, 2 * h, cout, device="cuda", dtype=torch.bfloat16)
         wc = uc.collapse_weights(w)
-        for which, kern, plain, flop in (
+        dyc = uc.space_to_depth(dy).permute(0, 3, 1, 2)  # NCHW view, channels_last
+        x_cl = x.permute(0, 3, 1, 2)
+        w_dx = wc.reshape(3, 3, cin, 4 * cout).flip(0, 1).permute(2, 3, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        flop = 2 * n * h * h * cin * 9 * 4 * cout
+        for which, kern, plain, library, nbytes in (
                 ("dx", lambda: uc.upsample_conv_dx(dy, wc),
-                 lambda: uc.upsample_conv_dx_reference(dy, wc), 2 * n * h * h * cin * 9 * 4 * cout),
+                 lambda: uc.upsample_conv_dx_reference(dy, wc),
+                 lambda: torch.nn.functional.conv2d(dyc, w_dx, padding=1),
+                 2 * (dy.numel() + wc.numel() + x.numel())),
                 ("dw", lambda: uc.upsample_conv_dw(x, dy),
-                 lambda: uc.upsample_conv_dw_reference(x, dy), 2 * n * h * h * cin * 9 * 4 * cout)):
-            t, runs = _time_turns({"kernel": kern, "plain": plain})
+                 lambda: uc.upsample_conv_dw_reference(x, dy),
+                 lambda: torch.nn.grad.conv2d_weight(x_cl, (4 * cout, cin, 3, 3), dyc, padding=1),
+                 2 * (x.numel() + dy.numel()) + 4 * wc.numel())):
+            t, runs = _time_turns({"kernel": kern, "plain": plain, "library": library})
+            row = _row(f"upsample_conv_{which}", (n, h, cin, cout), t, runs, flop, nbytes,
+                       launches_per_g_call=0, launches_per_step=1)
             print(f"time bf16 {which} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
-                  f"kernel {t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), "
-                  f"plain {t['plain']:.4f} ms ({flop / t['plain'] / 1e9:.1f} TFLOP/s) "
-                  f"(runs {runs})")
-            ms[which] += t["kernel"]
-            plain_ms[which] += t["plain"]
+                  f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+                  f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
+                  f"plain {t['plain']:.4f} ms, library {t['library']:.4f} ms")
+            rows[which].append(row)
+        del x, w, dy, wc, dyc, x_cl, w_dx
 
     # the Function's gradients against autograd of the plain forward, fp32
     for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + ODD_SHAPES[:2]):
@@ -418,7 +541,8 @@ def phase_bwd_kernels():
         print(f"autograd Function vs plain forward's autograd, fp32 N={n} {h}x{h}x{cin}->{cout}: "
               f"dx {errs[0]:.3e}, dWc {errs[1]:.3e}, db {errs[2]:.3e} {'ok' if ok else 'FAIL'}")
         check(ok, f"UpsampleConvFunction's gradients disagree ({n, h, cin, cout})")
-    return {w: {"max_abs_err": err[w], "ms": ms[w], "plain_ms": plain_ms[w]} for w in ms}
+    return {w: {"max_abs_err": err[w], **_sum_rows(rows[w]), "launches_per_step": 2}
+            for w in rows}
 
 
 def write_store(tmp: str) -> str:

@@ -21,14 +21,11 @@
 // What bounds it. At the sampler's shapes (N = 1024, K = 1152 and
 // 2304) the GEMM does ~1000 and ~1500 FLOP per byte of x, wc and out,
 // far above the H100's ~295 FLOP/byte ridge: it is compute bound, so
-// the bf16 path runs on the tensor cores (WMMA 16x16x16, fp32
-// accumulate), fed by a 3-stage cp.async ring of shared-memory tiles.
-// On the H100 the ring gained only 1-3 % over a load-sync-compute loop:
-// the MMA loop itself (fragment loads from shared memory per MMA, two
-// 128-thread blocks per SM at 244 registers) is the limit, which wgmma
-// with operands read straight from shared memory, TMA and warp
-// specialisation address in later work. The fp32 path is a SIMT FMA
-// kernel with fp32 accumulate (one stage), kept for tight checks.
+// the bf16 path runs on Hopper's tensor cores through wgmma, in the
+// persistent, warp-specialised mainloop of csrc/igemm_sm90.cuh (TMA for
+// the weight and for x's whole-row boxes, fp32 accumulators in
+// registers). The fp32 path is a SIMT FMA kernel with fp32 accumulate
+// (one stage), kept for tight checks.
 //
 // Requirements, checked by the Python wrapper: NHWC contiguous x,
 // Cin and Cout multiples of 8, 16-byte aligned pointers, fewer than
@@ -36,11 +33,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "igemm_sm90.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 struct Geom {
   int n, h, w, cin, cout;
@@ -72,171 +68,105 @@ __device__ __forceinline__ bool inside(int y, int x, const Geom& g) {
 }
 
 // ---------------------------------------------------------------- bf16
-// A 64 x 64 warp tile loads 4 + 4 fragments from shared memory per 16
-// MMAs (a 32 x 64 one: 2 + 4 per 8); on an H100 at the G shapes it ran
-// 15-19 % faster than 32 x 64 tiles with 8 warps, and 128 x 256 or
-// 256 x 128 block tiles were slower (PERF.md).
-constexpr int BM = 128, BN = 128, BK = 32, SPAD = 8;
-constexpr int WARPS_M = 2, WARPS_N = 2;
-constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // warp tile 64 x 64
-constexpr int FM = WTM / 16, FN = WTN / 16;            // 4 x 4 fragments
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;        // 128
+// The implicit GEMM of csrc/igemm_sm90.cuh: rows the N*H*W pixels, columns
+// the 4*Cout collapsed channels, K steps of 64 (tap, cin) pairs. A K step
+// covers one tap and a 64-channel chunk of it, so an A chunk is 8 NHWC
+// channels of one shifted pixel; B is rows (tap, cin0 .. cin0+63) of wc,
+// read MN-major in 64-column slabs by TMA (rows past Cin read as zero).
+template <int BN>
+struct UpconvFwd {
+  static constexpr int TRANS_B = 1;
+  static constexpr int SLAB_BYTES = 64 * igemm::BK * 2;
+  const __nv_bfloat16* a;  // x
+  const __nv_bfloat16* bias;
+  __nv_bfloat16* out;
+  Geom g;
+  int m, n, steps, splits;  // the GEMM: rows, columns, K steps, K splits
+  int h, w;                 // x's pixel grid
+  int chunks;               // K steps per tap: ceil(Cin / 64)
+  bool a_tma;               // x's tiles are boxes of whole rows (igemm::row_box)
 
-constexpr int A_CHUNKS = BK / 8;                      // 16-byte chunks per A row
-constexpr int A_ROWS_PER_PASS = THREADS / A_CHUNKS;   // 32
-constexpr int A_PASSES = BM / A_ROWS_PER_PASS;        // 4
-constexpr int B_CHUNKS = BN / 8;                      // 16-byte chunks per B row
-constexpr int B_ROWS_PER_PASS = THREADS / B_CHUNKS;   // 8
-constexpr int B_PASSES = BK / B_ROWS_PER_PASS;        // 4
-
-constexpr int STAGES = 3;                             // cp.async ring depth
-constexpr int A_STAGE = BM * (BK + SPAD);             // bf16 elements per stage
-constexpr int B_STAGE = BK * (BN + SPAD);
-constexpr int SMEM_BF16 = STAGES * (A_STAGE + B_STAGE) * 2;  // 56832 bytes
-static_assert(WARPS_M * WARPS_N * 16 * 16 * 4 <= SMEM_BF16, "epilogue scratch fits");
-
-// 16-byte global -> shared copy that bypasses registers; with pred false
-// it writes 16 zero bytes and reads nothing (src-size 0).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// A STAGES-deep ring of (A, B) tiles in shared memory, filled with
-// cp.async: while the tensor cores work on tile kt, the copies of tiles
-// kt+1 .. kt+STAGES-1 are in flight, which hides global-load latency that
-// a load-sync-compute loop exposes at every K step.
-__global__ void __launch_bounds__(THREADS)
-upconv_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wc,
-                const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                Geom g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][BK+SPAD]
-  __nv_bfloat16* Bs = As + STAGES * A_STAGE;                      // [STAGES][BK][BN+SPAD]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int tiles_n = (g.nc + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * BM;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
-
-  // A thread loads the same A rows at every K step: resolve their pixels once.
-  const int a_chunk = tid % A_CHUNKS;
-  int a_b[A_PASSES], a_i[A_PASSES], a_j[A_PASSES];
-  bool a_ok[A_PASSES];
-#pragma unroll
-  for (int s = 0; s < A_PASSES; ++s) {
-    const int m = m0 + tid / A_CHUNKS + s * A_ROWS_PER_PASS;
-    a_ok[s] = m < g.m;
-    pixel_of(a_ok[s] ? m : 0, g, a_b[s], a_i[s], a_j[s]);
+  // A by TMA: x as (Cin, W, H, N); tap (di, dj) shifts the tile's box,
+  // whose pixels past the border read as zero (the same-pad border)
+  __device__ __forceinline__ void load_a(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int ks, int m0) const {
+    const int tap = ks / chunks;
+    int n0, i0;
+    igemm::tile_origin(m0, g.h, g.w, n0, i0);
+    igemm::tma_load_4d(dst, map, bar, (ks - tap * chunks) * igemm::BK, tap % 3 - 1,
+                       i0 + tap / 3 - 1, n0);
   }
-  const int b_chunk = tid % B_CHUNKS;
-  const int b_col = n0 + b_chunk * 8;
-  const bool b_ok = b_col < g.nc;
 
-  // K steps: 9 taps x ceil(Cin / BK) channel chunks
-  const int chunks = (g.cin + BK - 1) / BK;
-  const int steps = 9 * chunks;
-
-  auto load_tile = [&](int stage, int kt) {
-    const int tap = kt / chunks, c0 = (kt - tap * chunks) * BK;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    __nv_bfloat16* as = As + stage * A_STAGE;
-    __nv_bfloat16* bs = Bs + stage * B_STAGE;
-#pragma unroll
-    for (int s = 0; s < A_PASSES; ++s) {
-      const int r = tid / A_CHUNKS + s * A_ROWS_PER_PASS;
-      const int c = c0 + a_chunk * 8;
-      const int yi = a_i[s] + dy, xj = a_j[s] + dx;
-      const bool ok = a_ok[s] && c < g.cin && inside(yi, xj, g);
-      const __nv_bfloat16* src =
-          ok ? x + (((long long)a_b[s] * g.h + yi) * g.w + xj) * g.cin + c : x;
-      cp_async16(as + r * (BK + SPAD) + a_chunk * 8, src, ok);
-    }
-#pragma unroll
-    for (int s = 0; s < B_PASSES; ++s) {
-      const int kr = tid / B_CHUNKS + s * B_ROWS_PER_PASS;
-      const int k = c0 + kr;
-      const bool ok = b_ok && k < g.cin;
-      const __nv_bfloat16* src = ok ? wc + ((long long)tap * g.cin + k) * g.nc + b_col : wc;
-      cp_async16(bs + kr * (BN + SPAD) + b_chunk * 8, src, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn) wmma::fill_fragment(acc[fm][fn], 0.0f);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_tile(s, s);
-    cp_async_commit();
+  __device__ __forceinline__ int row_base(int row, int& i, int& j) const {
+    int b;
+    pixel_of(row, g, b, i, j);
+    return row * g.cin;
   }
-  for (int kt = 0; kt < steps; ++kt) {
-    // tile kt has landed once at most STAGES-2 newer groups are pending;
-    // the barrier also frees the stage that tile kt-1 was read from
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < steps) load_tile(next % STAGES, next);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-
-    const __nv_bfloat16* as = As + (kt % STAGES) * A_STAGE;
-    const __nv_bfloat16* bs = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[FN];
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm)
-        wmma::load_matrix_sync(af[fm], as + (wm * WTM + fm * 16) * (BK + SPAD) + kk, BK + SPAD);
-#pragma unroll
-      for (int fn = 0; fn < FN; ++fn)
-        wmma::load_matrix_sync(bf[fn], bs + kk * (BN + SPAD) + wn * WTN + fn * 16, BN + SPAD);
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-        for (int fn = 0; fn < FN; ++fn) wmma::mma_sync(acc[fm][fn], af[fm], bf[fn], acc[fm][fn]);
-    }
+  // step ks: tap (di+1, dj+1), channels (ks % chunks) * 64 + chunk * 8 ...
+  __device__ __forceinline__ bool a_step(int ks, int chunk, int& delta, int& di, int& dj) const {
+    const int tap = ks / chunks;
+    const int c = (ks - tap * chunks) * igemm::BK + chunk * 8;
+    di = tap / 3 - 1;
+    dj = tap % 3 - 1;
+    delta = (di * g.w + dj) * g.cin + c;
+    return c < g.cin;
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: its start becomes the epilogue scratch
 
-  // Epilogue: each fragment goes through this warp's 16x16 scratch; a
-  // lane then owns 8 consecutive columns of one row, which lie in one
-  // phase block (Cout is a multiple of 8) and so are 8 consecutive
-  // channels of one output pixel: one 16-byte store.
-  float* cs = reinterpret_cast<float*>(smem) + warp * 16 * 16;
-  const int er = lane / 2, ec = (lane % 2) * 8;
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm) {
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn) {
-      wmma::store_matrix_sync(cs, acc[fm][fn], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * WTM + fm * 16 + er;
-      const int col = n0 + wn * WTN + fn * 16 + ec;
-      if (m < g.m && col < g.nc) {
-        int b, i, j, o;
-        pixel_of(m, g, b, i, j);
-        const long long off = out_offset(b, i, j, col, g, o);
-        __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          v[t] = __float2bfloat16(cs[er * 16 + ec + t] + __bfloat162float(bias[o + t]));
-        *reinterpret_cast<uint4*>(out + off) = *reinterpret_cast<const uint4*>(v);
-      }
-      __syncwarp();
-    }
+  // The tile's 64-column slabs that start inside wc; a slab past the last
+  // column is not loaded (its columns are never stored).
+  __device__ __forceinline__ int slabs(int n0) const {
+    const int left = (n - n0 + 63) / 64;
+    return left < BN / 64 ? left : BN / 64;
   }
+  __device__ __forceinline__ uint32_t b_bytes(int n0) const { return slabs(n0) * SLAB_BYTES; }
+  __device__ __forceinline__ void load_b(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int ks, int n0) const {
+    const int tap = ks / chunks, c0 = (ks - tap * chunks) * igemm::BK;
+    const int nb = slabs(n0);
+    for (int s = 0; s < nb; ++s)
+      igemm::tma_load_3d(dst + s * SLAB_BYTES, map, bar, n0 + 64 * s, c0, tap);
+  }
+
+  // the epilogue: bf16 after the bias, out[b, 2i+a, 2j+c, o] for column
+  // p*Cout+o of pixel (b, i, j), p = 2a+c
+  using Stage = __nv_bfloat16;
+  using Stage2 = __nv_bfloat162;
+  __device__ __forceinline__ Stage2 stage2(int col, float v0, float v1) const {
+    const int o = (g.cout & (g.cout - 1)) == 0 ? col & (g.cout - 1) : col % g.cout;
+    return __floats2bfloat162_rn(v0 + __bfloat162float(bias[o]),
+                                 v1 + __bfloat162float(bias[o + 1]));
+  }
+  __device__ __forceinline__ long long row_offset(int row, int) const {
+    int b, i, j;
+    pixel_of(row, g, b, i, j);
+    return (((long long)b * 2 * g.h + 2 * i) * (2 * g.w) + 2 * j) * g.cout;
+  }
+  __device__ __forceinline__ long long col_offset(int col) const {
+    const int p = col / g.cout, o = col - p * g.cout;
+    return ((long long)(p >> 1) * (2 * g.w) + (p & 1)) * g.cout + o;
+  }
+  __device__ __forceinline__ void store8(long long off, const Stage* v) const {
+    *reinterpret_cast<uint4*>(out + off) = *reinterpret_cast<const uint4*>(v);
+  }
+};
+
+template <int BN>
+int launch_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wc, const __nv_bfloat16* bias,
+                    __nv_bfloat16* out, const Geom& g, cudaStream_t stream) {
+  CUtensorMap a_map = {}, b_map;
+  cudaError_t err = igemm::weight_map(&b_map, wc, g.cin, g.nc, igemm::BK);
+  int rows, imgs;
+  const bool a_tma = igemm::row_box(g.h, g.w, rows, imgs);
+  if (err == cudaSuccess && a_tma) {
+    const cuuint64_t dims[4] = {(cuuint64_t)g.cin, (cuuint64_t)g.w, (cuuint64_t)g.h,
+                                (cuuint64_t)g.n};
+    const cuuint32_t box[4] = {64, (cuuint32_t)g.w, (cuuint32_t)rows, (cuuint32_t)imgs};
+    err = igemm::dense_map(&a_map, x, 4, dims, box);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (g.cin + igemm::BK - 1) / igemm::BK;
+  const UpconvFwd<BN> p{x, bias, out, g, g.m, g.nc, 9 * chunks, 1, g.h, g.w, chunks, a_tma};
+  return static_cast<int>(igemm::launch<BN>(a_map, b_map, p, stream));
 }
 
 // ---------------------------------------------------------------- fp32
@@ -325,14 +255,16 @@ int n_tiles(const Geom& g, int bm, int bn) {
 extern "C" int facegen_upconv_fwd_bf16(const void* x, const void* wc, const void* bias, void* out,
                                        int n, int h, int w, int cin, int cout, void* stream) {
   const Geom g = make_geom(n, h, w, cin, cout);
-  // more than the 48 KB of shared memory a launch gets without asking
-  cudaError_t err = cudaFuncSetAttribute(upconv_fwd_bf16,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  upconv_fwd_bf16<<<n_tiles(g, BM, BN), THREADS, SMEM_BF16, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wc),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), g);
-  return static_cast<int>(cudaGetLastError());
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(wc);
+  const auto* bb = static_cast<const __nv_bfloat16*>(bias);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 128 x 256 tiles where they fill every SM at least once (the sampler's
+  // batch), else 128 x 128 tiles, twice as many (the training batches)
+  if (n_tiles(g, igemm::BM, 256) >= igemm::sm_count())
+    return launch_fwd_bf16<256>(xb, wb, bb, ob, g, st);
+  return launch_fwd_bf16<128>(xb, wb, bb, ob, g, st);
 }
 
 extern "C" int facegen_upconv_fwd_f32(const void* x, const void* wc, const void* bias, void* out,

@@ -13,28 +13,31 @@
 //   dx[n,i,j,c]  = sum_{u,v,col} S2D(dy)[n,i-u+1,j-v+1,col] wc[(u*3+v)*Cin+c, col]
 //   dWc[(u*3+v)*Cin+c, col] = sum_{n,i,j} x[n,i+u-1,j+v-1,c] S2D(dy)[n,i,j,col].
 //
-// Design. Both are implicit GEMMs on the forward's tiles (128 x 128 x 32,
-// four warps of 64 x 64, bf16 WMMA with fp32 accumulate, a 3-stage
-// cp.async ring; fp32: a 64 x 64 x 16 SIMT tile). Neither the padded
-// copy nor S2D(dy) is ever written: the loads read dy in space-to-depth
-// order (a K chunk of 8 columns is 8 channels of one dy pixel, since
-// Cout % 8 == 0) and mask the image border to zero.
+// Design. Both are implicit GEMMs. Neither the padded copy nor S2D(dy)
+// is ever written: the loads read dy in space-to-depth order (a K chunk
+// of 8 columns is 8 channels of one dy pixel, since Cout % 8 == 0) and
+// mask the image border to zero.
 // - dx: rows are the N*H*W input pixels, columns Cin, K = (tap, phase,
 //   cout). The A load for tap (du, dv) reads S2D(dy) at (i-du, j-dv),
 //   which is the Pallas kernel's flipped tap, and B is wc read in place:
-//   B[col, c] = wc[tap*Cin+c, col], tap t's block read column-major, so
-//   no flipped or transposed copy of the weight exists.
+//   B[col, c] = wc[tap*Cin+c, col], a K-major operand, so no flipped or
+//   transposed copy of the weight exists. bf16 runs on the forward's
+//   wgmma mainloop (csrc/igemm_sm90.cuh: TMA for wc, cp.async gathers
+//   for dy, one persistent block per SM).
 // - dW: rows are (tap, cin), columns (phase, cout), K = the N*H*W
 //   pixels. A (= x shifted by the tap) is read pixel-major, as a
-//   column-major operand.
+//   column-major operand. bf16: 128 x 128 x 32 tiles, four warps of
+//   64 x 64 on WMMA with fp32 accumulate, a 3-stage cp.async ring.
+// - fp32 (both): a 64 x 64 x 16 SIMT tile, kept for tight checks.
 //
 // What bounds them. At batch 32 the GEMMs are small for 132 SMs: dx of
 // upconv1 has 16 output tiles and K = 9216, and dW has 72 output tiles
 // (1152 x 1024 and 2304 x 512) with K = 2048 and 8192 pixels. So both
-// split K over blockIdx.y into fp32 partials, which a second kernel sums
-// in a fixed order: deterministic, unlike atomics, for a workspace of at
-// most ~19 MB at G's shapes. The split is chosen here
-// (facegen_upconv_bwd_splits) so the grid holds about two blocks per SM.
+// split K into fp32 partials, which a second kernel sums in a fixed
+// order: deterministic, unlike atomics, for a workspace of at most
+// ~19 MB at G's shapes. The split is chosen here
+// (facegen_upconv_bwd_splits): for the bf16 dx, only while its tiles
+// leave SMs idle; otherwise about two blocks per SM.
 //
 // Requirements, checked by the Python wrapper: contiguous NHWC tensors,
 // Cin and Cout multiples of 8, 16-byte aligned pointers, fewer than
@@ -43,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "igemm_sm90.cuh"
 
 #include <type_traits>
 
@@ -205,78 +210,89 @@ __device__ __forceinline__ void store8_f32(float* dst, const float* v) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// dx = implicit GEMM (N*H*W pixels) x (9 * 4*Cout) x (Cin). With one
-// split it writes bf16 dx; with more, fp32 partials ws[split][m][c].
-__global__ void __launch_bounds__(THREADS)
-upconv_dx_bf16(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ wc,
-               __nv_bfloat16* __restrict__ dx, float* __restrict__ ws, Geom g, int splits) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][BK+SPAD]
-  __nv_bfloat16* Bs = As + STAGES * STAGE;                        // [STAGES][BN][BK+SPAD]
+// dx on the wgmma mainloop of csrc/igemm_sm90.cuh: rows the N*H*W input
+// pixels, columns Cin, K steps of 64 (tap, phase, cout) columns. An A chunk
+// is 8 channels of one dy pixel, read in space-to-depth order at (i - du,
+// j - dv); B is wc's rows (tap, cin) read K-major by TMA, 64 collapsed
+// columns of BN_DX input channels. With one split it writes bf16 dx; with
+// more, fp32 partials ws[split][m][c].
+constexpr int BN_DX = 128;
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int tiles_n = (g.cin + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * BM;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
+struct UpconvDx {
+  static constexpr int TRANS_B = 0;
+  const __nv_bfloat16* a;  // dy
+  __nv_bfloat16* dx;
+  float* ws;
+  Geom g;
+  int m, n, steps, splits;  // the GEMM: rows, columns, K steps, K splits
+  int h, w;                 // x's pixel grid (dy's, halved)
+  int chunks;               // K steps per tap: ceil(4*Cout / 64)
+  bool a_tma;               // tiles are boxes of whole rows, and 64 | 2*Cout
 
-  // A: 4 chunks of 8 K columns per row, 32 rows per pass, 4 passes; a
-  // thread loads the same 4 pixel rows at every K step.
-  constexpr int CH = BK / 8, ROWS = THREADS / CH, PASSES = BM / ROWS;
-  const int chunk = tid % CH;
-  int a_b[PASSES], a_i[PASSES], a_j[PASSES];
-  bool a_ok[PASSES];
-#pragma unroll
-  for (int s = 0; s < PASSES; ++s) {
-    const int m = m0 + tid / CH + s * ROWS;
-    a_ok[s] = m < g.m;
-    pixel_of(a_ok[s] ? m : 0, g, a_b[s], a_i[s], a_j[s]);
+  // A by TMA: dy as (2*Cout [(b, o)], W, 2 [a], H, N), so S2D(dy)'s columns
+  // a*2*Cout + (b*Cout + o) of a 64-column step lie in one a; tap (du, dv)
+  // shifts the box by (-du, -dv), pixels past the border read as zero
+  __device__ __forceinline__ void load_a(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int ks, int m0) const {
+    const int tap = ks / chunks;
+    const int col = (ks - tap * chunks) * igemm::BK, a = col / (2 * g.cout);
+    int n0, i0;
+    igemm::tile_origin(m0, g.h, g.w, n0, i0);
+    igemm::tma_load_5d(dst, map, bar, col - a * 2 * g.cout, 1 - tap % 3, a, i0 + 1 - tap / 3,
+                       n0);
   }
-  const int chunks = (g.c4 + BK - 1) / BK;
 
-  auto load_tile = [&](int stage, int kt) {
-    const int tap = kt / chunks;
-    const int col = (kt - tap * chunks) * BK + chunk * 8;
-    const int du = tap / 3 - 1, dv = tap % 3 - 1;
-    __nv_bfloat16* as = As + stage * STAGE;
-    __nv_bfloat16* bs = Bs + stage * STAGE;
-    // dx[i, j] reads S2D(dy) at (i - du, j - dv) with tap (du, dv)'s weight
-#pragma unroll
-    for (int s = 0; s < PASSES; ++s) {
-      const int y = a_i[s] - du, x = a_j[s] - dv;
-      const bool ok = a_ok[s] && col < g.c4 && inside(y, x, g);
-      const __nv_bfloat16* src = ok ? dy + s2d_offset(a_b[s], y, x, col, g) : dy;
-      cp_async16(as + (tid / CH + s * ROWS) * (BK + SPAD) + chunk * 8, src, ok);
-    }
-    // B[col, c] = wc[(tap)*Cin + c, col]: column-major, K contiguous
-#pragma unroll
-    for (int s = 0; s < PASSES; ++s) {
-      const int nr = tid / CH + s * ROWS;
-      const int c = n0 + nr;
-      const bool ok = c < g.cin && col < g.c4;
-      const __nv_bfloat16* src = ok ? wc + ((long long)tap * g.cin + c) * g.c4 + col : wc;
-      cp_async16(bs + nr * (BK + SPAD) + chunk * 8, src, ok);
-    }
-  };
+  // dy[b, 2i, 2j, 0], where S2D(dy)[b, i, j, 0] lies
+  __device__ __forceinline__ int row_base(int row, int& i, int& j) const {
+    int b;
+    pixel_of(row, g, b, i, j);
+    return ((b * 2 * g.h + 2 * i) * (2 * g.w) + 2 * j) * g.cout;
+  }
+  // step ks: tap (du, dv) reads S2D(dy) at (i - du, j - dv), columns
+  // col = (ks % chunks) * 64 + chunk * 8 ..., col = p*Cout + o = dy's
+  // channel o at (2y + p/2, 2x + p%2)
+  __device__ __forceinline__ bool a_step(int ks, int chunk, int& delta, int& di, int& dj) const {
+    const int tap = ks / chunks;
+    const int col = (ks - tap * chunks) * igemm::BK + chunk * 8;
+    di = 1 - tap / 3;
+    dj = 1 - tap % 3;
+    const int p = col / g.cout, o = col - p * g.cout;
+    delta = ((2 * di + (p >> 1)) * (2 * g.w) + 2 * dj + (p & 1)) * g.cout + o;
+    return col < g.c4;
+  }
 
-  int k_begin, k_end;
-  split_range(dx_steps(g, BK), splits, blockIdx.y, k_begin, k_end);
-  Acc acc[FM][FN];
-  mainloop<false, false>(acc, As, Bs, k_begin, k_end, load_tile, wm, wn);
+  __device__ __forceinline__ uint32_t b_bytes(int) const { return BN_DX * igemm::BK * 2; }
+  __device__ __forceinline__ void load_b(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int ks, int n0) const {
+    const int tap = ks / chunks;
+    igemm::tma_load_3d(dst, map, bar, (ks - tap * chunks) * igemm::BK, n0, tap);
+  }
 
-  auto store8 = [&](int m, int c, const float* v) {
-    if (m >= g.m || c >= g.cin) return;
+  // the epilogue: fp32, then bf16 dx[row, col] (one split) or the fp32
+  // partial ws[split][row][col]
+  using Stage = float;
+  using Stage2 = float2;
+  __device__ __forceinline__ Stage2 stage2(int, float v0, float v1) const {
+    return make_float2(v0, v1);
+  }
+  __device__ __forceinline__ long long row_offset(int row, int split) const {
+    return ((long long)split * m + row) * g.cin;
+  }
+  __device__ __forceinline__ long long col_offset(int col) const { return col; }
+  __device__ __forceinline__ void store8(long long off, const Stage* v) const {
+    const float4 lo = reinterpret_cast<const float4*>(v)[0];
+    const float4 hi = reinterpret_cast<const float4*>(v)[1];
     if (splits == 1) {
-      __align__(16) __nv_bfloat16 o[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16(v[t]);
-      *reinterpret_cast<uint4*>(dx + (long long)m * g.cin + c) = *reinterpret_cast<const uint4*>(o);
+      __align__(16) __nv_bfloat162 o[4] = {
+          __floats2bfloat162_rn(lo.x, lo.y), __floats2bfloat162_rn(lo.z, lo.w),
+          __floats2bfloat162_rn(hi.x, hi.y), __floats2bfloat162_rn(hi.z, hi.w)};
+      *reinterpret_cast<uint4*>(dx + off) = *reinterpret_cast<const uint4*>(o);
     } else {
-      store8_f32(ws + ((long long)blockIdx.y * g.m + m) * g.cin + c, v);
+      reinterpret_cast<float4*>(ws + off)[0] = lo;
+      reinterpret_cast<float4*>(ws + off)[1] = hi;
     }
-  };
-  epilogue(acc, smem, m0, n0, wm, wn, store8);
-}
+  }
+};
 
 // dWc = implicit GEMM (9*Cin) x (N*H*W pixels) x (4*Cout), fp32 out;
 // with more than one split, into fp32 partials ws[split][row][col].
@@ -530,6 +546,15 @@ int choose_splits(int tiles, int steps) {
 extern "C" int facegen_upconv_bwd_splits(int which, int bf16, int n, int h, int w, int cin,
                                          int cout) {
   const Geom g = make_geom(n, h, w, cin, cout);
+  if (which == 0 && bf16) {
+    // one block per SM: split K only while the tiles leave SMs idle
+    const int tiles = n_tiles(g.m, g.cin, igemm::BM, BN_DX), sms = igemm::sm_count();
+    const int steps = dx_steps(g, igemm::BK);
+    int s = tiles < sms ? sms / tiles : 1;
+    if (s > steps / 8) s = steps / 8;
+    if (s > 16) s = 16;
+    return s < 1 ? 1 : s;
+  }
   const int bm = bf16 ? BM : FBM, bn = bf16 ? BN : FBN, bk = bf16 ? BK : FBK;
   if (which == 0) return choose_splits(n_tiles(g.m, g.cin, bm, bn), dx_steps(g, bk));
   return choose_splits(n_tiles(9 * g.cin, g.c4, bm, bn), dw_steps(g, bk));
@@ -539,13 +564,21 @@ extern "C" int facegen_upconv_dx_bf16(const void* dy, const void* wc, void* dx, 
                                       int h, int w, int cin, int cout, int splits, void* stream) {
   const Geom g = make_geom(n, h, w, cin, cout);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(upconv_dx_bf16,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+  CUtensorMap a_map = {}, b_map;
+  cudaError_t err = igemm::weight_map(&b_map, wc, cin, g.c4, BN_DX);
+  int rows, imgs;
+  const bool a_tma = igemm::row_box(h, w, rows, imgs) && (2 * cout) % igemm::BK == 0;
+  if (err == cudaSuccess && a_tma) {
+    const cuuint64_t dims[5] = {(cuuint64_t)(2 * cout), (cuuint64_t)w, 2, (cuuint64_t)h,
+                                (cuuint64_t)n};
+    const cuuint32_t box[5] = {64, (cuuint32_t)w, 1, (cuuint32_t)rows, (cuuint32_t)imgs};
+    err = igemm::dense_map(&a_map, dy, 5, dims, box);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  upconv_dx_bf16<<<dim3(n_tiles(g.m, g.cin, BM, BN), splits), THREADS, SMEM_BF16, st>>>(
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(wc),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(ws), g, splits);
-  err = cudaGetLastError();
+  const int chunks = (g.c4 + igemm::BK - 1) / igemm::BK;
+  const UpconvDx p{static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx),
+                   static_cast<float*>(ws), g, g.m, cin, 9 * chunks, splits, h, w, chunks, a_tma};
+  err = igemm::launch<BN_DX>(a_map, b_map, p, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return launch_reduce(static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(dx),
                        (long long)g.m * g.cin, splits, st);

@@ -3,7 +3,8 @@
 Each kernel source ``facegen_torch/csrc/<name>.cu`` exposes a plain C
 interface. The first call of ``load(name)`` in a process compiles it
 with ``nvcc`` into ``facegen_torch/_build/<name>-<digest>.so`` (the
-digest covers the source and the flags, so an edited source rebuilds)
+digest covers the source, every ``csrc/*.cuh`` header and the flags, so
+an edited source or header rebuilds)
 and loads it with ctypes. Nothing is built at import time. A missing
 ``nvcc`` or a failed build raises: a CUDA tensor has no other path.
 """
@@ -44,9 +45,11 @@ def find_nvcc() -> str:
 
 def _paths(name: str):
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # what a source may include
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     stem = BUILD_DIR / f"{name}-{digest}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")
 
@@ -89,3 +92,28 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The built library of csrc/<name>.cu, built on first use."""
     return ctypes.CDLL(str(build(name)))
+
+
+def sass_counts(name: str, opcode: str) -> dict[str, int]:
+    """For each kernel of the built csrc/<name>.cu, the number of SASS
+    instructions whose opcode starts with ``opcode`` (e.g. ``HGMMA``, the
+    wgmma tensor-core instruction), from ``cuobjdump -sass`` of the
+    library. Builds it first if needed."""
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    proc = subprocess.run([cuobjdump, "-sass", str(build(name))],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name} (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-2000:]}")
+    counts: dict[str, int] = {}
+    kernel = None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            counts[kernel] = 0
+        elif kernel is not None:
+            # "/*0a50*/  [@P0] HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], ... ;"
+            words = line.split("*/", 1)[-1].replace("{", " ").split()[:2]
+            if any(word.startswith(opcode) for word in words):
+                counts[kernel] += 1
+    return counts

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from facegen_torch.models import gan
+from facegen_torch.ops import _build
 from facegen_torch.ops import upsample_conv as uc
 from facegen_torch.utils.infer import GanInference
 
@@ -43,9 +44,12 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,cin,cout,k", [(n,) + s for s in SHAPES for n in (2, 3)]
                          + [(5, 8, 128, 256, 5), (3, 16, 256, 128, 5)]
-                         # G32's upconv1 and upconv2 in the D and G phases of training
-                         + [(n, h, cin, cout, 5) for n in (16, 32)
-                            for h, cin, cout in ((8, 128, 256), (16, 256, 128))])
+                         # G32's upconv1 and upconv2 in the D and G phases of
+                         # training and at the sampler's batch; G16's two layers
+                         + [(n, h, cin, cout, 5) for n in (16, 32, 1024)
+                            for h, cin, cout in ((8, 128, 256), (16, 256, 128))]
+                         + [(n, h, cin, cout, 5) for n in (32, 1024)
+                            for h, cin, cout in ((4, 128, 256), (8, 256, 128))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda_device, n, h, cin, cout, k, dtype):
     g = torch.Generator().manual_seed(n * h + cin)
@@ -87,6 +91,7 @@ def test_g32_on_the_card_matches_the_cpu(cuda_device):
 
 
 TRAIN_SHAPES = [(32, 8, 128, 256), (32, 16, 256, 128)]  # G32's upconv1, upconv2 at batch 32
+G16_TRAIN_SHAPES = [(32, 4, 128, 256), (32, 8, 256, 128)]  # G16's at batch 32
 
 
 def _norm_close(got, ref, tol=1e-4):
@@ -96,7 +101,7 @@ def _norm_close(got, ref, tol=1e-4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,cin,cout", [(n, h, cin, cout) for h, cin, cout, _ in SHAPES
-                                          for n in (2, 3)] + TRAIN_SHAPES)
+                                          for n in (2, 3)] + TRAIN_SHAPES + G16_TRAIN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain_versions(cuda_device, n, h, cin, cout, dtype):
     g = torch.Generator().manual_seed(n * h + cout)
@@ -146,6 +151,16 @@ def test_g32_training_step_runs_the_three_kernels(cuda_device):
     assert (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES) == tuple(b + 2 for b in before)
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,kernel", [("upsample_conv", "UpconvFwd"),
+                                           ("upsample_conv_bwd", "UpconvDx")])
+def test_bf16_kernels_run_on_wgmma(cuda_device, source, kernel):
+    """The bf16 forward and dx kernels hold wgmma (HGMMA in SASS) in every
+    instantiation of the mainloop."""
+    counts = {k: c for k, c in _build.sass_counts(source, "HGMMA").items() if kernel in k}
+    assert counts and all(c > 0 for c in counts.values()), counts
 
 
 def test_facegen_torch_imports_without_jax():

@@ -133,3 +133,19 @@ def test_build_raises_where_nvcc_is_missing(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("upsample_conv")
     assert not (tmp_path / "build").exists()
+
+
+def test_build_digest_covers_the_headers(tmp_path, monkeypatch):
+    """A source's library path changes when a csrc/*.cuh header changes,
+    so an edited header never loads a stale library (no nvcc needed)."""
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = _build._paths("k")[1]
+    assert _build._paths("k")[1] == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build._paths("k")[1]
+    assert second != first and second.parent == tmp_path / "build"
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build._paths("k")[1] not in (first, second)
