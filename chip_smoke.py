@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles the CUDA kernels from facegen_torch/csrc, one nvcc per
    source, in parallel (seconds), prints ptxas's registers and spills, and
-   fails unless the bf16 forward and dx kernels hold HGMMA (wgmma)
+   fails unless the bf16 forward, dx and dW kernels hold HGMMA (wgmma)
    instructions in their SASS (cuobjdump);
 3. kernels: the upsample + conv forward kernel against its plain PyTorch
    version (the phase conv) at G's two layers at the sampler's batch
@@ -21,11 +21,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    16, and prints each row of the kernel table (median ms and spread,
    bound, share of the bound, launches per G call and per train step);
 4. backward kernels: dx and dW against their plain versions at G's two
-   training shapes (N = 32), the odd shapes and N = 3, fp32 and bf16;
-   their rows of the kernel table at the training shapes (the library
-   calls: cuDNN's conv of a pre-made S2D(dy), and
-   torch.nn.grad.conv2d_weight of the phase conv); the
-   autograd Function against autograd of the plain forward (dx, dW, db);
+   training shapes (N = 32), G16's, the odd shapes, N = 3, and the shapes
+   of dW's TMA path where a tile holds two taps (Cin = 64, 192) or the
+   last K step runs past the last image (N = 3 at 4x4), fp32 and bf16;
+   the bf16 dW's bits on a repeat call and on CUDA-graph replays; their
+   rows of the kernel table at the training shapes (the library calls:
+   cuDNN's conv of a pre-made S2D(dy), and torch.nn.grad.conv2d_weight
+   of the phase conv; dW's rows carry the time of the WMMA kernel it
+   replaced, from an earlier run); the autograd Function against
+   autograd of the plain forward (dx, dW, db);
 5. sampler path: writes a G32 + D32b colour checkpoint (full width, seeded
    random weights) and a synthetic 4096-image store, runs
    ``facegen_torch.sample.main`` with --runs 2 --neighbours, checks the
@@ -37,8 +41,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    steps with --saveFreq 1, then a resume for a third; checks every
    kernel's launch count against the steps and grids, finite losses,
    metrics.jsonl, the checkpoint and its .old; holds one fp32 step on the
-   card against the same step on the CPU; reports training images/s and
-   the device ms per step.
+   card against the same step on the CPU; reports training images/s, the
+   device ms per step, and a profile of the step by kernel family with
+   the device's busy share.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -75,6 +80,16 @@ G16_SHAPES = [(n, h, cin, cout, 5) for n in (32, 1024)
               for h, cin, cout in ((4, 128, 256), (8, 256, 128))]
 # G32's upconv1 and upconv2 in training (batch 32)
 TRAIN_SHAPES = [(32, 8, 128, 256, 5), (32, 16, 256, 128, 5)]
+# dW's TMA path: 128-row tiles that hold two taps (Cin = 64, 192; at
+# N = 16, 16x16, over 64 K steps), and a last K step past the last image
+# (N = 3 at 4x4: 48 pixels)
+DW_TMA_SHAPES = [(2, 8, 64, 64, 5), (2, 8, 192, 64, 5), (3, 4, 128, 256, 5), (3, 4, 64, 64, 5),
+                 (16, 16, 64, 64, 5)]
+# the WMMA dW that the wgmma kernel replaced, device ms at TRAIN_SHAPES:
+# not timed here (its source is gone), but by tools/compare_upconv_kernels.py
+# against the parent tree on an NVIDIA H100 80GB HBM3 at 700 W; printed
+# as a note beside the measured rows, never as one of their numbers
+WMMA_DW_MS = {(32, 8, 128, 256): 0.0806, (32, 16, 256, 128): 0.2714}
 # every shape the training path gives the forward: both layers in the D
 # phase (N = 16), the G phase (N = 32) and the progress grids (100, 300)
 FWD_TRAIN_SHAPES = [(n, h, cin, cout, 5) for n in (16, 32, 100, 300)
@@ -155,8 +170,9 @@ def phase_build():
             if any(w in ln for w in ("registers", "spill", "Function properties", "wgmma",
                                      "setmaxnreg", "arning")):
                 print(f"  ptxas {name}: {ln.strip()}")
-    # the bf16 forward and dx must run on wgmma: HGMMA in their SASS
-    for name, kernel in (("upsample_conv", "UpconvFwd"), ("upsample_conv_bwd", "UpconvDx")):
+    # the bf16 forward, dx and dW must run on wgmma: HGMMA in their SASS
+    for name, kernel in (("upsample_conv", "UpconvFwd"), ("upsample_conv_bwd", "UpconvDx"),
+                         ("upsample_conv_bwd", "UpconvDw")):
         counts = {k: c for k, c in _build.sass_counts(name, "HGMMA").items() if kernel in k}
         print(f"  sass {name}: HGMMA instructions per {kernel} kernel: {counts}")
         check(bool(counts) and all(c > 0 for c in counts.values()),
@@ -463,7 +479,8 @@ def phase_bwd_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     err = {"dx": 0.0, "dw": 0.0}
-    for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + G16_SHAPES[:2] + ODD_SHAPES):
+    for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + G16_SHAPES[:2] + ODD_SHAPES
+                                              + DW_TMA_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, _ = _inputs(n, h, cin, cout, k, dtype, seed=100 + si)
             dy = torch.randn(n, 2 * h, 2 * h, cout, generator=torch.Generator().manual_seed(si))
@@ -490,6 +507,7 @@ def phase_bwd_kernels():
             if dtype == torch.bfloat16 and (n, h, cin, cout, k) in TRAIN_SHAPES:
                 err["dx"] = max(err["dx"], float(e_dx.max()))
                 err["dw"] = max(err["dw"], float(e_dw.max()))
+    _check_dw_repeats()
 
     # kernel, plain version and one library call, in alternating turns:
     # dx, cuDNN's conv of a pre-made S2D(dy) with the pre-made flipped and
@@ -520,7 +538,11 @@ def phase_bwd_kernels():
             print(f"time bf16 {which} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
                   f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
                   f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
-                  f"plain {t['plain']:.4f} ms, library {t['library']:.4f} ms")
+                  f"plain {t['plain']:.4f} ms, library {t['library']:.4f} ms"
+                  + (f"; note: the WMMA kernel it replaced took "
+                     f"{WMMA_DW_MS[(n, h, cin, cout)]:.4f} ms (not timed in this run: "
+                     f"tools/compare_upconv_kernels.py against the parent tree)"
+                     if which == "dw" else ""))
             rows[which].append(row)
         del x, w, dy, wc, dyc, x_cl, w_dx
 
@@ -543,6 +565,33 @@ def phase_bwd_kernels():
         check(ok, f"UpsampleConvFunction's gradients disagree ({n, h, cin, cout})")
     return {w: {"max_abs_err": err[w], **_sum_rows(rows[w]), "launches_per_step": 2}
             for w in rows}
+
+
+def _check_dw_repeats():
+    """The bf16 dW sums each tile's stream-K pieces in a fixed order: a
+    repeat call and two replays of a CUDA graph of the call give the bits
+    of the first call, at the training shapes and a gather shape."""
+    import torch
+
+    from facegen_torch.ops import upsample_conv as uc
+
+    for n, h, cin, cout, k in TRAIN_SHAPES + ODD_SHAPES[:1]:
+        x, _, _ = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=300)
+        dy = torch.randn(n, 2 * h, 2 * h, cout, generator=torch.Generator().manual_seed(301))
+        dy = dy.to("cuda", torch.bfloat16)
+        first, second = uc.upsample_conv_dw(x, dy), uc.upsample_conv_dw(x, dy)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = uc.upsample_conv_dw(x, dy)
+        same = torch.equal(first, second)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            same &= torch.equal(first, replayed)
+        print(f"bwd check bf16 dW N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: repeat call and "
+              f"2 CUDA-graph replays bit-identical: {'ok' if same else 'FAIL'}")
+        check(same, f"the bf16 dW is not deterministic ({n, h, cin, cout})")
+        del graph
 
 
 def write_store(tmp: str) -> str:
@@ -646,7 +695,46 @@ def phase_training(tmp: str, store: str):
           f"steps, batch 32, bf16, waits for the host included): "
           f"{n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at the epoch's count of "
           f"{n_epoch} examples per {per_epoch} steps")
+    _profile_train_steps(trainer2, pool, gen)
     return launches
+
+
+def _profile_train_steps(trainer, pool, gen, steps=5):
+    """Device time of a training step by kernel family (torch.profiler,
+    kernel events only) against the host's wall time of the same steps:
+    the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.run_steps(pool, gen, 10)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_steps(pool, gen, steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    families = {"upsample-conv dW (UpconvDw)": ("upconvdw",),
+                "upsample-conv dx (UpconvDx)": ("upconvdx",),
+                "upsample-conv forward (UpconvFwd)": ("upconvfwd",),
+                "split-K sums (reduce_splits)": ("reduce_splits",),
+                "cuDNN / cuBLAS": ("cudnn", "xmma", "gemm", "conv", "cutlass", "sm90_")}
+    other = "elementwise, reductions, copies"
+    us = dict.fromkeys(list(families) + [other], 0.0)
+    launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+        name = ev.key.lower()
+        us[next((f for f, keys in families.items() if any(k in name for k in keys)), other)] += t
+        launches += ev.count
+    busy_ms = sum(us.values()) / steps / 1e3
+    check(busy_ms > 0, "the profiler saw no device time in the training steps")
+    print(f"training path: step profile (torch.profiler, {steps} steps after 10 warm-up, kernel "
+          f"events): {busy_ms:.4f} ms of device time in {wall_ms:.3f} ms of host wall per step, "
+          f"busy {100 * busy_ms / wall_ms:.1f} %, {launches / steps:.0f} kernels a step; " + "; ".join(
+              f"{f} {v / steps / 1e3:.4f} ms ({100 * v / steps / 1e3 / busy_ms:.1f} %)"
+              for f, v in sorted(us.items(), key=lambda kv: -kv[1])))
 
 
 def phase_step_parity():

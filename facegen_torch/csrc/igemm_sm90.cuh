@@ -1,13 +1,14 @@
 // Implicit-GEMM mainloop for Hopper (sm_90a) shared by the upsample-conv
-// forward (csrc/upsample_conv.cu) and its input gradient
+// forward (csrc/upsample_conv.cu) and its input and weight gradients
 // (csrc/upsample_conv_bwd.cu).
 //
-// C[m, n] = sum_k A[m, k] B[k, n] in fp32, bf16 operands. A is an NHWC
-// activation read through shifted taps (zero at the image border), so no
-// padded or im2col copy exists; B is a 2-D tile of the collapsed weight
-// wc, viewed 3-D as (4*Cout, Cin, 9 taps). A problem type P supplies the
-// gather address of an A chunk, the TMA coordinates of a B tile and the
-// epilogue's stores (the layout change of each op).
+// C[m, n] = sum_k A[m, k] B[k, n] in fp32, bf16 operands. For the forward
+// and dx, A is an NHWC activation read through shifted taps (zero at the
+// image border), so no padded or im2col copy exists, and B is a 2-D tile
+// of the collapsed weight wc, viewed 3-D as (4*Cout, Cin, 9 taps). A
+// problem type P supplies the gather address of an A chunk, the TMA
+// coordinates of the tiles and the epilogue's stores (the layout change
+// of each op).
 //
 // Design. One block per SM walks the work units (output tiles of 128 x BN,
 // times the K splits) in a persistent loop. Warpgroups 0 and 1 consume:
@@ -31,13 +32,27 @@
 // What bounds it (H100, PERF.md, tools/ablate_igemm.py): at the
 // sampler's batch the products and barriers alone reach ~840 TFLOP/s;
 // the loads' shared-memory traffic beside them, and an epilogue that is
-// not overlapped, bring the forward to ~600.
+// not overlapped, bring the forward to ~600. dW at batch 32 (~210 and
+// ~340 TFLOP/s) is bound by its loads (x's per-tap boxes most), then by
+// the stream-K fixup and the epilogue, not by the products.
+//
+// The weight gradient (dW) runs here too, with both operands MN-major
+// (TRANS_A = 1) and a stream-K schedule (P::STREAM_K):
+// the tiles' K steps, tile by tile, are cut into one even range per
+// block, so every SM has the same work whatever the tile count. A block
+// whose range covers a whole tile writes it; a piece of a tile goes to
+// an fp32 workspace, and the tile's last piece to arrive (a per-tile
+// counter) sums all its pieces in piece order and writes the tile: the
+// same bits on every run, whoever arrives last (fixup below).
 //
 // Shared-memory layouts (128-byte swizzle: the 16-byte chunk c of a
 // 128-byte row r sits at chunk c ^ (r % 8), on 1024-byte-aligned tiles):
-//   A: [128 rows][64 k]   K-major; wgmma descriptor SBO 1024 B.
+//   A: K-major [128 rows][64 k] (TRANS_A = 0; forward, dx), wgmma
+//      descriptor SBO 1024 B; or MN-major (TRANS_A = 1; dW): two slabs
+//      [64 k][64 m], one per consumer warpgroup, described like one
+//      MN-major B slab.
 //   B: K-major [BN rows][64 k] (TRANS_B = 0; dx), or MN-major: BN/64
-//      slabs of [64 k][64 n] (TRANS_B = 1; forward), LBO 8 KB between
+//      slabs of [64 k][64 n] (TRANS_B = 1; forward, dW), LBO 8 KB between
 //      slabs, SBO 1024 B between 8-row groups.
 
 #pragma once
@@ -200,9 +215,9 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N, fp32) += A (64 x 16, K-major) * B (16 x N); TRANS_B = 1 for an
-// MN-major B. scale_d = 0 overwrites D instead.
-template <int TRANS_B>
+// D (64 x N, fp32) += A (64 x 16) * B (16 x N); TRANS_A = 1 for an MN-major
+// A, TRANS_B = 1 for an MN-major B. scale_d = 0 overwrites D instead.
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -215,7 +230,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -225,10 +240,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -245,7 +260,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -263,42 +278,175 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 
-template <int BN, int TRANS_B>
+template <int BN, int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
   if constexpr (BN == 256) {
-    wgmma_m64n256k16<TRANS_B>(d, desc_a, desc_b, 1);
+    wgmma_m64n256k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, 1);
   } else {
-    wgmma_m64n128k16<TRANS_B>(d, desc_a, desc_b, 1);
+    wgmma_m64n128k16<TRANS_A, TRANS_B>(d, desc_a, desc_b, 1);
   }
 }
 
 // ---------------------------------------------------------------- work units
+// A block's units, in order: unit_at(first_pos(p), ...), then from w.next.
 struct Unit {
   int m0, n0, k_begin, k_end, split;
+  int tile;        // output tile (column tiles fastest, so blocks that run together share A rows in L2)
+  long long next;  // the block's next position
 };
 
-// Unit u: output tile u / splits (column tiles fastest, so blocks that run
-// together share A rows in L2) and K split u % splits.
 template <int BN, class P>
-__device__ __forceinline__ Unit unit_of(int u, const P& p) {
-  const int tiles_n = (p.n + BN - 1) / BN;
-  const int split = u % p.splits, tile = u / p.splits;
-  return Unit{(tile / tiles_n) * BM, (tile % tiles_n) * BN,
-              static_cast<int>(static_cast<long long>(p.steps) * split / p.splits),
-              static_cast<int>(static_cast<long long>(p.steps) * (split + 1) / p.splits), split};
+__host__ __device__ __forceinline__ int n_tiles(const P& p) {
+  return ((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN);
+}
+
+// Units to spread over the blocks: tiles x K splits, or (stream-K) every
+// tile's K steps.
+template <int BN, class P>
+__host__ __device__ __forceinline__ long long n_units(const P& p) {
+  if constexpr (P::STREAM_K)
+    return static_cast<long long>(n_tiles<BN>(p)) * p.steps;
+  else
+    return static_cast<long long>(n_tiles<BN>(p)) * p.splits;
+}
+
+// Stream-K: block b takes tile-steps [b * total / grid, (b+1) * total / grid)
+// of the tile-major order; the block whose range holds tile-step g:
+template <int BN, class P>
+__device__ __forceinline__ int block_of_step(long long g, const P& p) {
+  return static_cast<int>(((g + 1) * gridDim.x - 1) / n_units<BN>(p));
 }
 
 template <int BN, class P>
-__host__ __device__ __forceinline__ int n_units(const P& p) {
-  return ((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN) * p.splits;
+__device__ __forceinline__ long long first_pos(const P& p) {
+  if constexpr (P::STREAM_K)
+    return n_units<BN>(p) * blockIdx.x / gridDim.x;
+  else
+    return blockIdx.x;
+}
+
+// The unit at position pos of this block's walk: unit pos = (tile pos /
+// splits, K split pos % splits), the next one a grid further; or
+// (stream-K) the piece of tile-step pos's tile from pos to the end of the
+// tile or of the block's range. False past the block's last unit.
+template <int BN, class P>
+__device__ __forceinline__ bool unit_at(long long pos, const P& p, Unit& w) {
+  const long long units = n_units<BN>(p);
+  int tile;
+  if constexpr (P::STREAM_K) {
+    const long long hi = units * (blockIdx.x + 1) / gridDim.x;
+    if (pos >= hi) return false;
+    tile = static_cast<int>(pos / p.steps);
+    w.k_begin = static_cast<int>(pos - static_cast<long long>(tile) * p.steps);
+    w.k_end = hi - pos < p.steps - w.k_begin ? w.k_begin + static_cast<int>(hi - pos) : p.steps;
+    w.split = 0;
+    w.next = pos + (w.k_end - w.k_begin);
+  } else {
+    if (pos >= units) return false;
+    const int u = static_cast<int>(pos);
+    w.split = u % p.splits;
+    tile = u / p.splits;
+    w.k_begin = static_cast<int>(static_cast<long long>(p.steps) * w.split / p.splits);
+    w.k_end = static_cast<int>(static_cast<long long>(p.steps) * (w.split + 1) / p.splits);
+    w.next = pos + gridDim.x;
+  }
+  const int tiles_n = (p.n + BN - 1) / BN;
+  w.tile = tile;
+  w.m0 = (tile / tiles_n) * BM;
+  w.n0 = (tile % tiles_n) * BN;
+  return true;
+}
+
+// Stream-K fixup of a piece of a tile (a unit that is not the whole of
+// its K range), by one consumer warpgroup for its 64 rows. The piece goes
+// to workspace slot (tile + block): slots are unique, since a block's
+// range follows the one before it. Each thread stores its accumulators
+// in register order (float4 j of thread t at j * 128 + t: whole 512-byte
+// lines a warp); after a barrier, thread 0 fences (a release of them all)
+// and counts the piece in the tile's counter. The piece that makes the
+// count whole is the last: it resets the counter for the next launch,
+// then sums the tile's pieces in block order into acc and returns true;
+// the others return false and write nothing more. The tile's first
+// piece, which finds the count whole already, skips its store.
+template <int BN, class P>
+__device__ __forceinline__ bool fixup(const P& p, const Unit& w, float (&acc)[BN / 2], int wg,
+                                      int t, volatile int* flag) {
+  const long long steps = p.steps;
+  const int first = block_of_step<BN>(w.tile * steps, p);
+  const int last = block_of_step<BN>((w.tile + 1) * steps - 1, p);
+  auto slot = [&](int b) {
+    return reinterpret_cast<float4*>(p.ws) + (static_cast<long long>(w.tile + b) * CONSUMERS + wg) *
+                                                 (64 * BN / 4);
+  };
+  int* counter = p.counters + w.tile * CONSUMERS + wg;
+  bool done = false;
+  if (first == static_cast<int>(blockIdx.x)) {
+    // the tile's first piece ends its block's range, so it is usually the
+    // last to finish: where every other piece has arrived, it neither
+    // stores nor counts its own
+    if (t == 0) {
+      const bool others = *reinterpret_cast<volatile int*>(counter) == last - first;
+      if (others) *counter = 0;
+      __threadfence();
+      *flag = others;
+    }
+    warpgroup_sync(1 + wg);
+    done = *flag;
+    warpgroup_sync(1 + wg);
+  }
+  if (!done) {
+    float4* mine = slot(blockIdx.x);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      mine[j * 128 + t] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    warpgroup_sync(1 + wg);
+    if (t == 0) {
+      __threadfence();  // releases the warpgroup's stores, ordered before it by the barrier
+      const bool last_in = atomicAdd(counter, 1) == last - first;
+      if (last_in) *counter = 0;  // every piece has arrived
+      __threadfence();
+      *flag = last_in;
+    }
+    warpgroup_sync(1 + wg);
+    done = *flag;
+    warpgroup_sync(1 + wg);  // the flag is read before the epilogue reuses its memory
+    if (!done) return false;
+  }
+  // acc = ((piece first + piece first+1) + ...): this block's own piece
+  // from its registers where it is the first (the usual last arrival: a
+  // tile's first piece ends its block's range), else from its slot
+  if (first != static_cast<int>(blockIdx.x)) {
+    const float4* part = slot(first);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float4 v = __ldcg(part + j * 128 + t);
+      acc[4 * j] = v.x;
+      acc[4 * j + 1] = v.y;
+      acc[4 * j + 2] = v.z;
+      acc[4 * j + 3] = v.w;
+    }
+  }
+  for (int b = first + 1; b <= last; ++b) {
+    const float4* part = slot(b);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float4 v = __ldcg(part + j * 128 + t);
+      acc[4 * j] += v.x;
+      acc[4 * j + 1] += v.y;
+      acc[4 * j + 2] += v.z;
+      acc[4 * j + 3] += v.w;
+    }
+  }
+  return true;
 }
 
 // ---------------------------------------------------------------- the kernel
-// P provides: m, n (GEMM rows and columns), steps (K steps of BK), splits;
+// P provides: m, n (GEMM rows and columns), steps (K steps of BK), splits
+//   (K splits per tile; not with STREAM_K);
 //   TRANS_B (1: B tile is MN-major);
 //   a_tma: A comes by TMA, a box of 128 whole-row pixels per step through
 //     load_a(map, dst, bar, step, m0) (one thread), its border and its
@@ -314,7 +462,15 @@ __host__ __device__ __forceinline__ int n_units(const P& p) {
 //   Stage2 stage2(col, v0, v1): C[row, col..col+1] as staged (bias added);
 //   long long row_offset(row, split) and col_offset(col): where column col
 //     of a row lands in the output: at their sum;
-//   store8(offset, const Stage* v): stores C[row, col..col+7] there.
+//   store8(offset, const Stage* v): stores C[row, col..col+7] there;
+//   TRANS_A (1: A tile is MN-major);
+//   OWN_GATHER: without TMA, P gathers both operands itself, through
+//     gather_unit(state, unit, t) once per unit and gather_step(state, dst,
+//     t) once per K step in order (thread t's cp.async copies into the
+//     stage at dst); else the gathers above fill A and TMA fills B;
+//   STREAM_K: the stream-K schedule, whose pieces of tiles go through
+//     float* ws ((tiles + grid) x 128 x BN) and int* counters (CONSUMERS
+//     per tile, zero before the launch, left zero).
 template <int BN, class P>
 __global__ void __launch_bounds__(THREADS, 1)
 igemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
@@ -338,16 +494,15 @@ igemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CU
   }
   __syncthreads();
 
-  const int units = n_units<BN>(p);
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  Unit w;
   if (wg == CONSUMERS) {
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (p.a_tma) {  // one thread issues both operands' copies
       if (t == 0) {
         int it = 0;
-        for (int u = blockIdx.x; u < units; u += gridDim.x) {
-          const Unit w = unit_of<BN>(u, p);
+        for (long long pos = first_pos<BN>(p); unit_at<BN>(pos, p, w); pos = w.next) {
           for (int ks = w.k_begin; ks < w.k_end; ++ks, ++it) {
             const int s = it % C::STAGES;
             mbar_wait(empty(s), ((it / C::STAGES) & 1) ^ 1);  // the first pass finds it free
@@ -360,52 +515,66 @@ igemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CU
       }
       return;
     }
-    // thread t copies chunk t % 8 of rows t / 8 + 16 i, i < 8: rows that
-    // share r % 8, so one swizzled chunk offset serves all eight
-    const int chunk = t % 8, r0 = t / 8;
-    const uint32_t a_off = r0 * 128 + ((chunk ^ (r0 % 8)) * 16);
-    int it = 0;  // K steps issued by this block, over all its units
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const Unit w = unit_of<BN>(u, p);
-      // the rows' pixels, decoded once per unit: A's offset and (i, j);
-      // a row past the end gets i = -2^30, outside the grid at every step
-      int base[8], pi[8], pj[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int row = w.m0 + r0 + 16 * i;
-        pi[i] = -(1 << 30);
-        pj[i] = 0;
-        base[i] = row < p.m ? p.row_base(row, pi[i], pj[i]) : 0;
-      }
-      for (int ks = w.k_begin; ks < w.k_end; ++ks, ++it) {
-        const int s = it % C::STAGES;
-        mbar_wait(empty(s), ((it / C::STAGES) & 1) ^ 1);  // the first pass finds it free
-        const uint32_t a_dst = ring + s * C::STAGE_BYTES;
-        if (t == 0) {
-          mbar_arrive_expect_tx(full(s), p.b_bytes(w.n0));
-          p.load_b(&b_map, a_dst + A_BYTES, full(s), ks, w.n0);
+    if constexpr (P::OWN_GATHER) {  // both operands from P's gathers
+      typename P::Gather state;
+      int it = 0;
+      for (long long pos = first_pos<BN>(p); unit_at<BN>(pos, p, w); pos = w.next) {
+        p.gather_unit(state, w, t);
+        for (int ks = w.k_begin; ks < w.k_end; ++ks, ++it) {
+          const int s = it % C::STAGES;
+          mbar_wait(empty(s), ((it / C::STAGES) & 1) ^ 1);  // the first pass finds it free
+          if (t == 0) mbar_arrive(full(s));
+          p.gather_step(state, ring + s * C::STAGE_BYTES, t);
+          cp_async_arrive(full(s));
         }
-        // this step's shift (di, dj) of the pixel and offset of the chunk
-        int delta, di, dj;
-        const bool k_ok = p.a_step(ks, chunk, delta, di, dj);
+      }
+      cp_async_wait<0>();  // leave no copy in flight behind
+    } else {
+      // thread t copies chunk t % 8 of rows t / 8 + 16 i, i < 8: rows that
+      // share r % 8, so one swizzled chunk offset serves all eight
+      const int chunk = t % 8, r0 = t / 8;
+      const uint32_t a_off = r0 * 128 + ((chunk ^ (r0 % 8)) * 16);
+      int it = 0;  // K steps issued by this block, over all its units
+      for (long long pos = first_pos<BN>(p); unit_at<BN>(pos, p, w); pos = w.next) {
+        // the rows' pixels, decoded once per unit: A's offset and (i, j);
+        // a row past the end gets i = -2^30, outside the grid at every step
+        int base[8], pi[8], pj[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const int y = pi[i] + di, x = pj[i] + dj;
-          const bool ok = k_ok && y >= 0 && y < p.h && x >= 0 && x < p.w;
-          cp_async16(a_dst + a_off + i * 16 * 128, p.a + (ok ? base[i] + delta : 0), ok);
+          const int row = w.m0 + r0 + 16 * i;
+          pi[i] = -(1 << 30);
+          pj[i] = 0;
+          base[i] = row < p.m ? p.row_base(row, pi[i], pj[i]) : 0;
         }
-        cp_async_arrive(full(s));
+        for (int ks = w.k_begin; ks < w.k_end; ++ks, ++it) {
+          const int s = it % C::STAGES;
+          mbar_wait(empty(s), ((it / C::STAGES) & 1) ^ 1);  // the first pass finds it free
+          const uint32_t a_dst = ring + s * C::STAGE_BYTES;
+          if (t == 0) {
+            mbar_arrive_expect_tx(full(s), p.b_bytes(w.n0));
+            p.load_b(&b_map, a_dst + A_BYTES, full(s), ks, w.n0);
+          }
+          // this step's shift (di, dj) of the pixel and offset of the chunk
+          int delta, di, dj;
+          const bool k_ok = p.a_step(ks, chunk, delta, di, dj);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int y = pi[i] + di, x = pj[i] + dj;
+            const bool ok = k_ok && y >= 0 && y < p.h && x >= 0 && x < p.w;
+            cp_async16(a_dst + a_off + i * 16 * 128, p.a + (ok ? base[i] + delta : 0), ok);
+          }
+          cp_async_arrive(full(s));
+        }
       }
+      cp_async_wait<0>();  // leave no copy in flight behind
     }
-    cp_async_wait<0>();  // leave no copy in flight behind
   } else {
     // ------------------------------------------------------------ consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int warp = t / 32, lane = t % 32;
     float acc[BN / 2];
     int it = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const Unit w = unit_of<BN>(u, p);
+    for (long long pos = first_pos<BN>(p); unit_at<BN>(pos, p, w); pos = w.next) {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
       fence_operands(acc);
@@ -418,12 +587,13 @@ igemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CU
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          // A: 16 k = 32 bytes further along each 128-byte row
-          const uint64_t da = sw128_desc(a_tile + kk * 32, 16, 1024);
-          // B: 16 k = 16 rows further (MN-major) or 32 bytes along (K-major)
+          // 16 k = 16 rows further (MN-major) or 32 bytes along each
+          // 128-byte row (K-major)
+          const uint64_t da = P::TRANS_A ? sw128_desc(a_tile + kk * 16 * 128, BK * 128, 1024)
+                                         : sw128_desc(a_tile + kk * 32, 16, 1024);
           const uint64_t db = P::TRANS_B ? sw128_desc(b_tile + kk * 16 * 128, BK * 128, 1024)
                                          : sw128_desc(b_tile + kk * 32, 16, 1024);
-          wgmma_tile<BN, P::TRANS_B>(acc, da, db);
+          wgmma_tile<BN, P::TRANS_A, P::TRANS_B>(acc, da, db);
         }
         wgmma_commit();
         // keep one step's products in flight; the step before is done
@@ -435,14 +605,20 @@ igemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CU
       fence_operands(acc);
       if (w.k_end > w.k_begin && lane == 0) mbar_arrive(empty((it - 1) % C::STAGES));
 
+      unsigned char* mine = epi + wg * (C::OUT_BYTES + 64 * 8);
+      Stage* tile = reinterpret_cast<Stage*>(mine);
+      long long* roff = reinterpret_cast<long long*>(mine + C::OUT_BYTES);
+      if constexpr (P::STREAM_K) {  // a piece of a tile: only the tile's last piece goes on
+        if ((w.k_begin > 0 || w.k_end < p.steps) &&
+            !fixup<BN>(p, w, acc, wg, t, reinterpret_cast<volatile int*>(roff)))
+          continue;
+      }
+
       // Epilogue. Thread (warp, lane) holds rows warp*16 + lane/4 (+8) of
       // its warpgroup's 64, columns 8j + 2*(lane%4) (+1): acc[4j + 2h +
       // {0, 1}] for row half h. They go to the warpgroup's tile in shared
       // memory, then out in 8-column chunks (16 bytes of bf16), a row's
       // chunks on neighbouring threads.
-      unsigned char* mine = epi + wg * (C::OUT_BYTES + 64 * 8);
-      Stage* tile = reinterpret_cast<Stage*>(mine);
-      long long* roff = reinterpret_cast<long long*>(mine + C::OUT_BYTES);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = warp * 16 + lane / 4 + 8 * h;
@@ -530,17 +706,18 @@ inline cudaError_t weight_map(CUtensorMap* map, const void* wc, int cin, int nc,
   return dense_map(map, wc, 3, dims, box);
 }
 
-// How a 128-row tile of an h x w pixel grid is a box of whole rows: rows
-// `rows` of images `imgs` (128 = w * rows * imgs); false where it is not.
-inline bool row_box(int h, int w, int& rows, int& imgs) {
-  if (h * w >= 128) {
-    if (128 % w || h % (128 / w)) return false;
-    rows = 128 / w;
+// How a run of `pixels` pixels (a 128-row tile; dW's 64-pixel K step) of
+// an h x w pixel grid is a box of whole rows: rows `rows` of images `imgs`
+// (pixels = w * rows * imgs); false where it is not.
+inline bool row_box(int h, int w, int& rows, int& imgs, int pixels = BM) {
+  if (h * w >= pixels) {
+    if (pixels % w || h % (pixels / w)) return false;
+    rows = pixels / w;
     imgs = 1;
   } else {
-    if (128 % (h * w)) return false;
+    if (pixels % (h * w)) return false;
     rows = h;
-    imgs = 128 / (h * w);
+    imgs = pixels / (h * w);
   }
   return true;
 }
@@ -569,8 +746,8 @@ cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& b_map, const P& 
     if (err != cudaSuccess) return err;
     raised |= 1ull << dev;
   }
-  const int units = n_units<BN>(p);
-  const int grid = units < sm_count() ? units : sm_count();
+  const long long units = n_units<BN>(p);
+  const int grid = units < sm_count() ? static_cast<int>(units) : sm_count();
   igemm_sm90<BN, P><<<grid, THREADS, C::SMEM, stream>>>(a_map, b_map, p);
   return cudaGetLastError();
 }

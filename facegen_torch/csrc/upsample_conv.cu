@@ -75,7 +75,8 @@ __device__ __forceinline__ bool inside(int y, int x, const Geom& g) {
 // read MN-major in 64-column slabs by TMA (rows past Cin read as zero).
 template <int BN>
 struct UpconvFwd {
-  static constexpr int TRANS_B = 1;
+  static constexpr int TRANS_A = 0, TRANS_B = 1;
+  static constexpr bool OWN_GATHER = false, STREAM_K = false;
   static constexpr int SLAB_BYTES = 64 * igemm::BK * 2;
   const __nv_bfloat16* a;  // x
   const __nv_bfloat16* bias;

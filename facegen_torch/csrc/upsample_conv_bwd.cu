@@ -25,19 +25,22 @@
 //   wgmma mainloop (csrc/igemm_sm90.cuh: TMA for wc, cp.async gathers
 //   for dy, one persistent block per SM).
 // - dW: rows are (tap, cin), columns (phase, cout), K = the N*H*W
-//   pixels. A (= x shifted by the tap) is read pixel-major, as a
-//   column-major operand. bf16: 128 x 128 x 32 tiles, four warps of
-//   64 x 64 on WMMA with fp32 accumulate, a 3-stage cp.async ring.
+//   pixels. A (= x shifted by the tap) and B (= S2D(dy)) are both read
+//   pixel-major, as MN-major operands. bf16 runs on the same mainloop
+//   (TMA boxes of whole image rows for both where the shape allows,
+//   cp.async gathers of both elsewhere).
 // - fp32 (both): a 64 x 64 x 16 SIMT tile, kept for tight checks.
 //
 // What bounds them. At batch 32 the GEMMs are small for 132 SMs: dx of
 // upconv1 has 16 output tiles and K = 9216, and dW has 72 output tiles
-// (1152 x 1024 and 2304 x 512) with K = 2048 and 8192 pixels. So both
-// split K into fp32 partials, which a second kernel sums in a fixed
-// order: deterministic, unlike atomics, for a workspace of at most
-// ~19 MB at G's shapes. The split is chosen here
-// (facegen_upconv_bwd_splits): for the bf16 dx, only while its tiles
-// leave SMs idle; otherwise about two blocks per SM.
+// (1152 x 1024 and 2304 x 512) with K = 2048 and 8192 pixels. The bf16
+// dx splits K into fp32 partials while its tiles leave SMs idle, and a
+// second kernel sums them in a fixed order (deterministic, unlike
+// atomics). The bf16 dW runs stream-K (csrc/igemm_sm90.cuh): every SM
+// takes an equal share of the 72 tiles' K steps, and the last piece of
+// a tile to finish sums its pieces in a fixed order, in the same launch;
+// its workspace, (72 + 132) slots of 64 KB, stays in L2. The fp32
+// kernels split K for about two blocks per SM (facegen_upconv_bwd_splits).
 //
 // Requirements, checked by the Python wrapper: contiguous NHWC tensors,
 // Cin and Cout multiples of 8, 16-byte aligned pointers, fewer than
@@ -45,15 +48,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "igemm_sm90.cuh"
 
-#include <type_traits>
-
 namespace {
-
-using namespace nvcuda;
 
 struct Geom {
   int n, h, w, cin, cout;  // x is (n, h, w, cin); dy is (n, 2h, 2w, cout)
@@ -95,121 +93,6 @@ __device__ __forceinline__ void split_range(int steps, int splits, int s, int& b
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int BM = 128, BN = 128, BK = 32, SPAD = 8;
-constexpr int WARPS_M = 2, WARPS_N = 2;
-constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // warp tile 64 x 64
-constexpr int FM = WTM / 16, FN = WTN / 16;            // 4 x 4 fragments
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;        // 128
-constexpr int STAGES = 3;
-// An operand tile is stored either long ([128][BK+SPAD], K contiguous)
-// or wide ([BK][128+SPAD], rows or columns contiguous); a stage holds
-// the larger of the two for each operand.
-constexpr int TILE_LONG = BM * (BK + SPAD);
-constexpr int TILE_WIDE = BK * (BM + SPAD);
-constexpr int STAGE = TILE_LONG > TILE_WIDE ? TILE_LONG : TILE_WIDE;
-constexpr int SMEM_BF16 = STAGES * 2 * STAGE * 2;  // 61440 bytes
-static_assert(BM == BN, "the operand tiles share one stage size");
-static_assert(WARPS_M * WARPS_N * 16 * 16 * 4 <= SMEM_BF16, "epilogue scratch fits");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// The MMA main loop over K steps [k_begin, k_end), shared by dx and dW.
-// A_WIDE: the A tile is stored [BK][BM+SPAD] (element (r, k) at
-// k*(BM+SPAD)+r: a column-major operand), else [BM][BK+SPAD] (row-major).
-// B_WIDE: the B tile is stored [BK][BN+SPAD] (row-major), else
-// [BN][BK+SPAD] (element (k, n) at n*(BK+SPAD)+k: column-major).
-// load_tile(stage, kt) issues the cp.async copies of K step kt.
-template <bool A_WIDE, bool B_WIDE, typename LoadTile>
-__device__ __forceinline__ void mainloop(Acc (&acc)[FM][FN], const __nv_bfloat16* As,
-                                         const __nv_bfloat16* Bs, int k_begin, int k_end,
-                                         LoadTile& load_tile, int wm, int wn) {
-  using ALayout = typename std::conditional<A_WIDE, wmma::col_major, wmma::row_major>::type;
-  using BLayout = typename std::conditional<B_WIDE, wmma::row_major, wmma::col_major>::type;
-  constexpr int LDA = A_WIDE ? BM + SPAD : BK + SPAD;
-  constexpr int LDB = B_WIDE ? BN + SPAD : BK + SPAD;
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn) wmma::fill_fragment(acc[fm][fn], 0.0f);
-
-  const int steps = k_end - k_begin;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_tile(s, k_begin + s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < steps; ++t) {
-    // step t has landed once at most STAGES-2 newer groups are pending;
-    // the barrier also frees the stage that step t-1 was read from
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = t + STAGES - 1;
-    if (next < steps) load_tile(next % STAGES, k_begin + next);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-
-    const __nv_bfloat16* as = As + (t % STAGES) * STAGE;
-    const __nv_bfloat16* bs = Bs + (t % STAGES) * STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf[FN];
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm) {
-        const int r = wm * WTM + fm * 16;
-        wmma::load_matrix_sync(af[fm], as + (A_WIDE ? kk * LDA + r : r * LDA + kk), LDA);
-      }
-#pragma unroll
-      for (int fn = 0; fn < FN; ++fn) {
-        const int c = wn * WTN + fn * 16;
-        wmma::load_matrix_sync(bf[fn], bs + (B_WIDE ? kk * LDB + c : c * LDB + kk), LDB);
-      }
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-        for (int fn = 0; fn < FN; ++fn) wmma::mma_sync(acc[fm][fn], af[fm], bf[fn], acc[fm][fn]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: its start becomes the epilogue scratch
-}
-
-// Epilogue: each fragment goes through this warp's 16x16 fp32 scratch; a
-// lane then owns 8 consecutive columns of one row and hands them to
-// store8(row, col, values).
-template <typename Store8>
-__device__ __forceinline__ void epilogue(Acc (&acc)[FM][FN], unsigned char* smem, int m0, int n0,
-                                         int wm, int wn, Store8& store8) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* cs = reinterpret_cast<float*>(smem) + warp * 16 * 16;
-  const int er = lane / 2, ec = (lane % 2) * 8;
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm) {
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn) {
-      wmma::store_matrix_sync(cs, acc[fm][fn], 16, wmma::mem_row_major);
-      __syncwarp();
-      store8(m0 + wm * WTM + fm * 16 + er, n0 + wn * WTN + fn * 16 + ec, cs + er * 16 + ec);
-      __syncwarp();
-    }
-  }
-}
-
-__device__ __forceinline__ void store8_f32(float* dst, const float* v) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
 // dx on the wgmma mainloop of csrc/igemm_sm90.cuh: rows the N*H*W input
 // pixels, columns Cin, K steps of 64 (tap, phase, cout) columns. An A chunk
 // is 8 channels of one dy pixel, read in space-to-depth order at (i - du,
@@ -219,7 +102,8 @@ __device__ __forceinline__ void store8_f32(float* dst, const float* v) {
 constexpr int BN_DX = 128;
 
 struct UpconvDx {
-  static constexpr int TRANS_B = 0;
+  static constexpr int TRANS_A = 0, TRANS_B = 0;
+  static constexpr bool OWN_GATHER = false, STREAM_K = false;
   const __nv_bfloat16* a;  // dy
   __nv_bfloat16* dx;
   float* ws;
@@ -294,66 +178,143 @@ struct UpconvDx {
   }
 };
 
-// dWc = implicit GEMM (9*Cin) x (N*H*W pixels) x (4*Cout), fp32 out;
-// with more than one split, into fp32 partials ws[split][row][col].
-__global__ void __launch_bounds__(THREADS)
-upconv_dw_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-               float* __restrict__ dwc, float* __restrict__ ws, Geom g, int splits) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BK][BM+SPAD]
-  __nv_bfloat16* Bs = As + STAGES * STAGE;                        // [STAGES][BK][BN+SPAD]
+// dW on the same mainloop: rows (tap, cin) of dWc, columns (phase, cout),
+// K the N*H*W pixels in steps of 64. Both operands are MN-major: at one
+// pixel, a 64-row slab of A is 64 channels of x at the slab's own tap
+// (so a 128-row tile may hold two taps), and a 64-column slab of B is 64
+// channels of one phase of S2D(dy). fp32 out, by the stream-K schedule
+// (per-tile K splits with a second launch that sums them were 1.7x
+// slower). 128 x 256 tiles were tried (less L2 traffic a product) and
+// were no faster: their stream-K pieces are twice as many a tile, and the
+// fixup costs what the loads save.
+constexpr int BN_DW = 128;
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int rows = 9 * g.cin;
-  const int tiles_n = (g.c4 + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * BM;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
+struct UpconvDw {
+  static constexpr int TRANS_A = 1, TRANS_B = 1;
+  static constexpr bool OWN_GATHER = true, STREAM_K = true;
+  static constexpr int SLAB = 64 * igemm::BK * 2;  // one [64 k][64] slab, 8 KB
+  static constexpr int B_SLABS = BN_DW / 64;
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* dy;
+  float* dwc;
+  float* ws;
+  int* counters;
+  Geom g;
+  int m, n, steps;          // the GEMM: rows 9*Cin, columns 4*Cout, K steps
+  bool a_tma;               // both operands by TMA: Cin, Cout % 64 == 0, 64 pixels whole rows
+  int dj, di;               // a K step of 64 pixels in columns and rows: 64 % w, (64 / w) % h
 
-  // 16 chunks of 8 rows (A) or 8 columns (B) per pixel, 8 pixels per
-  // pass, 4 passes; a thread keeps its chunk at every K step. 8 rows lie
-  // in one tap (Cin % 8 == 0), 8 columns in one phase (Cout % 8 == 0).
-  constexpr int CH = BM / 8, KROWS = THREADS / CH, PASSES = BK / KROWS;
-  const int chunk = tid % CH;
-  const int r = m0 + chunk * 8;
-  const bool r_ok = r < rows;
-  const int tap = r_ok ? r / g.cin : 0;
-  const int c = r - tap * g.cin;
-  const int du = tap / 3 - 1, dv = tap % 3 - 1;
-  const int col = n0 + chunk * 8;
-  const bool col_ok = col < g.c4;
-
-  auto load_tile = [&](int stage, int kt) {
-    __nv_bfloat16* as = As + stage * STAGE;
-    __nv_bfloat16* bs = Bs + stage * STAGE;
+  // A by TMA: the step's 64 pixels of x viewed (Cin, W, H, N) as a box
+  // (64, W, rows, imgs), 64 channels from the slab's cin0, shifted by its
+  // tap (du, dv): pixels past the border read as zero. A second slab past
+  // the last row (9*Cin % 128 == 64) reads tap 9's box, never stored.
+  __device__ __forceinline__ void load_a(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int ks, int m0) const {
+    const int k0 = ks * igemm::BK, n0 = k0 / (g.h * g.w);
+    const int i0 = (k0 - n0 * g.h * g.w) / g.w;
 #pragma unroll
-    for (int s = 0; s < PASSES; ++s) {
-      const int kr = tid / CH + s * KROWS;
-      const int m = kt * BK + kr;
-      const bool m_ok = m < g.m;
-      int b, i, j;
-      pixel_of(m_ok ? m : 0, g, b, i, j);
-      const int y = i + du, xx = j + dv;
-      const bool a_ok = m_ok && r_ok && inside(y, xx, g);
-      const __nv_bfloat16* a_src = a_ok ? x + (((long long)b * g.h + y) * g.w + xx) * g.cin + c : x;
-      cp_async16(as + kr * (BM + SPAD) + chunk * 8, a_src, a_ok);
-      const bool b_ok = m_ok && col_ok;
-      const __nv_bfloat16* b_src = b_ok ? dy + s2d_offset(b, i, j, col, g) : dy;
-      cp_async16(bs + kr * (BN + SPAD) + chunk * 8, b_src, b_ok);
+    for (int s = 0; s < 2; ++s) {
+      const int row = m0 + 64 * s, tap = row / g.cin;
+      igemm::tma_load_4d(dst + s * SLAB, map, bar, row - tap * g.cin, tap % 3 - 1,
+                         i0 + tap / 3 - 1, n0);
     }
-  };
+  }
+  // B by TMA: S2D(dy)'s columns col .. col+63 are channels o0 .. of phase
+  // p = 2a + b; the step's 64 pixels are a box (64, 1, W, 1, 64 / W) of dy
+  // viewed (Cout, 2 [b], W, 2 [a], N*H) at (o0, b, 0, a, image row k0 / W)
+  __device__ __forceinline__ uint32_t b_bytes(int) const { return B_SLABS * SLAB; }
+  __device__ __forceinline__ void load_b(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int ks, int n0) const {
+    const int r0 = ks * (igemm::BK / g.w);
+#pragma unroll
+    for (int s = 0; s < B_SLABS; ++s) {
+      const int col = n0 + 64 * s, p = col / g.cout;
+      igemm::tma_load_5d(dst + s * SLAB, map, bar, col - p * g.cout, p & 1, 0, p >> 1, r0);
+    }
+  }
 
-  int k_begin, k_end;
-  split_range(dw_steps(g, BK), splits, blockIdx.y, k_begin, k_end);
-  Acc acc[FM][FN];
-  mainloop<true, true>(acc, As, Bs, k_begin, k_end, load_tile, wm, wn);
-
-  float* out = splits == 1 ? dwc : ws + (long long)blockIdx.y * rows * g.c4;
-  auto store8 = [&](int rr, int cc, const float* v) {
-    if (rr < rows && cc < g.c4) store8_f32(out + (long long)rr * g.c4 + cc, v);
+  // Gathers (every other shape): thread t copies chunk t % 8 (8 rows of A,
+  // 8 columns of B, in each of their slabs) of K rows t / 8 + 16 q, q < 4,
+  // 4 x (2 + B_SLABS) cp.async copies a step, zero past the border, past
+  // the last pixel, row or column. The rows' pixels are decoded once per unit and carried
+  // 64 pixels on at each step.
+  struct Gather {
+    int k[4], i[4], j[4];        // K row q's pixel: its index, row and column
+    int a_off[2], du[2], dv[2];  // A slab s: x's offset from the pixel's, the tap
+    int b_off[B_SLABS];          // B slab s: dy's offset from the pixel's 2x2 block; -1 past 4*Cout
   };
-  epilogue(acc, smem, m0, n0, wm, wn, store8);
-}
+  __device__ __forceinline__ void gather_unit(Gather& st, const igemm::Unit& w, int t) const {
+    const int c = t % 8, r0 = t / 8;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int row = w.m0 + 64 * s + 8 * c;
+      st.du[s] = 1 << 20;  // a row past the end: outside the grid at every step
+      st.dv[s] = 0;
+      st.a_off[s] = 0;
+      if (row < m) {
+        const int tap = row / g.cin;
+        st.du[s] = tap / 3 - 1;
+        st.dv[s] = tap % 3 - 1;
+        st.a_off[s] = (st.du[s] * g.w + st.dv[s]) * g.cin + row - tap * g.cin;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < B_SLABS; ++s) {
+      const int col = w.n0 + 64 * s + 8 * c, p = col / g.cout;
+      st.b_off[s] = col < n ? ((p >> 1) * 2 * g.w + (p & 1)) * g.cout + col - p * g.cout : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      st.k[q] = w.k_begin * igemm::BK + r0 + 16 * q;
+      const int r = st.k[q] % (g.h * g.w);
+      st.i[q] = r / g.w;
+      st.j[q] = r - st.i[q] * g.w;
+    }
+  }
+  // S2D(dy)[b, i, j, col] = dy[(4k - 2j) * Cout + b_off] for pixel k = (b, i, j)
+  __device__ __forceinline__ void gather_step(Gather& st, uint32_t dst, int t) const {
+    const int c = t % 8, r0 = t / 8;
+    const uint32_t off = r0 * 128 + ((c ^ (r0 % 8)) * 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t row = dst + off + q * 16 * 128;
+      const bool in = st.k[q] < g.m;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int y = st.i[q] + st.du[s], xx = st.j[q] + st.dv[s];
+        const bool ok = in && y >= 0 && y < g.h && xx >= 0 && xx < g.w;
+        igemm::cp_async16(row + s * SLAB, x + (ok ? st.k[q] * g.cin + st.a_off[s] : 0), ok);
+      }
+#pragma unroll
+      for (int s = 0; s < B_SLABS; ++s) {
+        const bool ok = in && st.b_off[s] >= 0;
+        igemm::cp_async16(row + igemm::A_BYTES + s * SLAB,
+                          dy + (ok ? (4 * st.k[q] - 2 * st.j[q]) * g.cout + st.b_off[s] : 0), ok);
+      }
+      st.k[q] += igemm::BK;
+      st.j[q] += dj;
+      if (st.j[q] >= g.w) {
+        st.j[q] -= g.w;
+        ++st.i[q];
+      }
+      st.i[q] += di;
+      if (st.i[q] >= g.h) st.i[q] -= g.h;
+    }
+  }
+
+  // the epilogue: fp32 dWc[row, col]
+  using Stage = float;
+  using Stage2 = float2;
+  __device__ __forceinline__ Stage2 stage2(int, float v0, float v1) const {
+    return make_float2(v0, v1);
+  }
+  __device__ __forceinline__ long long row_offset(int row, int) const { return (long long)row * n; }
+  __device__ __forceinline__ long long col_offset(int col) const { return col; }
+  __device__ __forceinline__ void store8(long long off, const Stage* v) const {
+    reinterpret_cast<float4*>(dwc + off)[0] = reinterpret_cast<const float4*>(v)[0];
+    reinterpret_cast<float4*>(dwc + off)[1] = reinterpret_cast<const float4*>(v)[1];
+  }
+};
 
 // ---------------------------------------------------------------- fp32
 // SIMT FMA, 64 x 64 x 16 tiles, 256 threads of 4 x 4, both operands
@@ -542,7 +503,8 @@ int choose_splits(int tiles, int steps) {
 
 // K splits the dx (which = 0) or dW (which = 1) kernel of the given type
 // (bf16 = 1, fp32 = 0) takes at this shape; the caller sizes the fp32
-// workspace as splits x the output when splits > 1.
+// workspace as splits x the output when splits > 1. 0: the bf16 dW, which
+// runs stream-K with the buffers facegen_upconv_dw_sizes gives.
 extern "C" int facegen_upconv_bwd_splits(int which, int bf16, int n, int h, int w, int cin,
                                          int cout) {
   const Geom g = make_geom(n, h, w, cin, cout);
@@ -555,9 +517,23 @@ extern "C" int facegen_upconv_bwd_splits(int which, int bf16, int n, int h, int 
     if (s > 16) s = 16;
     return s < 1 ? 1 : s;
   }
-  const int bm = bf16 ? BM : FBM, bn = bf16 ? BN : FBN, bk = bf16 ? BK : FBK;
-  if (which == 0) return choose_splits(n_tiles(g.m, g.cin, bm, bn), dx_steps(g, bk));
-  return choose_splits(n_tiles(9 * g.cin, g.c4, bm, bn), dw_steps(g, bk));
+  if (bf16) return 0;
+  if (which == 0) return choose_splits(n_tiles(g.m, g.cin, FBM, FBN), dx_steps(g, FBK));
+  return choose_splits(n_tiles(9 * g.cin, g.c4, FBM, FBN), dw_steps(g, FBK));
+}
+
+// The fp32 workspace (elements) and the counters (ints, zero before the
+// first launch; each launch leaves them zero) that the bf16 dW's stream-K
+// takes: a 128 x 128 slot for each tile and each block, and a counter for
+// each tile and consumer warpgroup.
+extern "C" void facegen_upconv_dw_sizes(int n, int h, int w, int cin, int cout, long long* ws,
+                                        long long* counters) {
+  const Geom g = make_geom(n, h, w, cin, cout);
+  const int tiles = n_tiles(9 * cin, g.c4, igemm::BM, BN_DW);
+  const long long units = (long long)tiles * dw_steps(g, igemm::BK);
+  const int grid = units < igemm::sm_count() ? (int)units : igemm::sm_count();
+  *ws = (long long)(tiles + grid) * igemm::BM * BN_DW;
+  *counters = (long long)igemm::CONSUMERS * tiles;
 }
 
 extern "C" int facegen_upconv_dx_bf16(const void* dy, const void* wc, void* dx, void* ws, int n,
@@ -597,20 +573,34 @@ extern "C" int facegen_upconv_dx_f32(const void* dy, const void* wc, void* dx, v
                        (long long)g.m * g.cin, splits, st);
 }
 
-extern "C" int facegen_upconv_dw_bf16(const void* x, const void* dy, void* dwc, void* ws, int n,
-                                      int h, int w, int cin, int cout, int splits, void* stream) {
+// Both operands by TMA where every tile of them is a box (G16's and G32's
+// training shapes: Cin, Cout % 64 == 0, 64 pixels whole image rows), else
+// by the gathers. ws and counters: facegen_upconv_dw_sizes.
+extern "C" int facegen_upconv_dw_bf16(const void* x, const void* dy, void* dwc, void* ws,
+                                      void* counters, int n, int h, int w, int cin, int cout,
+                                      void* stream) {
   const Geom g = make_geom(n, h, w, cin, cout);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(upconv_dw_bf16,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
+  CUtensorMap a_map = {}, b_map = {};
+  int rows, imgs;
+  const bool tma = cin % 64 == 0 && cout % 64 == 0 && igemm::row_box(h, w, rows, imgs, igemm::BK);
+  cudaError_t err = cudaSuccess;
+  if (tma) {
+    const cuuint64_t a_dims[4] = {(cuuint64_t)g.cin, (cuuint64_t)g.w, (cuuint64_t)g.h,
+                                  (cuuint64_t)g.n};
+    const cuuint32_t a_box[4] = {64, (cuuint32_t)g.w, (cuuint32_t)rows, (cuuint32_t)imgs};
+    const cuuint64_t b_dims[5] = {(cuuint64_t)g.cout, 2, (cuuint64_t)g.w, 2,
+                                  (cuuint64_t)g.n * g.h};
+    const cuuint32_t b_box[5] = {64, 1, (cuuint32_t)g.w, 1, (cuuint32_t)(igemm::BK / g.w)};
+    err = igemm::dense_map(&a_map, x, 4, a_dims, a_box);
+    if (err == cudaSuccess) err = igemm::dense_map(&b_map, dy, 5, b_dims, b_box);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  upconv_dw_bf16<<<dim3(n_tiles(9 * g.cin, g.c4, BM, BN), splits), THREADS, SMEM_BF16, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-      static_cast<float*>(dwc), static_cast<float*>(ws), g, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dwc),
-                       (long long)9 * g.cin * g.c4, splits, st);
+  const UpconvDw p{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+                   static_cast<float*>(dwc), static_cast<float*>(ws), static_cast<int*>(counters),
+                   g, 9 * cin, g.c4, dw_steps(g, igemm::BK), tma, igemm::BK % w,
+                   (igemm::BK / w) % h};
+  return static_cast<int>(igemm::launch<BN_DW>(a_map, b_map, p, st));
 }
 
 extern "C" int facegen_upconv_dw_f32(const void* x, const void* dy, void* dwc, void* ws, int n,

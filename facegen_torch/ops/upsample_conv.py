@@ -277,12 +277,43 @@ def _launch(x: torch.Tensor, wc: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _bwd_kernel(which: str, dtype: torch.dtype):
     lib = _build.load("upsample_conv_bwd")
     fn = getattr(lib, _BWD_FNS[(which, dtype)])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    # the bf16 dW takes its stream-K counters after the workspace, and no splits
+    if (which, dtype) == ("dw", torch.bfloat16):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     splits = lib.facegen_upconv_bwd_splits
     splits.argtypes = [ctypes.c_int] * 7
     splits.restype = ctypes.c_int
     return fn, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_sizes():
+    fn = _build.load("upsample_conv_bwd").facegen_upconv_dw_sizes
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    fn.restype = None
+    return fn
+
+
+# The bf16 dW's stream-K counters, one buffer per device: zeroed once, and
+# left zero by every launch. The launches on a device share it, so they
+# must not overlap: the port issues them on the current stream, in order.
+# A buffer outgrown by a larger shape is kept alive, never freed: a CUDA
+# graph captured before still counts in it.
+_DW_COUNTERS: dict[int, torch.Tensor] = {}
+_DW_COUNTERS_OUTGROWN: list[torch.Tensor] = []
+
+
+def _dw_counters(device: torch.device, count: int) -> torch.Tensor:
+    counters = _DW_COUNTERS.get(device.index)
+    if counters is None or counters.numel() < count:
+        if counters is not None:
+            _DW_COUNTERS_OUTGROWN.append(counters)
+        counters = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _DW_COUNTERS[device.index] = counters
+    return counters
 
 
 def _check_bwd(which: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -321,7 +352,8 @@ def _check_bwd(which: str, a: torch.Tensor, b: torch.Tensor) -> None:
 def _launch_bwd(which: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the dx kernel (a = dy, b = wc) or the dW kernel (a = x,
     b = dy). The wrapper allocates the output and, when the kernel splits
-    K, its fp32 workspace of splits x the output."""
+    K, its fp32 workspace of splits x the output; the bf16 dW's stream-K
+    workspace and counters have the sizes its library gives."""
     global DX_LAUNCHES, DW_LAUNCHES
     _check_bwd(which, a, b)
     if which == "dx":
@@ -335,15 +367,23 @@ def _launch_bwd(which: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n * h * w == 0:
         return out.zero_()
     fn, splits_fn = _bwd_kernel(which, a.dtype)
-    splits = splits_fn(0 if which == "dx" else 1, int(a.dtype == torch.bfloat16),
-                       n, h, w, cin, cout)
-    ws = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32, device=a.device)
-          if splits > 1 else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 ws.data_ptr() if ws is not None else None,
-                 n, h, w, cin, cout, splits, stream)
+        if which == "dw" and a.dtype == torch.bfloat16:
+            ws_n, counters_n = ctypes.c_longlong(), ctypes.c_longlong()
+            _dw_sizes()(n, h, w, cin, cout, ctypes.byref(ws_n), ctypes.byref(counters_n))
+            ws = torch.empty(ws_n.value, dtype=torch.float32, device=a.device)
+            counters = _dw_counters(a.device, counters_n.value)
+            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                     counters.data_ptr(), n, h, w, cin, cout, stream)
+        else:
+            splits = splits_fn(0 if which == "dx" else 1, int(a.dtype == torch.bfloat16),
+                               n, h, w, cin, cout)
+            ws = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32,
+                              device=a.device) if splits > 1 else None)
+            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                     ws.data_ptr() if ws is not None else None,
+                     n, h, w, cin, cout, splits, stream)
     if err:
         raise RuntimeError(f"upsample_conv_{which} CUDA kernel launch failed: cudaError {err}")
     if which == "dx":

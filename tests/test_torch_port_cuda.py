@@ -99,9 +99,17 @@ def _norm_close(got, ref, tol=1e-4):
     assert err <= tol * float(ref.abs().max()), (err, float(ref.abs().max()))
 
 
+# The bf16 dW's TMA path: tiles of 128 rows that hold two taps (Cin = 64,
+# 192; at N = 16, 16x16, over 64 K steps), and a last K step past the last
+# image (N = 3 at 4x4: 48 pixels)
+DW_TMA_SHAPES = [(2, 8, 64, 64), (2, 8, 192, 64), (3, 4, 128, 256), (3, 4, 64, 64),
+                 (16, 16, 64, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,cin,cout", [(n, h, cin, cout) for h, cin, cout, _ in SHAPES
-                                          for n in (2, 3)] + TRAIN_SHAPES + G16_TRAIN_SHAPES)
+                                          for n in (2, 3)] + TRAIN_SHAPES + G16_TRAIN_SHAPES
+                         + DW_TMA_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain_versions(cuda_device, n, h, cin, cout, dtype):
     g = torch.Generator().manual_seed(n * h + cout)
@@ -119,6 +127,30 @@ def test_backward_kernels_match_plain_versions(cuda_device, n, h, cin, cout, dty
     else:
         torch.testing.assert_close(dx.float(), ref_dx, **TOLS[dtype])
     _norm_close(dwc, uc.upsample_conv_dw_reference(x.float(), dy.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout", TRAIN_SHAPES + [(3, 4, 128, 256), (2, 8, 16, 24)])
+def test_bf16_dw_is_deterministic(cuda_device, n, h, cin, cout):
+    """The stream-K dW sums each tile's pieces in a fixed order: two calls,
+    and two replays of a CUDA graph of the call, give the same bits, and
+    every launch leaves its tile counters at zero for the next."""
+    g = torch.Generator().manual_seed(n + cin)
+    x = torch.randn(n, h, h, cin, generator=g).to(cuda_device, torch.bfloat16)
+    dy = torch.randn(n, 2 * h, 2 * h, cout, generator=g).to(cuda_device, torch.bfloat16)
+    first, second = uc.upsample_conv_dw(x, dy), uc.upsample_conv_dw(x, dy)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = uc.upsample_conv_dw(x, dy)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(replayed.clone())
+    torch.cuda.synchronize()
+    for other in [second] + replays:
+        assert torch.equal(first, other)
+    _norm_close(first, uc.upsample_conv_dw_reference(x.float(), dy.float()))
+    assert all(int(c.abs().sum()) == 0 for c in uc._DW_COUNTERS.values())
 
 
 @pytest.mark.cuda
@@ -155,10 +187,11 @@ def test_g32_training_step_runs_the_three_kernels(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("source,kernel", [("upsample_conv", "UpconvFwd"),
-                                           ("upsample_conv_bwd", "UpconvDx")])
+                                           ("upsample_conv_bwd", "UpconvDx"),
+                                           ("upsample_conv_bwd", "UpconvDw")])
 def test_bf16_kernels_run_on_wgmma(cuda_device, source, kernel):
-    """The bf16 forward and dx kernels hold wgmma (HGMMA in SASS) in every
-    instantiation of the mainloop."""
+    """The bf16 forward, dx and dW kernels hold wgmma (HGMMA in SASS) in
+    every instantiation of the mainloop."""
     counts = {k: c for k, c in _build.sass_counts(source, "HGMMA").items() if kernel in k}
     assert counts and all(c > 0 for c in counts.values()), counts
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the wgmma mainloop (facegen_torch/csrc/igemm_sm90.cuh)
-goes: build copies of the bf16 forward and dx with parts switched off and
-time them against the whole kernel on one CUDA GPU.
+goes: build copies of the bf16 forward, dx and dW with parts switched off
+and time them against the whole kernel on one CUDA GPU.
 
     python3 tools/ablate_igemm.py
 
@@ -14,12 +14,16 @@ matches the source:
 - no_mma: no wgmma (the loads, barriers and epilogue run);
 - no_a / no_b: one operand not loaded (the stage keeps stale data);
 - no_loads: neither operand loaded: the mainloop's products and barriers;
-- no_loads_no_epilogue: the products and barriers alone.
+- no_loads_no_epilogue: the products and barriers alone;
+- no_fixup: dW's stream-K pieces skip the workspace, the counter and the
+  sum, and store through the plain epilogue (the same as full for the
+  forward and dx).
 
 Only "full" computes the right result; the others measure. Times are
 device time (a CUDA graph of 20 launches between CUDA events), medians of
 3 turns in alternating order, at G32's shapes where the kernels lose to
-cuDNN (forward N = 1024, dx upconv2 N = 32) and the other layer.
+cuDNN (forward N = 1024, dx upconv2 N = 32) and the other layer, and dW
+at both training shapes (N = 32).
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ NO_A = (LOADS, """            mbar_arrive_expect_tx(full(s), p.b_bytes(w.n0));
 NO_B = (LOADS, """            mbar_arrive_expect_tx(full(s), A_BYTES);
             p.load_a(&a_map, a_dst, full(s), ks, w.m0);""")
 NO_LOADS = (LOADS, "            mbar_arrive_expect_tx(full(s), 0);")
-NO_MMA = ("wgmma_tile<BN, P::TRANS_B>(acc, da, db);", "")
-OFF = "p.splits == 12345"  # false at run time, opaque to the compiler
+NO_MMA = ("wgmma_tile<BN, P::TRANS_A, P::TRANS_B>(acc, da, db);", "")
+NO_FIXUP = ("!fixup<BN>(p, w, acc, wg, t, reinterpret_cast<volatile int*>(roff))", "false")
+OFF = "p.m == -12345"  # false at run time, opaque to the compiler
 NO_EPILOGUE = [
     ("*reinterpret_cast<typename P::Stage2*>(tile + r * C::OUT_LD + c) =",
      f"if ({OFF}) *reinterpret_cast<typename P::Stage2*>(tile + r * C::OUT_LD + c) ="),
@@ -65,6 +70,7 @@ VARIANTS = {
     "no_b": [NO_B],
     "no_loads": [NO_LOADS],
     "no_loads_no_epilogue": [NO_LOADS] + NO_EPILOGUE,
+    "no_fixup": [NO_FIXUP],
 }
 FWD_SHAPES = [(1024, 8, 128, 256), (1024, 16, 256, 128)]
 DX_SHAPES = [(32, 8, 128, 256), (32, 16, 256, 128)]
@@ -95,7 +101,12 @@ def build(name: str, edits: list) -> dict:
     dx.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     splits = libs["upsample_conv_bwd"].facegen_upconv_bwd_splits
     splits.argtypes = [ctypes.c_int] * 7
-    return {"fwd": fwd, "dx": dx, "splits": splits}
+    dw = libs["upsample_conv_bwd"].facegen_upconv_dw_bf16
+    dw.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sizes = libs["upsample_conv_bwd"].facegen_upconv_dw_sizes
+    sizes.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+    sizes.restype = None
+    return {"fwd": fwd, "dx": dx, "splits": splits, "dw": dw, "sizes": sizes}
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -160,6 +171,25 @@ def main() -> int:
                                             ws.data_ptr(), n, h, h, cin, cout, s, stream()))
                  for k, lib in libs.items()}
         report("upsample_conv_dx", [n, h, cin, cout], calls, 2 * n * h * h * 9 * cin * 4 * cout)
+    for n, h, cin, cout in DX_SHAPES:
+        x = torch.randn(n, h, h, cin, generator=g).cuda().bfloat16()
+        dy = torch.randn(n, 2 * h, 2 * h, cout, generator=g).cuda().bfloat16()
+        dwc = torch.empty(9 * cin, 4 * cout, device="cuda")
+        ws_n, counters_n = ctypes.c_longlong(), ctypes.c_longlong()
+        libs["full"]["sizes"](n, h, h, cin, cout, ctypes.byref(ws_n), ctypes.byref(counters_n))
+        ws = torch.empty(max(ws_n.value, 1), device="cuda")
+        # each variant its own counters: one that stops short of the sum
+        # would leave them counting for the others
+        counters = {k: torch.zeros(max(counters_n.value, 1), dtype=torch.int32, device="cuda")
+                    for k in libs}
+        calls = {k: (lambda f=lib["dw"], c=counters[k]: f(
+            x.data_ptr(), dy.data_ptr(), dwc.data_ptr(), ws.data_ptr(), c.data_ptr(),
+            n, h, h, cin, cout, stream())) for k, lib in libs.items()}
+        calls["full"]()
+        ref = uc.upsample_conv_dw_reference(x.float(), dy.float())
+        if float((dwc - ref).abs().max()) > 1e-4 * float(ref.abs().max()):
+            raise SystemExit("the full dW disagrees with its plain version")
+        report("upsample_conv_dw", [n, h, cin, cout], calls, 2 * n * h * h * 9 * cin * 4 * cout)
     return 0
 
 
