@@ -43,7 +43,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    metrics.jsonl, the checkpoint and its .old; holds one fp32 step on the
    card against the same step on the CPU; reports training images/s, the
    device ms per step, and a profile of the step by kernel family with
-   the device's busy share.
+   the device's busy share;
+7. c2f training path: ``facegen_torch.train_c2f.main`` at the default
+   flags (fine 32, coarse 16, colour, batch 32, bf16) on the store for 2
+   epochs of 63 steps with --saveFreq 1, then a resume for a third; checks
+   the checkpoint, its .old, the _best checkpoint with a finite parzen,
+   the sample grid and finite losses; reports c2f training images/s, the
+   approxParzen ms (6400 refinements), the device ms per step and a
+   profile of the step by kernel family;
+8. c2f sampler path: writes a G16 + D16_d colour base (full width, seeded
+   weights, calibrated batch norms), runs ``facegen_torch.sample.main
+   --c2f --runs 2`` on phase 7's c2f checkpoint, checks the 2 x 8 grids
+   and the forward kernel's 4 launches (G16's two layers, one G call a
+   run), holds the card's fp32 refinement against the CPU's on the same
+   noise, and reports the run's wall time and the refinement's ms per
+   label;
+9. one fp32 c2f step on the card against the same step on the CPU.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -78,6 +93,8 @@ ODD_SHAPES = [(2, 8, 16, 24, 5), (2, 4, 8, 8, 3), (2, 16, 32, 16, 5), (3, 8, 128
 # G16's upconv1 (4x4) and upconv2 (8x8) in training and at the sampler's batch
 G16_SHAPES = [(n, h, cin, cout, 5) for n in (32, 1024)
               for h, cin, cout in ((4, 128, 256), (8, 256, 128))]
+# G16's two layers at the sampler's batch: the base G of `sample --c2f`
+G16_SAMPLER_SHAPES = G16_SHAPES[2:]
 # G32's upconv1 and upconv2 in training (batch 32)
 TRAIN_SHAPES = [(32, 8, 128, 256, 5), (32, 16, 256, 128, 5)]
 # dW's TMA path: 128-row tiles that hold two taps (Cin = 64, 192; at
@@ -123,6 +140,11 @@ BWD_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
 STEP_UPDATE_TOL = 1e-2
 STEP_STAT_TOL = 1e-4
+# the c2f refinement in fp32 (TF32 off), card against CPU: D's scores and
+# the refined images within 2e-4 (nine fp32 convs summed in other orders,
+# ~1e-5); the chosen candidate is compared only where the top two scores
+# differ by more than twice that
+REFINE_TOL = 2e-4
 
 # the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -264,9 +286,7 @@ def phase_kernels():
 
     from facegen_torch.ops import upsample_conv as uc
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    max_err = {"train": 0.0, "sampler": 0.0}  # bf16, at the paths' shapes
+    max_err = {"train": 0.0, "sampler": 0.0, "c2f": 0.0}  # bf16, at the paths' shapes
     for si, (n, h, cin, cout, k) in enumerate(G_SHAPES + FWD_TRAIN_SHAPES + G16_SHAPES
                                               + ODD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -288,7 +308,8 @@ def phase_kernels():
                   f"max_abs_err={shape_err:.3e} {'ok' if ok else 'FAIL'}")
             check(ok, f"kernel disagrees with the plain version ({tag}, shape {n, h, cin, cout, k})")
             if dtype == torch.bfloat16:
-                for path, shapes in (("train", FWD_TRAIN_SHAPES), ("sampler", G_SHAPES)):
+                for path, shapes in (("train", FWD_TRAIN_SHAPES), ("sampler", G_SHAPES),
+                                     ("c2f", G16_SAMPLER_SHAPES)):
                     if (n, h, cin, cout, k) in shapes:
                         max_err[path] = max(max_err[path], shape_err)
             del x, w, b, wc, got, ref, err
@@ -296,8 +317,8 @@ def phase_kernels():
     # kernel, plain version (the phase conv, depth-to-space and bias) and
     # one library call (cuDNN's phase conv on a pre-made NCHW view with a
     # pre-made weight: no depth-to-space, no bias), in alternating turns
-    rows = {"train": [], "sampler": []}
-    for n, h, cin, cout, k in G_SHAPES + TRAIN_SHAPES + FWD_TRAIN_SHAPES[:2]:
+    rows = {"train": [], "sampler": [], "c2f": []}
+    for n, h, cin, cout, k in G_SHAPES + G16_SAMPLER_SHAPES + TRAIN_SHAPES + FWD_TRAIN_SHAPES[:2]:
         x, w, b = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         wc = uc.collapse_weights(w)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
@@ -314,7 +335,7 @@ def phase_kernels():
                                "composed": composed})
         flop = 2 * n * h * h * 4 * cout * 9 * cin
         nbytes = 2 * (x.numel() + wc.numel() + cout + 4 * n * h * h * cout)
-        sampler = (n, h, cin, cout, k) in G_SHAPES
+        sampler = (n, h, cin, cout, k) in G_SHAPES + G16_SAMPLER_SHAPES
         row = _row("upsample_conv_fwd", (n, h, cin, cout), t, runs, flop, nbytes,
                    launches_per_g_call=1 if sampler else 0,
                    launches_per_step=0 if sampler else 1)
@@ -324,13 +345,16 @@ def phase_kernels():
               f"plain {t['plain']:.4f} ms, library phase conv {t['library']:.4f} ms, "
               f"interpolate+conv2d {t['composed']:.4f} ms")
         # the kernels line: the G phase's two layers (N = 32)
-        for path, shapes in (("train", TRAIN_SHAPES), ("sampler", G_SHAPES)):
+        for path, shapes in (("train", TRAIN_SHAPES), ("sampler", G_SHAPES),
+                             ("c2f", G16_SAMPLER_SHAPES)):
             if (n, h, cin, cout, k) in shapes:
                 rows[path].append(row)
         del x, w, b, wc, x_cl, w_phase
     sampler = {**_sum_rows(rows["sampler"]), "max_abs_err": max_err["sampler"],
                "launches_per_g_call": 2}
     print(f"forward at the sampler's shapes (N = 1024, both layers): {json.dumps(sampler)}")
+    c2f = {**_sum_rows(rows["c2f"]), "max_abs_err": max_err["c2f"], "launches_per_g_call": 2}
+    print(f"forward at the c2f sampler's G16 base (N = 1024, both layers): {json.dumps(c2f)}")
     return {"max_abs_err": max_err["train"], **_sum_rows(rows["train"]),
             "launches_per_step": 4}
 
@@ -360,12 +384,11 @@ def calibrate_batch_norm(g, noise):
 
 
 def phase_main_path(tmp: str, store: str):
-    """Drive the sampler's CLI end to end; returns the kernel launch count."""
+    """Drive the sampler's CLI end to end; returns the kernels' launch counts."""
     import torch
 
     from facegen_torch import sample
     from facegen_torch.models import gan
-    from facegen_torch.ops import upsample_conv as uc
     from facegen_torch.utils import checkpoint as ckpt
     from facegen_torch.utils.infer import GanInference
 
@@ -384,12 +407,13 @@ def phase_main_path(tmp: str, store: str):
     argv = ["--save_base", save_dir, "--runs", str(runs), "--seed", str(seed), "--neighbours",
             "--datasetDir", store, "--writeto", out_dir]
     torch.cuda.synchronize()
-    uc.KERNEL_LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     sample.main(argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = uc.KERNEL_LAUNCHES
+    by_kernel = _launches()
+    launches = by_kernel["upsample_conv_fwd"]
     # one G call of 1024 per run, two upsample-conv layers per G call
     print(f"main path: sample.main took {run_s:.3f} s; {launches} kernel launches "
           f"for {runs} G calls")
@@ -434,7 +458,7 @@ def phase_main_path(tmp: str, store: str):
           f"per call); whole run {runs * 1024 / run_s:.1f} images/s ({runs} x 1024 in "
           f"{run_s:.3f} s, with checkpoint load, store preparation, NN search and PNGs)")
     _profile_g_call(inf_gpu, gen)
-    return launches
+    return by_kernel
 
 
 def _profile_g_call(inf, gen, calls=3):
@@ -476,8 +500,6 @@ def phase_bwd_kernels():
 
     from facegen_torch.ops import upsample_conv as uc
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     err = {"dx": 0.0, "dw": 0.0}
     for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + G16_SHAPES[:2] + ODD_SHAPES
                                               + DW_TMA_SHAPES):
@@ -699,10 +721,11 @@ def phase_training(tmp: str, store: str):
     return launches
 
 
-def _profile_train_steps(trainer, pool, gen, steps=5):
+def _profile_train_steps(trainer, pool, gen, steps=5, label="training path", top=0):
     """Device time of a training step by kernel family (torch.profiler,
     kernel events only) against the host's wall time of the same steps:
-    the device's busy share."""
+    the device's busy share; with ``top``, the kernels that take the most
+    device time, each with its ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -720,7 +743,7 @@ def _profile_train_steps(trainer, pool, gen, steps=5):
                 "cuDNN / cuBLAS": ("cudnn", "xmma", "gemm", "conv", "cutlass", "sm90_")}
     other = "elementwise, reductions, copies"
     us = dict.fromkeys(list(families) + [other], 0.0)
-    launches = 0
+    launches, kernels = 0, []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -728,9 +751,13 @@ def _profile_train_steps(trainer, pool, gen, steps=5):
         name = ev.key.lower()
         us[next((f for f, keys in families.items() if any(k in name for k in keys)), other)] += t
         launches += ev.count
+        kernels.append((t, ev.count, ev.key))
     busy_ms = sum(us.values()) / steps / 1e3
-    check(busy_ms > 0, "the profiler saw no device time in the training steps")
-    print(f"training path: step profile (torch.profiler, {steps} steps after 10 warm-up, kernel "
+    check(busy_ms > 0, f"the profiler saw no device time in the {label} steps")
+    for t, count, key in sorted(kernels, reverse=True)[:top]:
+        print(f"{label}: kernel {t / steps / 1e3:.4f} ms per step in {count / steps:.0f} "
+              f"launches: {key[:160]}")
+    print(f"{label}: step profile (torch.profiler, {steps} steps after 10 warm-up, kernel "
           f"events): {busy_ms:.4f} ms of device time in {wall_ms:.3f} ms of host wall per step, "
           f"busy {100 * busy_ms / wall_ms:.1f} %, {launches / steps:.0f} kernels a step; " + "; ".join(
               f"{f} {v / steps / 1e3:.4f} ms ({100 * v / steps / 1e3 / busy_ms:.1f} %)"
@@ -755,8 +782,6 @@ def phase_step_parity():
         init_state,
     )
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
     dev = torch.device("cuda", 0)
 
@@ -815,6 +840,236 @@ def phase_step_parity():
     check(ok, "the card's fp32 train step disagrees with the CPU's")
 
 
+def phase_c2f_training(tmp: str, store: str):
+    """Drive the c2f trainer's CLI end to end at the default flags; returns
+    its save directory and the kernels' launch counts in its 2-epoch run
+    (the c2f nets have no upsample-conv: all 0)."""
+    import json as _json
+    import math
+
+    import torch
+
+    from facegen_torch import train_c2f
+    from facegen_torch.train.c2f import ckpt_name
+    from facegen_torch.train.step import steps_per_epoch
+
+    save = os.path.join(tmp, "c2f_logs")
+    argv = ["--datasetDir", store, "--save", save, "--saveFreq", "1"]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_c2f.main(argv + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    cfg = trainer.cfg
+    steps = 2 * steps_per_epoch(cfg)
+    print(f"c2f training path: train_c2f.main --epochs 2 took {run_s:.3f} s for {steps} steps "
+          f"(fine {cfg.fine_size}, coarse {cfg.coarse_size}, batch {cfg.batch_size}, "
+          f"{cfg.compute_dtype}); launches {launches}")
+    check(steps == 126, f"expected 2 x 63 steps at the default flags, got {steps}")
+    name = ckpt_name(cfg)
+    for n in (name, name + ".old", name + "_best"):
+        check(os.path.exists(os.path.join(save, n, "arrays.npz")), f"missing checkpoint {n}")
+    with open(os.path.join(save, name + "_best", "meta.json")) as f:
+        best = _json.load(f)
+    check(math.isfinite(best.get("parzen", math.nan)), f"_best has no finite parzen: {best}")
+    grid = os.path.join(save, "viz", "c2f_samples.png")
+    check(os.path.exists(grid) and os.path.getsize(grid) > 0, f"missing grid {grid}")
+
+    trainer2 = train_c2f.main(argv + ["--epochs", "1", "--network", name])
+    check(trainer2.state.epoch == 4, f"resumed run ends at epoch {trainer2.state.epoch}, want 4")
+    check(trainer2.best_dist <= best["parzen"], "the resume lost the best parzen")
+    with open(os.path.join(save, "metrics_c2f.jsonl")) as f:
+        rows = [_json.loads(line) for line in f if line.strip()]
+    check([r["epoch"] for r in rows] == [1, 2, 3], f"epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        check(all(math.isfinite(r[k]) for k in ("loss_d_mean", "loss_g_mean", "parzen")),
+              f"non-finite losses or parzen in {r}")
+    print("c2f training path: metrics_c2f.jsonl " + "; ".join(
+        f"epoch {r['epoch']}: loss_d {r['loss_d_mean']:.4f} loss_g {r['loss_g_mean']:.4f} "
+        f"acc_d {r['acc_d_mean']:.4f} parzen {r['parzen']:.4f} ({r['parzen_ms']:.3f} ms) "
+        f"{r['images_per_sec']:.1f} images/s" for r in rows))
+    print(f"c2f training path: warm epoch (2) {rows[1]['images_per_sec']:.1f} images/s "
+          f"({cfg.n_epoch} examples per epoch, host clock {rows[1]['seconds']:.3f} s for "
+          f"{steps // 2} steps with the epoch's read-back; pool, grid and parzen outside the "
+          f"clock); approxParzen "
+          f"{rows[1]['parzen_ms']:.3f} ms host clock ({cfg.parzen_samples} x {cfg.batch_size} "
+          f"refinements, with the draws and the read-back)")
+
+    gen = torch.Generator(device=trainer2.device).manual_seed(12)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    trainer2.parzen(gen)
+    parzen_ms = []
+    for _ in range(3):
+        start.record()
+        trainer2.parzen(gen)
+        end.record()
+        torch.cuda.synchronize()
+        parzen_ms.append(start.elapsed_time(end))
+    from facegen_torch.data.c2f import make_triples
+
+    pool = make_triples(trainer2.source.epoch_pool(gen, trainer2.pool_n), cfg.coarse_size)
+    trainer2.run_steps(pool, gen, 5)
+    start.record()
+    trainer2.run_steps(pool, gen, 30)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 30
+    per_epoch = steps_per_epoch(cfg)
+    print(f"c2f training path: approxParzen {statistics.median(parzen_ms):.3f} ms on the stream "
+          f"(CUDA events, median of 3: {', '.join(f'{t:.3f}' for t in parzen_ms)}); "
+          f"{step_ms:.4f} ms per step on the stream (CUDA events over 30 steps, waits for the "
+          f"host included): {cfg.n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at "
+          f"{cfg.n_epoch} examples per {per_epoch} steps")
+    _profile_train_steps(trainer2, pool, gen, label="c2f training path", top=8)
+    return save, launches
+
+
+def phase_c2f_sampler(tmp: str, c2f_save: str):
+    """Drive ``sample --c2f`` end to end on a G16 + D16_d base and phase
+    7's c2f checkpoint; returns the kernels' launch counts in that run."""
+    import torch
+
+    from facegen_torch import sample
+    from facegen_torch.config import SampleConfig
+    from facegen_torch.models import c2f, gan
+    from facegen_torch.utils import checkpoint as ckpt
+    from facegen_torch.utils.infer import GanInference
+
+    base_dir = os.path.join(tmp, "g16_logs")
+    out_dir = os.path.join(tmp, "c2f_samples")
+    runs = 2
+    g, d = gan.init_gan(torch.Generator().manual_seed(1), 16, 3, 100, reference_init=False)
+    calibrate_batch_norm(g, GanInference(g, d, 100).noise(torch.Generator().manual_seed(9), 256))
+    ckpt.save_gan(base_dir, "adversarial", g, d,
+                  {"scale": 16, "grayscale": False, "noise_dim": 100, "noise_view": "nhwc"})
+    print("c2f sampler path: wrote a G16 + D16_d colour base checkpoint")
+    argv = ["--save_base", base_dir, "--runs", str(runs), "--seed", "1", "--c2f",
+            "--save_c2f32", c2f_save, "--writeto", out_dir]
+    tf32 = torch.backends.cudnn.allow_tf32  # as the CLI finds it: torch's default
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    sample.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    check(torch.backends.cudnn.allow_tf32 == tf32, "sample.main left cuDNN's TF32 setting changed")
+    print(f"c2f sampler path: sample.main --c2f --runs {runs} took {run_s:.3f} s (cuDNN TF32 "
+          f"{'on' if tf32 else 'off'} as torch's default has it; the refinement in fp32); "
+          f"launches {launches}")
+    check(launches["upsample_conv_fwd"] == 2 * runs,
+          f"expected {2 * runs} forward launches (G16's two layers a run), got {launches}")
+    for run in range(1, runs + 1):
+        for name in ("random1024", "random256", "best", "worst", "random"):
+            path = os.path.join(out_dir, f"{name}_{run:04d}_base.png")
+            check(os.path.exists(path) and os.path.getsize(path) > 0, f"missing output {path}")
+        for name in ("best", "worst", "random"):
+            path = os.path.join(out_dir, f"{name}_{run:04d}_c2f_32.png")
+            check(os.path.exists(path) and os.path.getsize(path) > 0, f"missing output {path}")
+    print(f"c2f sampler path: all {8 * runs} grids written")
+
+    # the card's fp32 refinement against the CPU's on the same base images and noise
+    device = torch.device("cuda", 0)
+    name = SampleConfig().c2f_network  # the checkpoint the run above refined with
+    g_gpu, d_gpu, _, res = c2f.restore_c2f(name, c2f_save, device=device)
+    g_cpu, d_cpu, _, _ = c2f.restore_c2f(name, c2f_save, device="cpu")
+    fs = res["fine_size"]
+    base = GanInference(g.to(device), d.to(device), 100)
+    images = base.generate_n(torch.Generator().manual_seed(2), 64)
+    noise = torch.rand(64, 10, fs, fs, 1, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    refined, scores = sample.refine_c2f(g_gpu, d_gpu, fs, images, noise)
+    ref, ref_scores = sample.refine_c2f(g_cpu, d_cpu, fs, images.cpu(), noise)
+    score_err = float((scores.cpu() - ref_scores).abs().max())
+    top2 = ref_scores.sort(dim=1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * REFINE_TOL
+    same = bool((scores.cpu().argmax(1) == ref_scores.argmax(1))[clear].all())
+    img_err = float((refined.cpu()[clear] - ref[clear]).abs().max()) if clear.any() else 0.0
+    ok = (score_err <= REFINE_TOL * (1 + float(ref_scores.abs().max())) and same
+          and img_err <= REFINE_TOL and int(clear.sum()) >= 32
+          and bool(torch.isfinite(refined).all()) and refined.shape == (64, fs, fs, 3))
+    print(f"c2f sampler path: card vs CPU refinement as served (fp32, TF32 off inside "
+          f"refine_c2f; the caller's cuDNN TF32 {'on' if tf32 else 'off'}), 64 images x 10 tries: "
+          f"scores max_abs_err={score_err:.3e} (|score| <= {float(ref_scores.abs().max()):.3f}), "
+          f"the same choice in {int(clear.sum())} of 64 clear rows, images "
+          f"max_abs_err={img_err:.3e} (tolerance {REFINE_TOL}); {'ok' if ok else 'FAIL'}")
+    check(ok, "the card's c2f refinement disagrees with the CPU's")
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sample.refine_c2f(g_gpu, d_gpu, fs, images, noise)
+    times = []
+    for _ in range(5):
+        start.record()
+        sample.refine_c2f(g_gpu, d_gpu, fs, images, noise)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    print(f"c2f sampler path: refine_c2f of one label (64 images x 10 tries, fp32, TF32 off): "
+          f"{statistics.median(times):.3f} ms on the stream (CUDA events, median of 5: "
+          f"{', '.join(f'{t:.3f}' for t in times)})")
+    return launches
+
+
+def phase_c2f_step_parity():
+    """One fp32 c2f step at the default flags on the card against the same
+    step on the CPU: the same weights, pool and draws."""
+    import torch
+
+    from facegen_torch.config import C2FConfig
+    from facegen_torch.data.c2f import make_triples
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.models import c2f
+    from facegen_torch.train.c2f import C2FStep, draw_c2f_step, init_c2f_state
+
+    cfg = C2FConfig(compute_dtype="float32", g_l2=1e-3).validate()
+    dev = torch.device("cuda", 0)
+    built = {}
+    for device in ("cpu", dev):
+        g, d = c2f.init_c2f(torch.Generator().manual_seed(5), cfg.fine_size, cfg.channels,
+                            device=device)
+        built[str(device)] = (init_c2f_state(cfg, g, d), C2FStep(cfg, g, d))
+    cpu_state, cpu_step = built["cpu"]
+    gpu_state, gpu_step = built[str(dev)]
+    fine = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256),
+                        cfg.fine_size, cfg.channels)
+    pool = make_triples(fine, cfg.coarse_size)
+    draws = draw_c2f_step(torch.Generator().manual_seed(7), cfg, pool.size, cpu_step.mask_specs)
+
+    def move(x):
+        return x.to(dev) if torch.is_tensor(x) else {k: m.to(dev) for k, m in x.items()}
+
+    moved = type(draws)(*(tuple(type(it)(*map(move, it)) for it in part) for part in draws))
+    before = [p.detach().clone() for p in (*cpu_state.g.parameters(), *cpu_state.d.parameters())]
+    cpu_m = cpu_step(cpu_state, pool, draws)
+    gpu_m = gpu_step(gpu_state, type(pool)(*(t.to(dev) for t in pool)), moved)
+    torch.cuda.synchronize()
+
+    def rel_l2(ours, ref):
+        num = sum(float(((o.detach().cpu() - r.detach()) ** 2).sum()) for o, r in zip(ours, ref))
+        den = sum(float((r.detach() ** 2).sum()) for r in ref)
+        return (num / max(den, 1e-300)) ** 0.5
+
+    ok, lines = True, []
+    for net in ("g", "d"):
+        opt_gpu, opt_cpu = getattr(gpu_state, f"opt_{net}"), getattr(cpu_state, f"opt_{net}")
+        ok &= int(opt_gpu["count"]) == int(opt_cpu["count"]) == 1
+        errs = {kind: rel_l2(opt_gpu[kind], opt_cpu[kind]) for kind in ("mu", "nu")}
+        ok &= errs["mu"] <= STEP_GRAD_TOL and errs["nu"] <= STEP_GRAD_TOL
+        lines.append(f"{net.upper()}: gradient (mu) {errs['mu']:.3e}, nu {errs['nu']:.3e}")
+    params = lambda st: [p for p in (*st.g.parameters(), *st.d.parameters())]  # noqa: E731
+    update = rel_l2([p.cpu() - b for p, b in zip(params(gpu_state), before)],
+                    [p - b for p, b in zip(params(cpu_state), before)])
+    ok &= update <= STEP_UPDATE_TOL and torch.equal(gpu_state.confusion.cpu(), cpu_state.confusion)
+    print(f"c2f step parity fp32, card vs CPU, G_d + D_c fine 32 batch 32, relative l2 errors: "
+          f"{'; '.join(lines)}; update {update:.3e} (tolerances {STEP_GRAD_TOL}, "
+          f"{STEP_UPDATE_TOL}); loss_d {float(gpu_m.loss_d):.6f} / {float(cpu_m.loss_d):.6f}, "
+          f"loss_g {float(gpu_m.loss_g):.6f} / {float(cpu_m.loss_g):.6f}; confusion equal; "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the card's fp32 c2f step disagrees with the CPU's")
+
+
 def main() -> int:
     try:
         name = phase_device()
@@ -823,25 +1078,36 @@ def main() -> int:
         return 1
     import torch
 
+    # the checks against plain versions and the CPU run in full fp32; the
+    # CLIs run with torch's default TF32 settings, as a user's run does
+    from facegen_torch.sample import full_fp32
+
     try:
         phase_build()
-        summary = {"upsample_conv_fwd": phase_kernels()}
-        bwd = phase_bwd_kernels()
+        with full_fp32():
+            summary = {"upsample_conv_fwd": phase_kernels()}
+            bwd = phase_bwd_kernels()
         summary["upsample_conv_dx"], summary["upsample_conv_dw"] = bwd["dx"], bwd["dw"]
         with tempfile.TemporaryDirectory() as tmp:
             store = write_store(tmp)
-            sampler_launches = phase_main_path(tmp, store)
-            launches = phase_training(tmp, store)
-        phase_step_parity()
+            by_path = {"sampler": phase_main_path(tmp, store)}
+            by_path["training"] = launches = phase_training(tmp, store)
+            c2f_save, by_path["c2f_training"] = phase_c2f_training(tmp, store)
+            by_path["c2f_sampler"] = phase_c2f_sampler(tmp, c2f_save)
+        with full_fp32():
+            phase_step_parity()
+            phase_c2f_step_parity()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    print(f"launches: sampler path {sampler_launches} forward; training path {launches}")
+    print(f"launches by path: {json.dumps(by_path)}")
     # launches: the training path's 2-epoch run, which runs all three
-    # kernels; max_abs_err (bf16) and ms (both layers at N = 32) at its shapes
+    # kernels; max_abs_err (bf16) and ms (both layers at N = 32) at its
+    # shapes; launches_by_path: each path's run, counted from 0
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **summary[name]}
+         "launches": launches[name], **summary[name],
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

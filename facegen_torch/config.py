@@ -1,9 +1,10 @@
 """Run configurations of the port's trainer and sampler.
 
-Fields of facegen/config.py:TrainConfig and SampleConfig (flags of
-``th train.lua`` and ``th sample.lua``), copied rather than imported:
-importing facegen pulls in JAX. TrainConfig keeps facegen's field names,
-so a checkpoint's stored config reads the same in both packages.
+Fields of facegen/config.py:TrainConfig, C2FConfig and SampleConfig
+(flags of ``th train.lua``, ``th train_c2f.lua`` and ``th sample.lua``),
+copied rather than imported: importing facegen pulls in JAX. The configs
+keep facegen's field names, so a checkpoint's stored config reads the
+same in both packages.
 """
 
 from __future__ import annotations
@@ -122,6 +123,78 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class C2FConfig:
+    """Flags of ``th train_c2f.lua`` (train_c2f.lua:16-46) and facegen's
+    additions (facegen/config.py:159-217). Its defaults differ from the
+    GAN's: D_L1 1e-7, D_L2 0; the stock optimizers have no gate."""
+
+    save: str = "logs"
+    save_freq: int = 30
+    network: str = ""
+    noplot: bool = False
+    d_sgd_lr: float = 0.02
+    g_sgd_lr: float = 0.02
+    d_sgd_momentum: float = 0.0
+    g_sgd_momentum: float = 0.0
+    batch_size: int = 32
+    n_epoch: int = 1000
+    g_l1: float = 0.0
+    g_l2: float = 0.0
+    d_l1: float = 1e-7
+    d_l2: float = 0.0
+    d_iterations: int = 1
+    g_iterations: int = 1
+    d_clamp: float = 1.0
+    g_clamp: float = 5.0
+    d_optmethod: str = "adam"
+    g_optmethod: str = "adam"
+    threads: int = 4          # accepted; the port has no host workers
+    noise_dim: int = 100      # kept for CLI parity; c2f noise is image-shaped
+    window: int = 3
+    coarse_size: int = 16
+    fine_size: int = 32
+    grayscale: bool = False
+    seed: int = 1
+    aws: bool = False
+    # facegen's additions
+    compute_dtype: str = "bfloat16"
+    reference_g_penalty_bug: bool = True
+    dataset_dir: Optional[str] = None
+    synthetic_data: bool = False
+    epochs: int = -1
+    val_size: int = 500       # VAL_DATA = loadImages(0, 500) (train_c2f.lua:218)
+    parzen_samples: int = 200
+    mesh_shape: Tuple[int, ...] = (1,)  # one device: multi-device is not ported yet
+    boundary_pad: int = 0     # must stay 0: not ported
+    # the port's own
+    gpu: int = 0              # --gpu: CUDA device index
+
+    @property
+    def channels(self) -> int:
+        return 1 if self.grayscale else 3
+
+    @property
+    def img_shape(self) -> Tuple[int, int, int]:
+        return (self.fine_size, self.fine_size, self.channels)
+
+    def validate(self) -> "C2FConfig":
+        if self.batch_size % 2 != 0 or self.batch_size < 4:
+            raise ValueError("batch size must be even and >= 4")
+        for which, method in (("D", self.d_optmethod), ("G", self.g_optmethod)):
+            if method not in ("sgd", "adagrad", "adam"):
+                raise ValueError(f"unknown {which} optimizer {method!r}")
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute dtype {self.compute_dtype!r}: bfloat16 or float32")
+        if self.boundary_pad > 0:
+            raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
+                             "on the TPU); leave it at 0")
+        if tuple(self.mesh_shape) not in ((1,), (-1,)):
+            raise ValueError(f"--meshShape {self.mesh_shape}: multi-device training "
+                             f"is not ported yet")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
 class SampleConfig:
     """scale/grayscale/noise_dim default to None, meaning "use the
     checkpoint's stored config"; explicit values are checked overrides
@@ -141,11 +214,11 @@ class SampleConfig:
     writeto: str = "samples"
     aws: bool = False
     dataset_dir: Optional[str] = None  # --datasetDir: store for --neighbours
-    c2f: bool = False             # not ported yet: rejected by sample.py
-    c2f_network: str = "adversarial_c2f_16_to_32"
-    d_c2f_network: Optional[str] = None
-    save_c2f: str = ""
-    c2f_tries: int = 10
+    c2f: bool = False             # refine best/worst/random through a c2f pair
+    c2f_network: str = "adversarial_c2f_16_to_32"  # --G_c2f32
+    d_c2f_network: Optional[str] = None  # --D_c2f32: c2f D from another checkpoint
+    save_c2f: str = ""            # --save_c2f32 (empty = --save_base)
+    c2f_tries: int = 10           # candidate diffs per image (sample.lua:177)
     mesh_shape: Tuple[int, ...] = ()  # not ported yet: must stay empty
 
     @property
@@ -232,5 +305,63 @@ def train_config_from_args(argv=None) -> TrainConfig:
               synthetic_data=a.syntheticData)
     try:
         return TrainConfig(**kw).validate()
+    except ValueError as e:
+        p.error(str(e))
+
+
+def c2f_arg_parser() -> argparse.ArgumentParser:
+    """facegen's c2f trainer CLI (train_c2f.py:12-53), flag for flag."""
+    p = argparse.ArgumentParser(
+        description="facegen_torch c2f trainer on one CUDA GPU (reference: th train_c2f.lua)")
+    p.add_argument("--save", default="logs")
+    p.add_argument("--saveFreq", type=int, default=30, dest="save_freq")
+    p.add_argument("--network", default="")
+    p.add_argument("--noplot", action="store_true")
+    p.add_argument("--D_sgd_lr", type=float, default=0.02, dest="d_sgd_lr")
+    p.add_argument("--G_sgd_lr", type=float, default=0.02, dest="g_sgd_lr")
+    p.add_argument("--D_sgd_momentum", type=float, default=0.0, dest="d_sgd_momentum")
+    p.add_argument("--G_sgd_momentum", type=float, default=0.0, dest="g_sgd_momentum")
+    p.add_argument("--batchSize", type=int, default=32, dest="batch_size")
+    p.add_argument("--N_epoch", type=int, default=1000, dest="n_epoch")
+    p.add_argument("--G_L1", type=float, default=0.0, dest="g_l1")
+    p.add_argument("--G_L2", type=float, default=0.0, dest="g_l2")
+    p.add_argument("--D_L1", type=float, default=1e-7, dest="d_l1")
+    p.add_argument("--D_L2", type=float, default=0.0, dest="d_l2")
+    p.add_argument("--D_iterations", type=int, default=1, dest="d_iterations")
+    p.add_argument("--G_iterations", type=int, default=1, dest="g_iterations")
+    p.add_argument("--D_clamp", type=float, default=1.0, dest="d_clamp")
+    p.add_argument("--G_clamp", type=float, default=5.0, dest="g_clamp")
+    p.add_argument("--D_optmethod", default="adam", dest="d_optmethod")
+    p.add_argument("--G_optmethod", default="adam", dest="g_optmethod")
+    p.add_argument("--threads", type=int, default=4, help="accepted; unused")
+    p.add_argument("--gpu", type=int, default=0, help="CUDA device index")
+    p.add_argument("--noiseDim", type=int, default=100, dest="noise_dim")
+    p.add_argument("--window", type=int, default=3)
+    p.add_argument("--coarseSize", type=int, default=16, dest="coarse_size")
+    p.add_argument("--fineSize", type=int, default=32, dest="fine_size")
+    p.add_argument("--grayscale", action="store_true")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--aws", action="store_true")
+    p.add_argument("--epochs", type=int, default=-1)
+    p.add_argument("--syntheticData", action="store_true", dest="synthetic_data")
+    p.add_argument("--datasetDir", default=None, dest="dataset_dir")
+    p.add_argument("--meshShape", type=str, default="-1", dest="mesh_shape",
+                   help="'1' or '-1' (one device); more devices are not ported yet")
+    p.add_argument("--boundaryPad", type=int, default=0, dest="boundary_pad",
+                   help="not ported: must stay 0")
+    return p
+
+
+def c2f_config_from_args(argv=None) -> C2FConfig:
+    """Parse and validate; flags of paths that are not ported exit with
+    a parser error that says so."""
+    p = c2f_arg_parser()
+    a = p.parse_args(argv)
+    try:
+        mesh = tuple(int(v) for v in str(a.mesh_shape).split(","))
+    except ValueError:
+        p.error(f"--meshShape {a.mesh_shape!r}: not a comma-separated list of ints")
+    try:
+        return C2FConfig(**dict(vars(a), mesh_shape=mesh)).validate()
     except ValueError as e:
         p.error(str(e))

@@ -54,19 +54,23 @@ class DataSource:
     channels: int
     device: torch.device
     store: Optional[torch.Tensor] = None  # (N, 64, 64, 3) uint8 on the device; None = synthetic
+    holdout: int = 0  # the store's first rows, reserved for validation (c2f)
 
     @property
     def size(self) -> int:
         # synthetic data is unbounded; facegen reports the same finite size
-        return int(self.store.shape[0]) if self.store is not None else 16_384
+        if self.store is None:
+            return 16_384
+        return int(self.store.shape[0]) - self.holdout
 
     def raw_batch(self, generator: torch.Generator, n: int) -> torch.Tensor:
-        """(n, 64, 64, 3) uint8 on the device, before augmentation."""
+        """(n, 64, 64, 3) uint8 on the device, before augmentation; store
+        rows are drawn from [holdout, N)."""
         if self.store is None:
             from facegen_torch.data.synthetic import draw_synthetic_faces
 
             return draw_synthetic_faces(generator, n).to(self.device)
-        idx = torch.randint(0, self.store.shape[0], (n,), generator=generator,
+        idx = torch.randint(self.holdout, self.store.shape[0], (n,), generator=generator,
                             device=generator.device)
         return self.store[torch.sort(idx).values.to(self.device)]
 
@@ -75,15 +79,30 @@ class DataSource:
         aug = {k: v.to(self.device) for k, v in sample_affine_params(generator, n).items()}
         return prepare_pool(raw, self.scale, self.channels, aug)
 
+    def range_pool(self, start: int, count: int) -> torch.Tensor:
+        """Rows [start, start + count) resized without augmentation, the
+        reference's loadImages(startAt, count) (dataset.lua:46-74) for
+        validation sets; for synthetic data, ``count`` faces drawn from a
+        generator seeded with ``start`` (facegen/data/pipeline.py:215-226)."""
+        if self.store is None:
+            from facegen_torch.data.synthetic import draw_synthetic_faces
 
-def make_source(cfg, device) -> DataSource:
+            raw = draw_synthetic_faces(torch.Generator().manual_seed(start), count)
+            raw = raw.to(self.device)
+        else:
+            raw = self.store[start : start + count]
+        return prepare_pool(raw, self.scale, self.channels)
+
+
+def make_source(cfg, device, holdout: int = 0) -> DataSource:
     """The DataSource a TrainConfig describes (store path selection as
-    train.lua:166-173); a packed store is copied to the device once."""
+    train.lua:166-173); a packed store is copied to the device once.
+    ``holdout``: the store's first rows, which training pools skip."""
     from facegen_torch.data import lfw
 
     device = torch.device(device)
     if cfg.synthetic_data:
-        return DataSource(cfg.scale, cfg.channels, device)
+        return DataSource(cfg.scale, cfg.channels, device, holdout=holdout)
     path = lfw.default_store_path(cfg.aws, cfg.dataset_dir)
     if not os.path.exists(path):
         raise FileNotFoundError(
@@ -91,4 +110,4 @@ def make_source(cfg, device) -> DataSource:
             "`python -m facegen.data.lfw --path=/path/to/lfw` or pass --syntheticData"
         )
     store = torch.from_numpy(np.array(lfw.load_store(path))).to(device)
-    return DataSource(cfg.scale, cfg.channels, device, store=store)
+    return DataSource(cfg.scale, cfg.channels, device, store=store, holdout=holdout)

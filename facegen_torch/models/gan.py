@@ -6,20 +6,23 @@
 - ``create_d``: D16_d at 16px, D32b at 32px (models.lua:279-316,
   382-416), returning logits; the reference's final sigmoid is applied
   where a probability is needed.
+- The reference's unused variants, which no CLI reaches: the
+  three-branch ``create_d16``, ``create_d16_b``, ``create_d16_c``,
+  ``create_d32`` and the flat ``create_g_flat`` (facegen/models/gan.py:203-346).
 
 Children are named ``{index:02d}_{name}`` like facegen's parameter tree,
 so a state_dict key such as ``03_upconv1.weight`` is the checkpoint leaf
 ``params_g/03_upconv1/w`` (utils/checkpoint.py). The factories return
 modules in eval mode; ``.train()`` turns on batch statistics and
 dropout. D's dropout masks are addressed by qualified module name
-(``dropout_layers``, ``set_dropout_masks``), the path along which facegen
-folds its PRNG key into each layer (facegen/nn/core.py:49-53,101-105).
+(nn/dropout.py), the path along which facegen folds its PRNG key into
+each layer (facegen/nn/core.py:49-53,101-105).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +36,7 @@ from facegen_torch.nn.layers import (
     Dense,
     Dropout,
     Flatten,
+    MaxPool,
     NCHWView,
     PReLU,
     Reshape,
@@ -149,44 +153,135 @@ def create_d16_d(scale: int, channels: int, *, generator: torch.Generator,
     ).eval()
 
 
-def dropout_layers(model: nn.Module) -> Dict[str, Dropout]:
-    """The model's dropout layers (SpatialDropout included) by qualified
-    name, e.g. ``02_spatial_dropout`` or
-    ``00_branches.01_dense_branch.03_dropout``. The indices along a name
-    are the ones facegen folds into its key on the way to that layer."""
-    return {name: m for name, m in model.named_modules() if isinstance(m, Dropout)}
+def _three_branch_d(fine: nn.Module, coarse: nn.Module, dense: nn.Module, joined: int,
+                    kw: dict) -> nn.Sequential:
+    """Branches (fine, coarse, dense) -> fc_join 1024 -> PReLU -> dropout
+    -> fc_out, the unused Ds' common head (facegen/models/gan.py:224-229)."""
+    device = kw["device"]
+    return sequential(
+        ("branches", Branches(("fine", fine), ("coarse", coarse), ("dense", dense))),
+        ("fc_join", Dense(joined, 1024, **kw)),
+        ("prelu", PReLU(device=device)),
+        ("dropout", Dropout(0.5)),
+        ("fc_out", Dense(1024, 1, **kw)),
+    ).eval()
 
 
-@torch.no_grad()
-def dropout_mask_shapes(model: nn.Module, batch: int, in_shape, device=None
-                        ) -> Dict[str, Tuple[int, ...]]:
-    """Each dropout layer's mask shape for a batch of ``batch`` inputs of
-    per-example shape ``in_shape``, found by one eval-mode forward of a
-    single zero input."""
-    layers = dropout_layers(model)
-    shapes, handles = {}, []
-    for name, m in layers.items():
-        def hook(mod, args, name=name):
-            shapes[name] = mod.mask_shape((batch,) + tuple(args[0].shape[1:]))
-        handles.append(m.register_forward_pre_hook(hook))
-    was_training = model.training
-    try:
-        model.eval()(torch.zeros((1,) + tuple(in_shape), device=device))
-    finally:
-        model.train(was_training)
-        for h in handles:
-            h.remove()
-    return shapes
+def _dense_branch(in_features: int, kw: dict) -> nn.Sequential:
+    device = kw["device"]
+    return sequential(
+        ("flatten", Flatten()),
+        ("fc1", Dense(in_features, 1024, **kw)), ("prelu", PReLU(device=device)),
+        ("dropout", Dropout(0.5)),
+        ("fc2", Dense(1024, 1024, **kw)), ("prelu", PReLU(device=device)),
+    )
 
 
-def set_dropout_masks(model: nn.Module, masks: Mapping[str, torch.Tensor]) -> None:
-    """Inject the keep-mask of each named dropout layer for its next
-    train-mode forward. Every dropout layer must get one."""
-    layers = dropout_layers(model)
-    if set(masks) != set(layers):
-        raise KeyError(f"dropout masks for {sorted(masks)}, layers are {sorted(layers)}")
-    for name, m in layers.items():
-        m.mask = masks[name]
+def _conv_stack(channels: int, kernel: int, widths, kw: dict, strides=None) -> list:
+    """conv{i} -> PReLU pairs of the given widths (stride 1 unless given)."""
+    layers, in_c = [], channels
+    for i, out_c in enumerate(widths):
+        stride = strides[i] if strides else 1
+        layers += [(f"conv{i + 1}", Conv2d(in_c, out_c, kernel, stride=stride, **kw)),
+                   ("prelu", PReLU(device=kw["device"]))]
+        in_c = out_c
+    return layers
+
+
+def create_d16(scale: int, channels: int, *, generator: torch.Generator,
+               device=None) -> nn.Sequential:
+    """Unused variant models.lua:110-159 (facegen/models/gan.py:203-229), logits."""
+    kw = dict(generator=generator, device=device)
+    half = scale // 2
+
+    def branch(kernel, widths):
+        return sequential(
+            *_conv_stack(channels, kernel, widths, kw),
+            ("max_pool", MaxPool()), ("spatial_dropout", SpatialDropout(0.5)),
+            ("flatten", Flatten()), ("fc", Dense(half * half * widths[-1], 1024, **kw)),
+            ("prelu", PReLU(device=device)), ("dropout", Dropout(0.5)),
+        )
+
+    return _three_branch_d(branch(3, (64, 64)), branch(5, (32, 64)),
+                           _dense_branch(scale * scale * channels, kw), 3 * 1024, kw)
+
+
+def create_d16_b(scale: int, channels: int, *, generator: torch.Generator,
+                 device=None) -> nn.Sequential:
+    """Unused variant models.lua:161-216 (facegen/models/gan.py:232-263):
+    strided 3x3 and 5x5 branches, logits."""
+    kw = dict(generator=generator, device=device)
+    size = _conv_out(scale, 2)
+
+    def branch(kernel):
+        return sequential(
+            *_conv_stack(channels, kernel, (64, 64, 128, 128), kw, strides=(1, 1, 1, 2)),
+            ("spatial_dropout", SpatialDropout(0.5)),
+            ("flatten", Flatten()), ("fc", Dense(size * size * 128, 512, **kw)),
+            ("prelu", PReLU(device=device)), ("dropout", Dropout(0.5)),
+        )
+
+    return _three_branch_d(branch(3), branch(5), _dense_branch(scale * scale * channels, kw),
+                           512 + 512 + 1024, kw)
+
+
+def create_d16_c(scale: int, channels: int, *, generator: torch.Generator,
+                 device=None) -> nn.Sequential:
+    """Unused variant models.lua:218-277 (facegen/models/gan.py:266-299):
+    deeper strided branches, logits."""
+    kw = dict(generator=generator, device=device)
+    size = _conv_out(_conv_out(scale, 2), 2)
+
+    def branch(kernel):
+        return sequential(
+            *_conv_stack(channels, kernel, (64, 64, 128, 128, 512), kw,
+                         strides=(1, 1, 1, 2, 2)),
+            ("spatial_dropout", SpatialDropout(0.5)),
+            ("flatten", Flatten()), ("fc", Dense(size * size * 512, 1024, **kw)),
+            ("prelu", PReLU(device=device)),
+        )
+
+    return _three_branch_d(branch(3), branch(5), _dense_branch(scale * scale * channels, kw),
+                           3 * 1024, kw)
+
+
+def create_d32(scale: int, channels: int, *, generator: torch.Generator,
+               device=None) -> nn.Sequential:
+    """Unused variant models.lua:322-376 (facegen/models/gan.py:316-346), logits."""
+    kw = dict(generator=generator, device=device)
+    half, quarter = scale // 2, scale // 4
+    fine = sequential(
+        *_conv_stack(channels, 3, (64, 64), kw),
+        ("max_pool", MaxPool()), ("spatial_dropout", SpatialDropout(0.5)),
+        ("flatten", Flatten()), ("fc", Dense(half * half * 64, 1024, **kw)),
+        ("prelu", PReLU(device=device)),
+    )
+    coarse = sequential(
+        *_conv_stack(channels, 5, (32, 32), kw),
+        ("max_pool", MaxPool()),
+        ("conv3", Conv2d(32, 54, 5, **kw)), ("prelu", PReLU(device=device)),
+        ("conv4", Conv2d(54, 54, 5, **kw)), ("prelu", PReLU(device=device)),
+        ("max_pool", MaxPool()), ("spatial_dropout", SpatialDropout(0.5)),
+        ("flatten", Flatten()), ("fc1", Dense(quarter * quarter * 54, 1024, **kw)),
+        ("prelu", PReLU(device=device)), ("dropout", Dropout(0.5)),
+        ("fc2", Dense(1024, 1024, **kw)), ("prelu", PReLU(device=device)),
+    )
+    return _three_branch_d(fine, coarse, _dense_branch(scale * scale * channels, kw),
+                           3 * 1024, kw)
+
+
+def create_g_flat(scale: int, channels: int, noise_dim: int, *, generator: torch.Generator,
+                  device=None) -> nn.Sequential:
+    """The dead first create_G (models.lua:12-21, facegen/models/gan.py:302-313):
+    Linear -> 2048 -> PReLU -> Linear -> sigmoid -> image."""
+    kw = dict(generator=generator, device=device)
+    return sequential(
+        ("fc1", Dense(noise_dim, 2048, **kw)),
+        ("prelu", PReLU(device=device)),
+        ("fc2", Dense(2048, scale * scale * channels, **kw)),
+        ("sigmoid", Sigmoid()),
+        ("reshape", Reshape((scale, scale, channels))),
+    ).eval()
 
 
 def init_gan(

@@ -96,6 +96,33 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class SubpixelConv(Conv2d):
+    """Same-pad conv to ``features * factor**2`` channels viewed at
+    ``factor`` times the resolution, the reference's
+    SpatialConvolutionUpsample (facegen/nn/layers.py:411-448); its
+    parameters are the inner conv's, with torch's default reset. At
+    factor 1 (every c2f call site) it is a plain same-pad conv. At
+    factor > 1 the view is the reference's
+    row-major (N, C*f*f, H, W) -> (N, C, H*f, W*f), not pixel-shuffle
+    order: channel block c's f*f maps land as consecutive row stripes of
+    output plane c."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int, factor: int = 1, *,
+                 generator: torch.Generator, device=None):
+        super().__init__(in_channels, features * factor * factor, kernel,
+                         generator=generator, device=device)
+        self.features, self.factor = features, factor
+
+    def forward(self, x):
+        y = super().forward(x)
+        if self.factor == 1:
+            return y
+        n, h, w, _ = y.shape
+        f = self.factor
+        y = y.permute(0, 3, 1, 2).reshape(n, self.features, h * f, w * f)
+        return y.permute(0, 2, 3, 1)
+
+
 class UpsampleConv(nn.Module):
     """Fused nearest-upsample(2) + same-pad KxK conv (K = 3 or 5), G's
     pyramid op. Parameters as ``Conv2d``.
@@ -245,6 +272,15 @@ class AvgPool(nn.Module):
     def forward(self, x):
         y = F.avg_pool2d(x.float().permute(0, 3, 1, 2), self.window, self.window)
         return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class MaxPool(nn.Module):
+    """2x2 max pool of stride 2, no padding (reference
+    nn.SpatialMaxPooling(2, 2), facegen/nn/layers.py:287-305)."""
+
+    def forward(self, x):
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
+        return y.permute(0, 2, 3, 1)
 
 
 class Flatten(nn.Module):

@@ -8,7 +8,10 @@ Per run (sample.lua:79-112): generate 1024 images with G, save
 1024 with D and save the best, worst and a random 64 as 8-per-row grids
 ``best_/worst_/random_{run:04d}_base.png``; with --neighbours, find the
 nearest training image of each of the 16 best and save the pairs as
-``best_{run:04d}_neighbours_base.png``.
+``best_{run:04d}_neighbours_base.png``; with --c2f, refine the best,
+worst and random 64 through a coarse-to-fine pair and save them as
+``{best,worst,random}_{run:04d}_c2f_{fine}.png`` (sample.lua:102-110,
+176-214).
 
 The CLI runs on ``cuda:{--gpu}`` and exits with an error without a GPU;
 ``run_sampling`` also takes a CPU device. Noise and permutations come
@@ -19,14 +22,16 @@ from a CPU ``torch.Generator`` seeded from --seed and the run index
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from facegen_torch.config import SampleConfig
-from facegen_torch.models import gan
+from facegen_torch.models import c2f, gan
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_grid, save_png, to_grid
@@ -63,6 +68,65 @@ def load_models(cfg: SampleConfig, device):
     return g, d, cfg
 
 
+def load_c2f(cfg: SampleConfig, device):
+    """The c2f G and D of --G_c2f32 (D of --D_c2f32 when given), from
+    --save_c2f32 or --save_base; returns (g, d, resolved) with the c2f
+    checkpoint's fine_size, coarse_size, grayscale and channels. A D of
+    another fine size or channel count is refused with both values."""
+    directory = cfg.save_c2f or cfg.save
+    g, d, _, res = c2f.restore_c2f(cfg.c2f_network, default_dir=directory, seed=cfg.seed,
+                                   device=device)
+    if cfg.d_c2f_network and (ckpt.split_network_arg(cfg.d_c2f_network, directory)
+                              != ckpt.split_network_arg(cfg.c2f_network, directory)):
+        _, d, _, d_res = c2f.restore_c2f(cfg.d_c2f_network, default_dir=directory,
+                                         seed=cfg.seed, device=device)
+        for k in ("fine_size", "channels"):
+            if d_res[k] != res[k]:
+                raise ValueError(f"c2f D checkpoint {cfg.d_c2f_network!r} has {k}={d_res[k]} "
+                                 f"but the c2f G checkpoint {cfg.c2f_network!r} has "
+                                 f"{k}={res[k]}")
+    return g, d, res
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN convolutions and cuBLAS matmuls in full fp32, not TF32 (on
+    by default for cuDNN), for the block; the previous settings after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@torch.no_grad()
+@full_fp32()
+def refine_c2f(g, d, fine_size: int, images: torch.Tensor, noise: torch.Tensor):
+    """Coarse-to-fine refinement (sample.lua:176-214's c2f(),
+    facegen/sample.py:198-235): upscale each image bilinearly to
+    ``fine_size``, run G on each of its ``tries`` noise planes, keep the
+    diff D scores highest and add it, clipped to [0, 1]. In fp32 with
+    TF32 off (``full_fp32``), on G's device, G and D in eval mode.
+
+    images: (N, h, w, C) floats in [0, 1]; noise: (N, tries, fine, fine,
+    1) U(-1, 1). Returns (refined (N, fine, fine, C), D's logits (N, tries)).
+    """
+    device = next(g.parameters()).device
+    n, c, tries, fs = images.shape[0], images.shape[-1], noise.shape[1], fine_size
+    x = images.to(device, torch.float32).permute(0, 3, 1, 2)
+    coarse = F.interpolate(x, size=(fs, fs), mode="bilinear", align_corners=False,
+                           antialias=True).permute(0, 2, 3, 1)
+    cond = coarse[:, None].expand(n, tries, fs, fs, c).reshape(n * tries, fs, fs, c)
+    z = noise.to(device, torch.float32).reshape(n * tries, fs, fs, 1)
+    diff = g.eval()((z, cond))
+    scores = d.eval()((diff, cond)).float().reshape(n, tries)
+    best = scores.argmax(dim=1)  # the highest D score (sample.lua:198-206)
+    diff_best = diff.reshape(n, tries, fs, fs, c)[torch.arange(n, device=device), best]
+    return torch.clamp(coarse + diff_best, 0.0, 1.0), scores
+
+
 def neighbours_grid(best: np.ndarray, matches: np.ndarray) -> np.ndarray:
     """Interleave generated/neighbour pairs (sample.lua:156-168)."""
     paired = np.empty((2 * best.shape[0],) + best.shape[1:], best.dtype)
@@ -92,7 +156,7 @@ def load_dataset(cfg: SampleConfig, device) -> torch.Tensor:
 
 
 def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
-                 verbose: bool = True):
+                 c2f_noise=None, verbose: bool = True):
     """Run the sampler; returns the written paths.
 
     dataset: optional (N, H, W, C) uint8 images at the model's scale for
@@ -100,14 +164,21 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
     device: default ``cuda:{cfg.gpu}``.
     noise: optional (runs, 1024, noise_dim) draws used in place of each
     run's own noise; the permutations are drawn either way.
+    c2f_noise: optional (runs, 3, 64, c2f_tries, fine, fine, 1) draws used
+    in place of the refinement's noise of best, worst and random.
     """
-    if cfg.c2f or cfg.d_c2f_network:
-        raise NotImplementedError("--c2f / --D_c2f32: c2f refinement is not ported yet")
     if cfg.mesh_shape:
         raise NotImplementedError("--meshShape: multi-device serving is not ported yet")
     device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
     g, d, cfg = load_models(cfg, device)
     inf = GanInference(g, d, cfg.noise_dim)
+    c2f_nets = None
+    if cfg.c2f:  # the refinement nets, loaded once (sample.lua:70)
+        g_c2f, d_c2f, c2f_res = load_c2f(cfg, device)
+        if c2f_res["channels"] != cfg.channels:
+            raise ValueError(f"c2f checkpoint {cfg.c2f_network!r} has {c2f_res['channels']} "
+                             f"channels but the base checkpoint has {cfg.channels}")
+        c2f_nets = (g_c2f, d_c2f, c2f_res["fine_size"])
     os.makedirs(cfg.writeto, exist_ok=True)
     nn_dataset = None  # flattened once across runs
     outputs = []
@@ -132,6 +203,20 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
         outputs.append(save_grid(p("best"), best_np, nrow=8))
         outputs.append(save_grid(p("worst"), worst.cpu().numpy(), nrow=8))
         outputs.append(save_grid(p("random"), imgs_np[rand64.numpy()], nrow=8))
+
+        if c2f_nets is not None:
+            # the refined grids beside the base ones (sample.lua:102-108); the
+            # noise comes from the run's generator after its base draws
+            g_c2f, d_c2f, fs = c2f_nets
+            for li, (label, imgs) in enumerate((("best", best), ("worst", worst),
+                                                ("random", images[rand64.to(images.device)]))):
+                z = torch.rand(imgs.shape[0], cfg.c2f_tries, fs, fs, 1, generator=gen) * 2 - 1
+                if c2f_noise is not None:
+                    z = torch.as_tensor(c2f_noise[run - 1][li])
+                refined, _ = refine_c2f(g_c2f, d_c2f, fs, imgs, z)
+                outputs.append(save_grid(
+                    os.path.join(cfg.writeto, f"{label}_{run:04d}_c2f_{fs}.png"),
+                    refined.cpu().numpy(), nrow=8))
 
         if cfg.neighbours:
             if nn_dataset is None:
@@ -173,20 +258,21 @@ def main(argv=None):
     p.add_argument("--aws", action="store_true")
     p.add_argument("--datasetDir", type=str, default=None, dest="dataset_dir",
                    help="packed store for --neighbours (default: dataset/lfw64.npy)")
-    p.add_argument("--c2f", action="store_true", help="not ported yet")
+    p.add_argument("--c2f", action="store_true",
+                   help="refine best/worst/random grids through a trained "
+                        "coarse-to-fine GAN (sample.lua:102-110, :176-214)")
     p.add_argument("--G_c2f32", type=str, default="adversarial_c2f_16_to_32",
-                   dest="c2f_network", help="c2f checkpoint (with --c2f, not ported yet)")
+                   dest="c2f_network", help="c2f checkpoint name or dir/name")
     p.add_argument("--D_c2f32", type=str, default=None, dest="d_c2f_network",
-                   help="not ported yet")
+                   help="refine with a c2f D from a different checkpoint "
+                        "(sample.lua:266-269); default: the --G_c2f32 one")
     p.add_argument("--save_c2f32", type=str, default="", dest="save_c2f",
-                   help="c2f checkpoint dir (with --c2f, not ported yet)")
+                   help="c2f checkpoint dir (default: --save_base)")
     p.add_argument("--c2f_tries", type=int, default=10,
-                   help="candidate diffs per image (with --c2f, not ported yet)")
+                   help="candidate diffs per image, best D score wins (sample.lua:177)")
     p.add_argument("--meshShape", type=str, default="", dest="mesh_shape",
                    help="not ported yet: must stay empty (one GPU)")
     a = p.parse_args(argv)
-    if a.c2f or a.d_c2f_network:
-        p.error("--c2f / --D_c2f32: c2f refinement is not ported yet")
     if a.mesh_shape:
         p.error("--meshShape: multi-device serving is not ported yet")
     if not torch.cuda.is_available():
@@ -198,8 +284,8 @@ def main(argv=None):
         noise_dim=a.noise_dim, scale=a.scale, grayscale=a.grayscale,
         seed=a.seed, gpu=a.gpu, runs=a.runs, neighbours=a.neighbours,
         writeto=a.writeto, aws=a.aws, dataset_dir=a.dataset_dir,
-        d_network=a.d_network, c2f_network=a.c2f_network,
-        save_c2f=a.save_c2f, c2f_tries=a.c2f_tries,
+        d_network=a.d_network, c2f=a.c2f, c2f_network=a.c2f_network,
+        d_c2f_network=a.d_c2f_network, save_c2f=a.save_c2f, c2f_tries=a.c2f_tries,
     )
     run_sampling(cfg, device=torch.device("cuda", a.gpu))
     print("Finished.")

@@ -1,6 +1,7 @@
 """GAN training: losses, metrics, optimizers, the train step and the
 epoch loop. ``python -m facegen_torch.train`` runs the trainer CLI
-(``main``, in train/loop.py)."""
+(``main``, in train/loop.py). ``train/c2f.py`` holds the coarse-to-fine
+refiner's step and trainer (CLI: ``python -m facegen_torch.train_c2f``)."""
 
 
 def main(argv=None, device=None):

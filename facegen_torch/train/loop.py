@@ -21,7 +21,6 @@ fresh pools instead of replaying the first epochs.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 from typing import Iterator, Optional
@@ -76,7 +75,7 @@ class Trainer:
 
     # -- checkpoints -------------------------------------------------------
     def save(self):
-        meta = {"config": _config_dict(self.cfg), "epoch": self.state.epoch}
+        meta = {**ckpt.config_meta(self.cfg), "epoch": self.state.epoch}
         path = ckpt.save_train_state(self.cfg.save, CKPT_NAME, self.state, meta)
         self._log(f"<trainer> saved checkpoint to {path}")
 
@@ -195,8 +194,3 @@ def main(argv=None, device=None) -> Trainer:
     for _ in trainer.run():
         pass
     return trainer
-
-
-def _config_dict(cfg: TrainConfig) -> dict:
-    return {k: (list(v) if isinstance(v, tuple) else v)
-            for k, v in dataclasses.asdict(cfg).items()}

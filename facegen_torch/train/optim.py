@@ -12,7 +12,9 @@ The checkpoint writes them under optax's leaf names (utils/checkpoint.py).
 leaves parameters, moments and Adam's step count untouched otherwise,
 as the reference's interruptible optimizers skip a step
 (interruptable_optimizers.lua:22-27). The gate is a device tensor and the
-choice is ``torch.where``: no value is read back to the host.
+choice is ``torch.where``: no value is read back to the host. With
+``do_update=True`` it is a plain update: G's step and the c2f trainer's
+stock optimizers (``make_c2f_optimizer``), which have no gate.
 """
 
 from __future__ import annotations
@@ -101,6 +103,23 @@ def make_optimizer(method: str, cfg, which: str) -> Optimizer:
         return adagrad(1e-2, initial_accumulator_value=0.0, eps=1e-10)
     if method == "sgd":
         return sgd(sgd_lr, sgd_mom)
+    raise ValueError(f"unknown optimizer {method!r}")
+
+
+def make_c2f_optimizer(method: str, cfg, which: str) -> Optimizer:
+    """The c2f trainer's stock optimizers (facegen/train/c2f.py:59-70):
+    Adam at lr 1e-3; Adagrad at lr 1e-3 for D and 3e-3 for G
+    (train_c2f.lua:163-166), accumulator 0, eps 1e-10; SGD with lr and
+    momentum from the flags."""
+    if method == "adam":
+        return adam(1e-3)
+    if method == "adagrad":
+        return adagrad(1e-3 if which == "D" else 3e-3, initial_accumulator_value=0.0,
+                       eps=1e-10)
+    if method == "sgd":
+        if which == "D":
+            return sgd(cfg.d_sgd_lr, cfg.d_sgd_momentum)
+        return sgd(cfg.g_sgd_lr, cfg.g_sgd_momentum)
     raise ValueError(f"unknown optimizer {method!r}")
 
 

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from facegen_torch.config import TrainConfig
-from facegen_torch.models import gan
+from facegen_torch.nn import dropout
 from facegen_torch.train import losses, metrics
 from facegen_torch.train.optim import gated_update, make_optimizer
 
@@ -145,8 +145,8 @@ class TrainStep:
         self.tx_g = make_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
         device = next(d.parameters()).device
-        shapes = gan.dropout_mask_shapes(d, cfg.batch_size, cfg.img_shape, device)
-        rates = {name: m.rate for name, m in gan.dropout_layers(d).items()}
+        shapes = dropout.dropout_mask_shapes(d, cfg.batch_size, cfg.img_shape, device)
+        rates = {name: m.rate for name, m in dropout.dropout_layers(d).items()}
         self.mask_specs = {name: (shape, rates[name]) for name, shape in shapes.items()}
 
     def d_iteration(self, state: GanState, pool: torch.Tensor, draws: DDraws):
@@ -161,7 +161,7 @@ class TrainStep:
         ones = torch.ones(half, device=real.device)
         targets = torch.cat([ones, torch.zeros_like(ones)])
         d.train()
-        gan.set_dropout_masks(d, draws.masks)
+        dropout.set_dropout_masks(d, draws.masks)
         logits = d(inputs)
         loss = losses.bce_with_logits(logits, targets)
         grads = torch.autograd.grad(loss, params)
@@ -189,7 +189,7 @@ class TrainStep:
         params = list(g.parameters())
         g.train()
         d.train()
-        gan.set_dropout_masks(d, draws.masks)
+        dropout.set_dropout_masks(d, draws.masks)
         imgs = g(draws.noise.to(self.dtype))
         logits = d(imgs)  # D's parameters as the D phase left them
         loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device))

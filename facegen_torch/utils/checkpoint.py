@@ -14,16 +14,21 @@ port writes the four-leaf bundle (params_g, state_g, params_d, state_d)
 that facegen's restore_gan loads strictly.
 
 ``save_train_state`` / ``load_train_state`` write and read a whole
-training state (train/step.py:GanState) under facegen's GanState leaf
-paths: the bundle, optax's optimizer leaves (``opt_g/0/count``,
-``opt_g/0/mu/<param path>``, ``opt_g/0/nu/...``; ``sum_of_squares`` for
-Adagrad, ``trace`` for SGD with momentum), ``accs``, ``accs_n``,
-``confusion``, ``trained_d``, ``not_trained_d`` and ``epoch``. A facegen
-trainer checkpoint resumes in the port and the reverse.
+training state under facegen's leaf paths: the bundle, optax's optimizer
+leaves (``opt_g/0/count``, ``opt_g/0/mu/<param path>``,
+``opt_g/0/nu/...``; ``sum_of_squares`` for Adagrad, ``trace`` for SGD
+with momentum), the counters the state has and ``epoch``. A GAN state
+(train/step.py:GanState, facegen's GanState) has ``accs``, ``accs_n``,
+``confusion``, ``trained_d`` and ``not_trained_d``; a c2f state
+(train/c2f.py:C2FState, facegen's C2FState) has ``confusion`` alone,
+and its nets' leaves sit under ``head``/``body`` (``params_g/body/00_conv1/w``).
+A facegen trainer checkpoint of either kind resumes in the port and the
+reverse.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -73,6 +78,13 @@ def load(directory: str, name: str) -> Tuple[Dict[str, np.ndarray], dict]:
     with open(os.path.join(target, "meta.json")) as f:
         meta = json.load(f)
     return arrays, meta
+
+
+def config_meta(cfg) -> dict:
+    """A run config as meta.json's "config" (tuples as lists), like
+    facegen's config_meta and the reference's ``opt = OPT`` field."""
+    return {"config": {k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in dataclasses.asdict(cfg).items()}}
 
 
 def split_network_arg(network: str, default_dir: str = "logs") -> Tuple[str, str]:
@@ -155,8 +167,13 @@ def torch_to_jax(state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, n
 _COUNTERS = ("accs", "accs_n", "confusion", "trained_d", "not_trained_d")
 
 
+def _counters(state):
+    return [key for key in _COUNTERS if hasattr(state, key)]
+
+
 def train_state_arrays(state) -> Dict[str, np.ndarray]:
-    """Every leaf of a train/step.py:GanState under facegen's GanState path."""
+    """Every leaf of a training state (a GanState or a C2FState) under
+    facegen's path of that leaf."""
     arrays = torch_to_jax({"g": state.g.state_dict(), "d": state.d.state_dict()})
     for net, module, opt in (("g", state.g, state.opt_g), ("d", state.d, state.opt_d)):
         bn = _bn_prefixes(module.state_dict())
@@ -168,7 +185,7 @@ def train_state_arrays(state) -> Dict[str, np.ndarray]:
             for name, t in zip(names, value):
                 _, path, a = _jax_leaf(name, t, bn)
                 arrays[f"opt_{net}/0/{kind}/{path}"] = a
-    for key in _COUNTERS:
+    for key in _counters(state):
         arrays[key] = getattr(state, key).cpu().numpy()
     arrays["epoch"] = np.asarray(state.epoch, np.int32)
     return arrays
@@ -209,7 +226,7 @@ def load_train_state(directory: str, name: str, state) -> dict:
                 if key.startswith(prefix):
                     pname, t = _torch_leaf(key[len(prefix):], arrays[key])
                     value[index[pname]].copy_(t)
-    for key in _COUNTERS:
+    for key in _counters(state):
         getattr(state, key).copy_(torch.as_tensor(arrays[key]))
     state.epoch = int(arrays["epoch"])
     return meta

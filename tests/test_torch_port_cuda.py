@@ -212,3 +212,98 @@ def test_facegen_torch_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     assert f"imported {len(modules)}" in out.stdout
     assert len(modules) >= 25
+
+
+def _c2f_nets(device, fine=32, channels=3):
+    from facegen_torch.models import c2f
+
+    return c2f.init_c2f(torch.Generator().manual_seed(4), fine, channels, device=device)
+
+
+@pytest.mark.cuda
+def test_c2f_nets_in_bf16_on_the_card_match_fp32_on_the_cpu(cuda_device):
+    """G_d and D_c at fine 32, colour: the card's bf16 against the CPU's
+    fp32, within 3e-2 of the largest entry (five bf16 convs in a row)."""
+    (g_cpu, d_cpu), (g_gpu, d_gpu) = _c2f_nets("cpu"), _c2f_nets(cuda_device)
+    gen = torch.Generator().manual_seed(5)
+    noise = torch.rand(8, 32, 32, 1, generator=gen) * 2 - 1
+    coarse = torch.rand(8, 32, 32, 3, generator=gen)
+    with torch.no_grad():
+        ref_diff = g_cpu((noise, coarse))
+        ref_logits = d_cpu((ref_diff, coarse))
+        args = (noise.to(cuda_device, torch.bfloat16), coarse.to(cuda_device, torch.bfloat16))
+        diff = g_gpu(args)
+        logits = d_gpu((ref_diff.to(cuda_device, torch.bfloat16), args[1]))
+    assert diff.dtype == torch.bfloat16 and diff.shape == (8, 32, 32, 3)
+    _norm_close(diff.float().cpu(), ref_diff, 3e-2)
+    _norm_close(logits.float().cpu(), ref_logits, 3e-2)
+
+
+@pytest.mark.cuda
+def test_refine_c2f_on_the_card_matches_the_cpu(cuda_device):
+    """The refinement as the sampler serves it, with cuDNN's TF32 on as
+    torch has it by default (refine_c2f turns it off for its own convs):
+    D's scores within 2e-4, and the same candidate and image wherever the
+    top two scores differ by more."""
+    from facegen_torch.sample import refine_c2f
+
+    (g_cpu, d_cpu), (g_gpu, d_gpu) = _c2f_nets("cpu"), _c2f_nets(cuda_device)
+    gen = torch.Generator().manual_seed(6)
+    images = torch.rand(16, 16, 16, 3, generator=gen)
+    noise = torch.rand(16, 4, 32, 32, 1, generator=gen) * 2 - 1
+    ref, ref_scores = refine_c2f(g_cpu, d_cpu, 32, images, noise)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ours, scores = refine_c2f(g_gpu, d_gpu, 32, images, noise)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.testing.assert_close(scores.cpu(), ref_scores, rtol=2e-4, atol=2e-4)
+    top2 = ref_scores.sort(dim=1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 4e-4
+    assert bool((scores.cpu().argmax(1) == ref_scores.argmax(1))[clear].all())
+    torch.testing.assert_close(ours.cpu()[clear], ref[clear], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_c2f_step_in_fp32_on_the_card_matches_the_cpu(cuda_device):
+    """One fp32 c2f step (fine 16, batch 8) on the same draws: Adam's
+    moments within 1e-3 and the updates within 1e-2 relative l2 per
+    network, the confusion and the counts equal."""
+    from facegen_torch.config import C2FConfig
+    from facegen_torch.data.c2f import make_triples
+    from facegen_torch.train.c2f import C2FStep, draw_c2f_step, init_c2f_state
+
+    cfg = C2FConfig(batch_size=8, fine_size=16, coarse_size=8, compute_dtype="float32",
+                    g_l2=1e-3).validate()
+    states = {}
+    for dev in ("cpu", cuda_device):
+        g, d = _c2f_nets(dev, fine=16)
+        states[str(dev)] = (init_c2f_state(cfg, g, d), C2FStep(cfg, g, d),
+                            [p.detach().cpu().clone() for p in (*g.parameters(), *d.parameters())])
+    fine = torch.randint(0, 256, (32, 16, 16, 3), generator=torch.Generator().manual_seed(7),
+                         dtype=torch.uint8)
+    pool = make_triples(fine, 8)
+    cpu_state, cpu_step, before = states["cpu"]
+    draws = draw_c2f_step(torch.Generator().manual_seed(8), cfg, 32, cpu_step.mask_specs)
+    cpu_step(cpu_state, pool, draws)
+    gpu_state, gpu_step, _ = states[str(cuda_device)]
+    move = lambda x: x.to(cuda_device) if torch.is_tensor(x) else {  # noqa: E731
+        k: m.to(cuda_device) for k, m in x.items()}
+    moved = type(draws)(*(tuple(type(it)(*map(move, it)) for it in part) for part in draws))
+    gpu_step(gpu_state, type(pool)(*(t.to(cuda_device) for t in pool)), moved)
+
+    def rel_l2(ours, ref):
+        num = sum(float(((o.cpu() - r) ** 2).sum()) for o, r in zip(ours, ref))
+        return (num / sum(float((r ** 2).sum()) for r in ref)) ** 0.5
+
+    for net in ("g", "d"):
+        opt_gpu, opt_cpu = getattr(gpu_state, f"opt_{net}"), getattr(cpu_state, f"opt_{net}")
+        assert int(opt_gpu["count"]) == int(opt_cpu["count"]) == 1
+        for kind in ("mu", "nu"):
+            assert rel_l2(opt_gpu[kind], opt_cpu[kind]) <= 1e-3, (net, kind)
+    after_gpu = [p.detach() for p in (*gpu_state.g.parameters(), *gpu_state.d.parameters())]
+    after_cpu = [p.detach() for p in (*cpu_state.g.parameters(), *cpu_state.d.parameters())]
+    assert rel_l2([a.cpu() - b for a, b in zip(after_gpu, before)],
+                  [a - b for a, b in zip(after_cpu, before)]) <= 1e-2
+    assert torch.equal(gpu_state.confusion.cpu(), cpu_state.confusion)

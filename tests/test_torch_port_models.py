@@ -19,6 +19,7 @@ from facegen.nn import Ctx, init as jax_init, layers as JL, sequential as jax_se
 from facegen.nn.core import param_count
 from facegen.utils.checkpoint import flatten_tree
 from facegen_torch.models import gan
+from facegen_torch.nn import dropout
 from facegen_torch.nn import init as winit
 from facegen_torch.nn import layers as L
 from facegen_torch.utils.checkpoint import jax_to_torch
@@ -119,13 +120,13 @@ def test_train_mode_matches_jax(name, jax_layer, make):
     theirs, new_state = jm.apply(params, state, jnp.asarray(x), Ctx(key, True))
     port = L.sequential((jax_layer.name, make())).train()
     port.load_state_dict(_carry(params, state), strict=True)
-    drops = gan.dropout_layers(port)
+    drops = dropout.dropout_layers(port)
     if drops:
         (layer_name, layer), = drops.items()
         keep = 1.0 - layer.rate
         shape = layer.mask_shape(x.shape)
         mask = jax.random.bernoulli(jax.random.fold_in(key, 0), keep, shape)
-        gan.set_dropout_masks(port, {layer_name: torch.from_numpy(np.array(mask))})
+        dropout.set_dropout_masks(port, {layer_name: torch.from_numpy(np.array(mask))})
     xt = torch.from_numpy(x).requires_grad_()
     ours = port(xt)
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(theirs), rtol=TOL, atol=TOL)
@@ -188,6 +189,37 @@ def test_d_matches_jax(scale, channels):
     theirs = _run_jax(jd, params, state, x)
     assert ours.shape == (4, 1) and theirs.std() > 1e-3
     np.testing.assert_allclose(ours, theirs, rtol=TOL, atol=TOL)
+
+
+# the reference's unused variants: (name, facegen factory, port factory, scale, channels)
+VARIANT_CASES = [
+    ("d16", jax_gan.create_d16, gan.create_d16, 16, 3),
+    ("d16_b", jax_gan.create_d16_b, gan.create_d16_b, 16, 1),
+    ("d16_c", jax_gan.create_d16_c, gan.create_d16_c, 16, 3),
+    ("d32", jax_gan.create_d32, gan.create_d32, 32, 1),
+    ("g_flat", lambda s, c: jax_gan.create_g_flat(s, c, 8),
+     lambda s, c, **kw: gan.create_g_flat(s, c, 8, **kw), 16, 3),
+]
+
+
+@pytest.mark.parametrize("name,jax_create,create,scale,channels", VARIANT_CASES,
+                         ids=[c[0] for c in VARIANT_CASES])
+def test_unused_variant_matches_jax(name, jax_create, create, scale, channels):
+    """Eval-mode forward and parameter count of each variant no CLI reaches."""
+    in_shape = (8,) if name == "g_flat" else (scale, scale, channels)
+    jm = jax_create(scale, channels)
+    params, state, _ = jm.init(jax.random.key(6), in_shape)
+    params = _scale_weights(params)
+    port = create(scale, channels, generator=_gen())
+    port.load_state_dict(_carry(params, state), strict=True)
+    x = np.random.RandomState(7).uniform(-1, 1, (3,) + in_shape).astype(np.float32)
+    with torch.no_grad():
+        ours = port(torch.from_numpy(x)).numpy()
+    theirs = _run_jax(jm, params, state, x)
+    assert ours.shape == ((3, scale, scale, channels) if name == "g_flat" else (3, 1))
+    assert theirs.std() > 1e-3
+    np.testing.assert_allclose(ours, theirs, rtol=TOL, atol=TOL)
+    assert sum(p.numel() for p in port.parameters()) == param_count(params)
 
 
 @pytest.mark.parametrize("scale,channels", [(32, 1), (32, 3), (16, 1)])

@@ -183,8 +183,6 @@ def test_d_base_ranks_with_another_checkpoints_d(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--c2f"], "not ported yet"),
-    (["--D_c2f32", "x"], "not ported yet"),
     (["--meshShape", "2"], "not ported yet"),
 ])
 def test_cli_rejects_unported_flags(argv, message, capsys):
