@@ -58,7 +58,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    run), holds the card's fp32 refinement against the CPU's on the same
    noise, and reports the run's wall time and the refinement's ms per
    label;
-9. one fp32 c2f step on the card against the same step on the CPU.
+9. one fp32 c2f step on the card against the same step on the CPU;
+10. autoencoder training: ``facegen_torch.train_autoencoder.main`` at its
+    defaults (scale 32, gray, noiseDim 256, batch 32, fp32) on the store
+    for 2 epochs of 31 steps; checks the checkpoint, the grid, finite
+    losses and that no kernel of the port launched; reports the warm
+    epoch's images/s, the device ms per step and its profile;
+11. denoiser training: ``facegen_torch.train_denoiser.main`` at its
+    defaults (scale 16, colour, batch 32, fp32) for 2 epochs, then a
+    resume for a third; the same checks and reports;
+12. GAN training with --denoise: ``facegen_torch.train.main --scale 16
+    --denoise`` for 1 epoch with the grids on, reading phase 11's
+    denoiser; checks samples_denoised.png and every kernel's launch count;
+13. one fp32 autoencoder step and one fp32 denoiser step on the card
+    against the same steps on the CPU.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -140,6 +153,15 @@ BWD_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
 STEP_UPDATE_TOL = 1e-2
 STEP_STAT_TOL = 1e-4
+# one fp32 autoencoder or denoiser step, card against CPU (TF32 off): the
+# loss(es) within 1e-5 relative, Adam's moments, the parameters' updates
+# and the batch-norm statistics within 1e-3 relative l2 per network. The
+# denoiser's check runs with --coefL1 1e-4: the biases of conv1, conv2 and
+# fc1 feed batch norms, so their exact gradients are 0 and what each
+# device computes is rounding noise, which Adam turns into a step of
+# either sign; the penalty's sign term makes those gradients its own
+AE_STEP_TOL = 1e-3
+AE_LOSS_RTOL = 1e-5
 # the c2f refinement in fp32 (TF32 off), card against CPU: D's scores and
 # the refined images within 2e-4 (nine fp32 convs summed in other orders,
 # ~1e-5); the chosen candidate is compared only where the top two scores
@@ -701,39 +723,50 @@ def phase_training(tmp: str, store: str):
           f"(1000 examples per epoch, host clock {rows[1]['seconds']:.3f} s for 63 steps "
           f"with the epoch's read-back; grids and pool outside the clock)")
 
-    # time per step on the stream, CUDA events over 30 steps after 5 warm-up
-    # steps: the device's work and its waits for the host's launches
     gen = torch.Generator(device=trainer2.device).manual_seed(11)
     pool = trainer2.source.epoch_pool(gen, trainer2.pool_n)
-    trainer2.run_steps(pool, gen, 5)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    trainer2.run_steps(pool, gen, 30)
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / 30
+
+    def run(n):
+        return trainer2.run_steps(pool, gen, n)
+
+    step_ms = _step_ms(run)
     n_epoch, per_epoch = trainer2.cfg.n_epoch, steps_per_epoch(trainer2.cfg)
     print(f"training path: {step_ms:.4f} ms per step on the stream (CUDA events over 30 "
           f"steps, batch 32, bf16, waits for the host included): "
           f"{n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at the epoch's count of "
           f"{n_epoch} examples per {per_epoch} steps")
-    _profile_train_steps(trainer2, pool, gen)
+    _profile_train_steps(run)
     return launches
 
 
-def _profile_train_steps(trainer, pool, gen, steps=5, label="training path", top=0):
+def _step_ms(run, steps=30, warmup=5):
+    """Time per step on the stream: CUDA events around ``run(steps)``
+    after ``run(warmup)``, the device's work and its waits for the host's
+    launches."""
+    import torch
+
+    run(warmup)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(steps)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def _profile_train_steps(run, steps=5, label="training path", top=0):
     """Device time of a training step by kernel family (torch.profiler,
     kernel events only) against the host's wall time of the same steps:
     the device's busy share; with ``top``, the kernels that take the most
-    device time, each with its ms per step."""
+    device time, each with its ms per step. ``run(n)`` runs n steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.run_steps(pool, gen, 10)  # warm-up
+    run(10)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run_steps(pool, gen, steps)
+        run(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     families = {"upsample-conv dW (UpconvDw)": ("upconvdw",),
@@ -762,6 +795,14 @@ def _profile_train_steps(trainer, pool, gen, steps=5, label="training path", top
           f"busy {100 * busy_ms / wall_ms:.1f} %, {launches / steps:.0f} kernels a step; " + "; ".join(
               f"{f} {v / steps / 1e3:.4f} ms ({100 * v / steps / 1e3 / busy_ms:.1f} %)"
               for f, v in sorted(us.items(), key=lambda kv: -kv[1])))
+
+
+def _rel_l2(ours, ref):
+    """Relative l2 error of a list of tensors (any device) against the
+    CPU's, over all of them."""
+    num = sum(float(((o.detach().cpu() - r.detach()) ** 2).sum()) for o, r in zip(ours, ref))
+    den = sum(float((r.detach() ** 2).sum()) for r in ref)
+    return (num / max(den, 1e-300)) ** 0.5
 
 
 def phase_step_parity():
@@ -809,11 +850,7 @@ def phase_step_parity():
     cpu_m = cpu_step(cpu_state, pool, draws)
     gpu_m = gpu_step(gpu_state, pool.to(dev), moved)
     torch.cuda.synchronize()
-
-    def rel_l2(ours, ref):
-        num = sum(float(((o.detach().cpu() - r.detach()) ** 2).sum()) for o, r in zip(ours, ref))
-        den = sum(float((r.detach() ** 2).sum()) for r in ref)
-        return (num / max(den, 1e-300)) ** 0.5
+    rel_l2 = _rel_l2
 
     ok, lines = True, []
     for net in ("g", "d"):
@@ -910,19 +947,18 @@ def phase_c2f_training(tmp: str, store: str):
     from facegen_torch.data.c2f import make_triples
 
     pool = make_triples(trainer2.source.epoch_pool(gen, trainer2.pool_n), cfg.coarse_size)
-    trainer2.run_steps(pool, gen, 5)
-    start.record()
-    trainer2.run_steps(pool, gen, 30)
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / 30
+
+    def run(n):
+        return trainer2.run_steps(pool, gen, n)
+
+    step_ms = _step_ms(run)
     per_epoch = steps_per_epoch(cfg)
     print(f"c2f training path: approxParzen {statistics.median(parzen_ms):.3f} ms on the stream "
           f"(CUDA events, median of 3: {', '.join(f'{t:.3f}' for t in parzen_ms)}); "
           f"{step_ms:.4f} ms per step on the stream (CUDA events over 30 steps, waits for the "
           f"host included): {cfg.n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at "
           f"{cfg.n_epoch} examples per {per_epoch} steps")
-    _profile_train_steps(trainer2, pool, gen, label="c2f training path", top=8)
+    _profile_train_steps(run, label="c2f training path", top=8)
     return save, launches
 
 
@@ -1045,11 +1081,7 @@ def phase_c2f_step_parity():
     cpu_m = cpu_step(cpu_state, pool, draws)
     gpu_m = gpu_step(gpu_state, type(pool)(*(t.to(dev) for t in pool)), moved)
     torch.cuda.synchronize()
-
-    def rel_l2(ours, ref):
-        num = sum(float(((o.detach().cpu() - r.detach()) ** 2).sum()) for o, r in zip(ours, ref))
-        den = sum(float((r.detach() ** 2).sum()) for r in ref)
-        return (num / max(den, 1e-300)) ** 0.5
+    rel_l2 = _rel_l2
 
     ok, lines = True, []
     for net in ("g", "d"):
@@ -1068,6 +1100,238 @@ def phase_c2f_step_parity():
           f"loss_g {float(gpu_m.loss_g):.6f} / {float(cpu_m.loss_g):.6f}; confusion equal; "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, "the card's fp32 c2f step disagrees with the CPU's")
+
+
+def _check_files(*paths):
+    for path in paths:
+        check(os.path.exists(path) and os.path.getsize(path) > 0, f"missing output {path}")
+
+
+def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe):
+    """The checks and lines both AE-family phases share: no kernel of
+    the port launched, finite losses, the warm epoch's images/s, the
+    device ms per step and the step's profile."""
+    import math
+
+    import torch
+
+    print(f"{label}: {describe} took {run_s:.3f} s; launches {launches}")
+    check(not any(launches.values()), f"the {label} launched the port's kernels: {launches}")
+    for r in rows:
+        check(all(math.isfinite(v) for k, v in r.items() if k.startswith(("loss", "val"))),
+              f"non-finite losses in {r}")
+    print(f"{label}: " + "; ".join(
+        f"epoch {r['epoch']}: " + " ".join(f"{k} {v:.5f}" for k, v in r.items()
+                                           if k.startswith(("loss", "val")))
+        + f" {r['images_per_sec']:.1f} images/s" for r in rows))
+    cfg, warm = trainer.cfg, rows[1]
+    draws = trainer.epoch_draws(torch.Generator(device=trainer.device).manual_seed(13))
+    print(f"{label}: warm epoch ({warm['epoch']}) {warm['images_per_sec']:.1f} images/s "
+          f"({len(draws)} steps of batch {cfg.batch_size}, host clock {warm['seconds']:.3f} s "
+          f"with the epoch's read-back)")
+
+    def run(n):
+        return trainer.run_steps(draws[:n])
+
+    step_ms = _step_ms(run)
+    print(f"{label}: {step_ms:.4f} ms per step on the stream (CUDA events over 30 steps, fp32, "
+          f"waits for the host included): {1e3 * cfg.batch_size / step_ms:.1f} images/s")
+    _profile_train_steps(run, label=label, top=5)
+
+
+def phase_ae_training(tmp: str, store: str):
+    """Drive the autoencoder trainer's CLI end to end at its defaults;
+    returns the kernels' launch counts in that run (none: the AE is dense
+    layers)."""
+    import torch
+
+    from facegen_torch import train_autoencoder
+
+    save = os.path.join(tmp, "ae_logs")
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_autoencoder.main(["--datasetDir", store, "--save", save, "--epochs", "2"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    cfg = trainer.cfg
+    check((cfg.scale, cfg.channels, cfg.noise_dim, cfg.batch_size) == (32, 1, 256, 32),
+          f"the AE CLI's defaults: {cfg}")
+    check(trainer.epoch == 2 and len(trainer.history) == 2, f"{trainer.epoch} epochs, want 2")
+    _check_files(os.path.join(save, "autoencoder", "arrays.npz"),
+                 os.path.join(save, "viz", "ae_recon.png"))
+    _report_fp32_trainer("ae training path", trainer, run_s, launches, trainer.history,
+                         "train_autoencoder.main --epochs 2 (scale 32, gray, noiseDim 256, "
+                         "batch 32, fp32)")
+    return launches
+
+
+def phase_denoiser_training(tmp: str, store: str):
+    """Drive the denoiser trainer's CLI end to end at its defaults, then a
+    resume; returns its save directory and the kernels' launch counts in
+    its 2-epoch run (none: VALID 3x3 convs and dense layers)."""
+    import json as _json
+
+    import torch
+
+    from facegen_torch import train_denoiser
+    from facegen_torch.models.ae import denoiser_ckpt_name
+
+    save = os.path.join(tmp, "denoiser_logs")
+    argv = ["--datasetDir", store, "--save", save]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_denoiser.main(argv + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    cfg = trainer.cfg
+    check((cfg.scale, cfg.channels, cfg.batch_size) == (16, 3, 32),
+          f"the denoiser CLI's defaults: {cfg}")
+    name = denoiser_ckpt_name(cfg.scale, cfg.channels)
+    _check_files(os.path.join(save, name, "arrays.npz"),
+                 os.path.join(save, "viz", "denoiser_recon.png"))
+    trainer2 = train_denoiser.main(argv + ["--epochs", "1", "--network", name])
+    steps = trainer2.n_pool // cfg.batch_size
+    check(trainer2.epoch == 3 and trainer2.history[0]["epoch"] == 3,
+          f"the resumed run ends at epoch {trainer2.epoch}, want 3")
+    check(int(trainer2.state.opt1["count"]) == steps,
+          f"Adam's count {int(trainer2.state.opt1['count'])} after the resume, want {steps}")
+    with open(os.path.join(save, name, "meta.json")) as f:
+        check(_json.load(f)["epoch"] == 3, "the resume's checkpoint is not at epoch 3")
+    _check_files(os.path.join(save, name + ".old", "arrays.npz"))
+    _report_fp32_trainer("denoiser training path", trainer2, run_s, launches,
+                         trainer.history + trainer2.history,
+                         "train_denoiser.main --epochs 2 (scale 16, colour, batch 32, fp32)")
+    return save, launches
+
+
+def phase_training_denoise(store: str, denoiser_save: str):
+    """The GAN trainer's CLI with --denoise at scale 16 for 1 epoch with
+    the grids on, reading phase 11's denoiser; returns the kernels' launch
+    counts in that run."""
+    import torch
+
+    from facegen_torch import train
+    from facegen_torch.train.step import steps_per_epoch
+
+    argv = ["--datasetDir", store, "--save", denoiser_save, "--scale", "16", "--denoise",
+            "--epochs", "1"]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    steps = steps_per_epoch(trainer.cfg)
+    print(f"denoise path: train.main --scale 16 --denoise --epochs 1 took {run_s:.3f} s for "
+          f"{steps} steps; launches {launches}")
+    # per step 4 forward (G in the D and the G phase), 2 dx, 2 dW; the one
+    # grid set runs G on the fixed and on the random noise
+    want = {"upsample_conv_fwd": 4 * steps + 4, "upsample_conv_dx": 2 * steps,
+            "upsample_conv_dw": 2 * steps}
+    check(launches == want, f"launches {launches}, want {want}")
+    viz = os.path.join(denoiser_save, "viz")
+    _check_files(os.path.join(viz, "samples_fixed.png"), os.path.join(viz, "samples_denoised.png"))
+    fixed = trainer.inf.generate(trainer.fixed_noise)
+    den = trainer.denoiser(fixed)
+    check(den.shape == fixed.shape == (100, 16, 16, 3) and den.dtype == torch.float32
+          and bool(((den >= 0) & (den <= 1)).all()),
+          f"denoised samples {tuple(den.shape)} {den.dtype}")
+    print(f"denoise path: samples_denoised.png written; AE1's decoder on G's 100 fixed "
+          f"samples: mean |denoised - sample| {float((den - fixed).abs().mean()):.4f}")
+    return launches
+
+
+def phase_ae_step_parity():
+    """One fp32 autoencoder step and one fp32 denoiser step, each at its
+    CLI's defaults, on the card against the same step on the CPU: the
+    same weights, pool and draws."""
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.models import ae
+    from facegen_torch.nn.init import gaussian_overwrite
+    from facegen_torch.train.ae_loop import (
+        AEStep,
+        DenoiserDraws,
+        DenoiserState,
+        DenoiserStep,
+        ae_epoch_draws,
+        denoiser_epoch_draws,
+    )
+    from facegen_torch.train.optim import adam
+
+    dev = torch.device("cuda", 0)
+    faces = draw_synthetic_faces(torch.Generator().manual_seed(6), 256)
+
+    def move(x):
+        return x.to(dev) if torch.is_tensor(x) else {k: m.to(dev) for k, m in x.items()}
+
+    def errs(gpu_net, gpu_opt, cpu_net, cpu_opt, before):
+        out = {kind: _rel_l2(gpu_opt[kind], cpu_opt[kind]) for kind in ("mu", "nu")}
+        out["update"] = _rel_l2([p.cpu() - b for p, b in zip(gpu_net.parameters(), before)],
+                                [p - b for p, b in zip(cpu_net.parameters(), before)])
+        out["stats"] = _rel_l2(list(gpu_net.buffers()), list(cpu_net.buffers()))
+        ok = (all(v <= AE_STEP_TOL for v in out.values())
+              and int(gpu_opt["count"]) == int(cpu_opt["count"]) == 1)
+        return ok, ", ".join(f"{k} {v:.3e}" for k, v in out.items())
+
+    cfg = TrainConfig(scale=32, grayscale=True, noise_dim=256).validate()
+    pool = prepare_pool(faces, 32, 1)
+
+    def build_ae(device):
+        gen = torch.Generator().manual_seed(5)
+        model = ae.create_autoencoder(32, 1, 256, generator=gen, device=device)
+        gaussian_overwrite(model, gen)
+        return model, adam(1e-3).init(list(model.parameters())), AEStep(cfg, model)
+
+    (m_c, o_c, s_c), (m_g, o_g, s_g) = build_ae("cpu"), build_ae(dev)
+    before = [p.detach().clone() for p in m_c.parameters()]
+    draws = ae_epoch_draws(torch.Generator().manual_seed(7), cfg.batch_size, 256,
+                           s_c.mask_specs)[0]
+    loss_c = float(s_c(m_c, o_c, pool, draws))
+    loss_g = float(s_g(m_g, o_g, pool.to(dev), type(draws)(*map(move, draws))))
+    ok, line = errs(m_g, o_g, m_c, o_c, before)
+    ok &= abs(loss_g - loss_c) <= AE_LOSS_RTOL * abs(loss_c)
+    print(f"ae step parity fp32, card vs CPU, scale 32 gray noiseDim 256 batch 32, relative "
+          f"l2 errors: {line} (tolerance {AE_STEP_TOL}); L1 loss {loss_g:.7f} / {loss_c:.7f}; "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the card's fp32 autoencoder step disagrees with the CPU's")
+
+    cfg = TrainConfig(scale=16, coef_l1=1e-4).validate()
+    pool = prepare_pool(faces, 16, 3)
+
+    def build_denoiser(device):
+        enc, dec1, dec2 = ae.init_denoiser(torch.Generator().manual_seed(5), 16, 3, device=device)
+        st = DenoiserState(enc, dec1, dec2, adam(1e-3).init(list(dec1.parameters())),
+                           adam(1e-3).init(list(dec2.parameters())))
+        return st, DenoiserStep(cfg, dec1)
+
+    (st_c, s_c), (st_g, s_g) = build_denoiser("cpu"), build_denoiser(dev)
+    before = {k: [p.detach().clone() for p in getattr(st_c, k).parameters()]
+              for k in ("dec1", "dec2")}
+    draws = denoiser_epoch_draws(torch.Generator().manual_seed(8), cfg.batch_size,
+                                 cfg.img_shape, 256, s_c.mask_specs)[0]
+    loss_c = s_c(st_c, pool, draws)
+    loss_g = s_g(st_g, pool.to(dev), DenoiserDraws(*map(move, draws))).cpu()
+    torch.cuda.synchronize()
+    ok = bool(((loss_g - loss_c).abs() <= AE_LOSS_RTOL * loss_c.abs()).all())
+    lines = []
+    for k, opt in (("dec1", "opt1"), ("dec2", "opt2")):
+        net_ok, line = errs(getattr(st_g, k), getattr(st_g, opt), getattr(st_c, k),
+                            getattr(st_c, opt), before[k])
+        ok &= net_ok
+        lines.append(f"AE{k[-1]}'s decoder: {line}")
+    print(f"denoiser step parity fp32, card vs CPU, scale 16 colour batch 32 coefL1 1e-4, "
+          f"relative l2 errors: {'; '.join(lines)} (tolerance {AE_STEP_TOL}); BCE "
+          f"{loss_g.tolist()} / {loss_c.tolist()}; {'ok' if ok else 'FAIL'}")
+    check(ok, "the card's fp32 denoiser step disagrees with the CPU's")
 
 
 def main() -> int:
@@ -1094,9 +1358,13 @@ def main() -> int:
             by_path["training"] = launches = phase_training(tmp, store)
             c2f_save, by_path["c2f_training"] = phase_c2f_training(tmp, store)
             by_path["c2f_sampler"] = phase_c2f_sampler(tmp, c2f_save)
+            by_path["ae_training"] = phase_ae_training(tmp, store)
+            den_save, by_path["denoiser_training"] = phase_denoiser_training(tmp, store)
+            by_path["training_denoise"] = phase_training_denoise(store, den_save)
         with full_fp32():
             phase_step_parity()
             phase_c2f_step_parity()
+            phase_ae_step_parity()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -22,7 +22,9 @@ class TrainConfig:
     tooling), and guard_nonfinite and g_train_in_d_phase, ablations no
     flag sets (the port always trains G's statistics in the D phase and
     never skips a non-finite update, as facegen's defaults do).
-    ``validate`` rejects the paths that are not ported."""
+    ``validate`` rejects the paths that are not ported. The autoencoder
+    and denoiser trainers read the same flags (their own: coef_l1,
+    coef_l2, ae_clamp)."""
 
     batch_size: int = 32          # --batchSize (even, >= 4; train.lua:56-60)
     save: str = "logs"            # --save
@@ -50,11 +52,11 @@ class TrainConfig:
     threads: int = 8              # --threads (accepted; the port has no host workers)
     noise_dim: int = 100          # --noiseDim
     window: int = 3               # --window: non-default ids prefix viz PNGs with w{id}_
-    scale: int = 32               # --scale (16 or 32)
+    scale: int = 32               # --scale (the GAN's nets: 16 or 32)
     seed: int = 1                 # --seed
     weights_vis_freq: int = 0     # --weightsVisFreq (must stay 0: not ported yet)
     grayscale: bool = False       # --grayscale
-    denoise: bool = False         # --denoise (must stay False: not ported yet)
+    denoise: bool = False         # --denoise (samples_denoised.png through AE1's decoder)
     aws: bool = False             # --aws (dataset dir switch, train.lua:166)
     coef_l1: float = 0.0          # --coefL1 (AE/denoiser trainers only)
     coef_l2: float = 0.0          # --coefL2
@@ -100,8 +102,6 @@ class TrainConfig:
     def validate(self) -> "TrainConfig":
         if self.batch_size % 2 != 0 or self.batch_size < 4:
             raise ValueError("batch size must be a multiple of 2 and >= 4 (train.lua:56-60)")
-        if self.scale not in (16, 32):
-            raise ValueError(f"--scale {self.scale}: G16/G32 only (16 or 32)")
         for which, method in (("D", self.d_optmethod), ("G", self.g_optmethod)):
             if method not in ("sgd", "adagrad", "adam"):
                 raise ValueError(f"unknown {which} optimizer {method!r}")
@@ -112,8 +112,6 @@ class TrainConfig:
         if self.boundary_pad > 0:
             raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
                              "on the TPU); leave it at 0")
-        if self.denoise:
-            raise ValueError("--denoise: the denoiser is not ported yet")
         if self.weights_vis_freq > 0:
             raise ValueError("--weightsVisFreq: activation dumps are not ported yet")
         if tuple(self.mesh_shape) not in ((1,), (-1,)):
@@ -266,14 +264,15 @@ def train_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--weightsVisFreq", type=int, default=0, dest="weights_vis_freq",
                    help="not ported yet: must stay 0")
     _add_bool(p, "--grayscale", "train on 1-channel images")
-    _add_bool(p, "--denoise", "not ported yet")
+    _add_bool(p, "--denoise", "write samples_denoised.png through the denoiser trained at "
+              "this scale (denoiser_{c}x{h}x{w} under --save)")
     _add_bool(p, "--aws", "AWS dataset path (train.lua:166-170)")
     p.add_argument("--coefL1", type=float, default=0.0, dest="coef_l1",
-                   help="AE/denoiser trainers only; unused here")
+                   help="AE weight L1 penalty (AE/denoiser trainers only)")
     p.add_argument("--coefL2", type=float, default=0.0, dest="coef_l2",
-                   help="AE/denoiser trainers only; unused here")
+                   help="AE weight L2 penalty (AE/denoiser trainers only)")
     p.add_argument("--AE_clamp", type=float, default=1.0, dest="ae_clamp",
-                   help="denoiser trainer only; unused here")
+                   help="denoiser gradient clamp, 0 = off (denoiser trainer only)")
     p.add_argument("--computeDtype", type=str, default="bfloat16", dest="compute_dtype",
                    choices=["bfloat16", "float32"])
     p.add_argument("--meshShape", type=str, default="-1", dest="mesh_shape",
@@ -365,3 +364,17 @@ def c2f_config_from_args(argv=None) -> C2FConfig:
         return C2FConfig(**dict(vars(a), mesh_shape=mesh)).validate()
     except ValueError as e:
         p.error(str(e))
+
+
+def cli_device(gpu: int, cli: str):
+    """``cuda:{gpu}`` for a command line; exits with an error when there
+    is no CUDA GPU or no such device."""
+    import sys
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit(f"no CUDA GPU: the {cli} CLI runs on cuda:{{--gpu}} only")
+    if not 0 <= gpu < torch.cuda.device_count():
+        sys.exit(f"--gpu {gpu}: {torch.cuda.device_count()} CUDA device(s) visible")
+    return torch.device("cuda", gpu)

@@ -57,6 +57,22 @@ def dropout_mask_shapes(model: nn.Module, batch: int, in_shape, device=None
     return shapes
 
 
+def dropout_mask_specs(model: nn.Module, batch: int, in_shape, device=None
+                       ) -> Dict[str, Tuple[Tuple[int, ...], float]]:
+    """Each dropout layer's (mask shape at ``batch``, rate), by key path."""
+    shapes = dropout_mask_shapes(model, batch, in_shape, device)
+    rates = {name: m.rate for name, m in dropout_layers(model).items()}
+    return {name: (shape, rates[name]) for name, shape in shapes.items()}
+
+
+def draw_masks(generator: torch.Generator,
+               specs: Mapping[str, Tuple[Tuple[int, ...], float]]) -> Dict[str, torch.Tensor]:
+    """One keep-mask per layer of ``specs`` (``dropout_mask_specs``), drawn
+    in order on the generator's device."""
+    return {name: torch.rand(shape, generator=generator, device=generator.device) < 1.0 - rate
+            for name, (shape, rate) in specs.items()}
+
+
 def set_dropout_masks(model: nn.Module, masks: Mapping[str, torch.Tensor]) -> None:
     """Inject the keep-mask of each named dropout layer for its next
     train-mode forward. Every dropout layer must get one."""

@@ -7,9 +7,11 @@ channels_last layout. Parameters are stored in fp32 in torch's layouts
 bf16 compute is chosen by feeding bf16 activations.
 
 ``.train()`` / ``.eval()`` switch batch norm between batch and running
-statistics and turn dropout on and off, like facegen's ``Ctx.train``.
-Dropout masks are injected (``Dropout.mask``) or drawn from the layer's
-``generator``; training injects them (train/step.py:draw_step).
+statistics and turn dropout and white noise on and off, like facegen's
+``Ctx.train``. Dropout masks and white-noise draws are injected
+(``Dropout.mask``, ``WhiteNoise.draw``) or drawn from the layer's
+``generator``; training injects them (train/step.py:draw_step,
+train/ae_loop.py).
 """
 
 from __future__ import annotations
@@ -75,14 +77,20 @@ class Dense(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """Same-pad (k-1)/2 convolution over NHWC input, OIHW weight."""
+    """Convolution over NHWC input, OIHW weight: same-pad (k-1)/2
+    (``padding="SAME"``) or unpadded (``padding="VALID"``, the denoiser's
+    3x3 convs, train_denoiser.lua:89,92)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
-                 w_std: Optional[float] = None, *, generator: torch.Generator, device=None):
+                 w_std: Optional[float] = None, *, generator: torch.Generator, device=None,
+                 padding: str = "SAME"):
         super().__init__()
         if kernel % 2 != 1:
             raise ValueError(f"odd kernels only, got {kernel}")
-        self.stride, self.padding = stride, (kernel - 1) // 2
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}: SAME or VALID")
+        self.stride = stride
+        self.padding = (kernel - 1) // 2 if padding == "SAME" else 0
         scale = w_std if w_std is not None else _torch_reset_scale(in_channels * kernel * kernel)
         self.weight = nn.Parameter(uniform_(
             torch.empty(out_channels, in_channels, kernel, kernel, device=device),
@@ -184,6 +192,28 @@ class Sigmoid(nn.Module):
         return torch.sigmoid(x)
 
 
+class Tanh(nn.Module):
+    def forward(self, x):
+        return torch.tanh(x)
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return F.relu(x)
+
+
+class LeakyReLU(nn.Module):
+    """x for x > 0, else slope * x (the reference's vendored
+    LeakyReLU.lua, slope 1/3 in the denoiser)."""
+
+    def __init__(self, slope: float = 1.0 / 3.0):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self.slope)
+
+
 class BatchNorm(nn.Module):
     """Batch norm over the last (channel) axis, computed in fp32 and cast
     back to the input dtype (facegen/nn/layers.py:169-211), eps 1e-5. In
@@ -260,6 +290,34 @@ class SpatialDropout(Dropout):
     @staticmethod
     def mask_shape(shape) -> tuple:
         return (shape[0], 1, 1, shape[-1])
+
+
+class WhiteNoise(nn.Module):
+    """Adds mean + std * N(0, 1) in train mode, computed in fp32 and cast
+    to the input's dtype (dpnn nn.WhiteNoise, the denoiser's encoder);
+    the identity in eval mode.
+
+    The standard-normal draw of the next train-mode forward is
+    ``self.draw`` when one was injected (a tensor of the input's shape,
+    used once), else a draw from ``self.generator`` (torch's default
+    generator when None) on the input's device."""
+
+    def __init__(self, mean: float = 0.0, std: float = 0.1):
+        super().__init__()
+        self.mean, self.std = mean, std
+        self.draw: Optional[torch.Tensor] = None
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        draw, self.draw = self.draw, None
+        if draw is None:
+            draw = torch.randn(x.shape, generator=self.generator, device=x.device)
+        elif draw.shape != x.shape:
+            raise ValueError(f"WhiteNoise: draw {tuple(draw.shape)} for input {tuple(x.shape)}")
+        noise = self.mean + self.std * draw.float()
+        return (x + noise.to(x.dtype)).to(x.dtype)
 
 
 class AvgPool(nn.Module):

@@ -111,8 +111,7 @@ def draw_c2f_step(generator: torch.Generator, cfg: C2FConfig, pool_n: int,
         return torch.rand(n, fs, fs, 1, generator=generator, device=dev) * 2.0 - 1.0
 
     def masks():
-        return {name: torch.rand(shape, generator=generator, device=dev) < 1.0 - rate
-                for name, (shape, rate) in mask_specs.items()}
+        return dropout.draw_masks(generator, mask_specs)
 
     d = tuple(C2FDDraws(idx(half), idx(half), noise(half), masks())
               for _ in range(cfg.d_iterations))
@@ -131,10 +130,8 @@ class C2FStep:
         self.tx_g = make_c2f_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
         device = next(d.parameters()).device
-        shapes = dropout.dropout_mask_shapes(d, cfg.batch_size, (cfg.img_shape, cfg.img_shape),
-                                         device)
-        rates = {name: m.rate for name, m in dropout.dropout_layers(d).items()}
-        self.mask_specs = {name: (shape, rates[name]) for name, shape in shapes.items()}
+        self.mask_specs = dropout.dropout_mask_specs(
+            d, cfg.batch_size, (cfg.img_shape, cfg.img_shape), device)
 
     def d_iteration(self, state: C2FState, pool: C2FPool, draws: C2FDDraws):
         cfg, g, d = self.cfg, state.g, state.d

@@ -12,6 +12,10 @@ Per epoch (train.lua:199-208):
   5. every saveFreq epochs, checkpoint with ``.old`` rotation
      (adversarial.lua:319-329); a bounded run also saves at its end.
 
+With ``--denoise`` the grids include ``samples_denoised.png``: G's fixed
+samples through the denoiser trained at the run's scale and channels
+(models/ae.py:load_denoiser_fn; a missing checkpoint is an error).
+
 ``--network`` resumes parameters, statistics, optimizer state and the
 epoch counter, as facegen does (the reference drops the optimizer
 state, train.lua:122). Random streams: every epoch draws from
@@ -29,7 +33,7 @@ import torch
 
 from facegen_torch.config import TrainConfig
 from facegen_torch.data.pipeline import make_source
-from facegen_torch.models import gan
+from facegen_torch.models import ae, gan
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.train import metrics as M
 from facegen_torch.train.step import (
@@ -53,6 +57,8 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True):
         self.cfg = cfg.validate()
+        if cfg.scale not in (16, 32):  # the AE and denoiser CLIs share the flag, not the limit
+            raise ValueError(f"--scale {cfg.scale}: G16/G32 only (16 or 32)")
         self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
         self.verbose = verbose
         self.source = make_source(cfg, self.device)
@@ -67,6 +73,7 @@ class Trainer:
         # fixed noise for comparable per-epoch samples (train.lua:195)
         self.fixed_noise = self.inf.noise(seeded_generator("cpu", cfg.seed, 999), 100)
         self.metrics_log = MetricsLogger(cfg.save)
+        self.denoiser = ae.load_denoiser_fn(cfg, self.device) if cfg.denoise else None
         if cfg.epochs_per_compile:
             self._log(f"<trainer> --epochsPerCompile {cfg.epochs_per_compile} ignored: the "
                       f"port runs eagerly, one epoch at a time")
@@ -111,7 +118,7 @@ class Trainer:
             report = visualize_progress(
                 self.inf, self.fixed_noise, pool, os.path.join(cfg.save, "viz"),
                 seeded_generator(dev, cfg.seed, 10_000 + epoch_idx, 2),
-                epoch=self.state.epoch, window=cfg.window)
+                denoiser=self.denoiser, epoch=self.state.epoch, window=cfg.window)
             self._log(f"<viz> probe ranks/300: real={report['real_probe_rank']} "
                       f"synth={report['synth_probe_rank']}")
 
@@ -173,21 +180,15 @@ def main(argv=None, device=None) -> Trainer:
     activations over fp32 parameters, 1000 examples or 63 steps per
     epoch) on ``cuda:{--gpu}``; it exits with an error without a GPU.
     Flags of paths that are not ported exit with a message that says so:
-    --meshShape other than one device, --denoise, --weightsVisFreq > 0,
+    --meshShape other than one device, --weightsVisFreq > 0,
     --boundaryPad > 0. --epochsPerCompile is accepted and ignored.
     ``device`` lets the tests run it on the CPU; the command line has no
     such flag."""
-    import sys
-
-    from facegen_torch.config import train_config_from_args
+    from facegen_torch.config import cli_device, train_config_from_args
 
     cfg = train_config_from_args(argv)
     if device is None:
-        if not torch.cuda.is_available():
-            sys.exit("no CUDA GPU: the trainer CLI runs on cuda:{--gpu} only")
-        if not 0 <= cfg.gpu < torch.cuda.device_count():
-            sys.exit(f"--gpu {cfg.gpu}: {torch.cuda.device_count()} CUDA device(s) visible")
-        device = torch.device("cuda", cfg.gpu)
+        device = cli_device(cfg.gpu, "trainer")
     trainer = Trainer(cfg, device=device)
     print(f"Number of free parameters in D: {sum(p.numel() for p in trainer.state.d.parameters())}")
     print(f"Number of free parameters in G: {sum(p.numel() for p in trainer.state.g.parameters())}")

@@ -123,14 +123,12 @@ def draw_step(generator: torch.Generator, cfg: TrainConfig, pool_n: int,
     def noise(n):
         return torch.rand(n, cfg.noise_dim, generator=generator, device=dev) * 2.0 - 1.0
 
-    def masks():
-        return {name: torch.rand(shape, generator=generator, device=dev) < 1.0 - rate
-                for name, (shape, rate) in mask_specs.items()}
-
     half = cfg.batch_size // 2
     d = tuple(DDraws(torch.randint(0, pool_n, (half,), generator=generator, device=dev),
-                     noise(half), masks()) for _ in range(cfg.d_iterations))
-    g = tuple(GDraws(noise(cfg.batch_size), masks()) for _ in range(cfg.g_iterations))
+                     noise(half), dropout.draw_masks(generator, mask_specs))
+              for _ in range(cfg.d_iterations))
+    g = tuple(GDraws(noise(cfg.batch_size), dropout.draw_masks(generator, mask_specs))
+              for _ in range(cfg.g_iterations))
     return StepDraws(d, g)
 
 
@@ -145,9 +143,7 @@ class TrainStep:
         self.tx_g = make_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
         device = next(d.parameters()).device
-        shapes = dropout.dropout_mask_shapes(d, cfg.batch_size, cfg.img_shape, device)
-        rates = {name: m.rate for name, m in dropout.dropout_layers(d).items()}
-        self.mask_specs = {name: (shape, rates[name]) for name, shape in shapes.items()}
+        self.mask_specs = dropout.dropout_mask_specs(d, cfg.batch_size, cfg.img_shape, device)
 
     def d_iteration(self, state: GanState, pool: torch.Tensor, draws: DDraws):
         cfg, g, d = self.cfg, state.g, state.d

@@ -12,22 +12,14 @@ device="cpu")`` is the tests' path; the command line has no such flag.
 
 from __future__ import annotations
 
-import sys
-
-import torch
-
-from facegen_torch.config import c2f_config_from_args
+from facegen_torch.config import c2f_config_from_args, cli_device
 from facegen_torch.train.c2f import C2FTrainer
 
 
 def main(argv=None, device=None) -> C2FTrainer:
     cfg = c2f_config_from_args(argv)
     if device is None:
-        if not torch.cuda.is_available():
-            sys.exit("no CUDA GPU: the c2f trainer CLI runs on cuda:{--gpu} only")
-        if not 0 <= cfg.gpu < torch.cuda.device_count():
-            sys.exit(f"--gpu {cfg.gpu}: {torch.cuda.device_count()} CUDA device(s) visible")
-        device = torch.device("cuda", cfg.gpu)
+        device = cli_device(cfg.gpu, "c2f trainer")
     trainer = C2FTrainer(cfg, device=device)
     for _ in trainer.run():
         pass

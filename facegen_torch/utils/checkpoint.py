@@ -24,6 +24,14 @@ with momentum), the counters the state has and ``epoch``. A GAN state
 and its nets' leaves sit under ``head``/``body`` (``params_g/body/00_conv1/w``).
 A facegen trainer checkpoint of either kind resumes in the port and the
 reverse.
+
+The autoencoder family's checkpoints (facegen/train/ae_loop.py) use the
+same leaf mapping under other roots: ``autoencoder`` holds ``params/…``,
+``state/…`` (none: the flat AE has no batch norm) and Adam's
+``opt/0/{count,mu,nu}/…``; ``denoiser_{c}x{h}x{w}`` holds
+``AE1_DECODER/{params,state}/…`` and ``AE2_DECODER/{params,state}/…``
+(its ``AE1_ENCODER``, a white-noise layer, has no leaves) and no
+optimizer state.
 """
 
 from __future__ import annotations
@@ -40,9 +48,7 @@ from torch import nn
 
 FORMAT_VERSION = 1
 
-# checkpoint tree roots of G's and D's leaves; other roots (optimizer
-# moments, the gate's ring buffer, counters) are not read here
-_ROOTS = {"params_g": "g", "state_g": "g", "params_d": "d", "state_d": "d"}
+# checkpoint tree roots of G's and D's parameters and statistics
 _NETS = {"g": ("params_g", "state_g"), "d": ("params_d", "state_d")}
 _TORCH_NAME = {"w": "weight", "b": "bias", "a": "weight", "scale": "weight",
                "bias": "bias", "mean": "running_mean", "var": "running_var"}
@@ -142,26 +148,97 @@ def _bn_prefixes(sd) -> set:
     return {k.rsplit(".", 1)[0] for k in sd if k.endswith(".running_mean")}
 
 
+def _sd_arrays(sd, params_root: str, state_root: str) -> Dict[str, np.ndarray]:
+    """A state_dict -> its leaves under ``params_root`` (parameters) and
+    ``state_root`` (batch-norm statistics)."""
+    bn = _bn_prefixes(sd)
+    arrays = {}
+    for key, t in sd.items():
+        is_state, path, a = _jax_leaf(key, t, bn)
+        arrays[f"{state_root if is_state else params_root}/{path}"] = a
+    return arrays
+
+
+def _sd_from_arrays(arrays: Dict[str, np.ndarray], *roots: str) -> Dict[str, torch.Tensor]:
+    """The state_dict held by the leaves under ``roots``."""
+    sd = {}
+    for key, arr in arrays.items():
+        for root in roots:
+            if key.startswith(root + "/"):
+                name, t = _torch_leaf(key[len(root) + 1:], arr)
+                sd[name] = t
+    return sd
+
+
 def jax_to_torch(arrays: Dict[str, np.ndarray]) -> Dict[str, Dict[str, torch.Tensor]]:
     """Checkpoint leaves -> {"g": state_dict, "d": state_dict}."""
-    out = {"g": {}, "d": {}}
-    for key, arr in arrays.items():
-        root, _, path = key.partition("/")
-        if root in _ROOTS:
-            name, t = _torch_leaf(path, arr)
-            out[_ROOTS[root]][name] = t
-    return out
+    return {net: _sd_from_arrays(arrays, *roots) for net, roots in _NETS.items()}
 
 
 def torch_to_jax(state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
     """{"g": state_dict, "d": state_dict} -> checkpoint leaves."""
     arrays = {}
     for net, sd in state_dicts.items():
-        bn = _bn_prefixes(sd)
-        for key, t in sd.items():
-            is_state, path, a = _jax_leaf(key, t, bn)
-            arrays[f"{_NETS[net][is_state]}/{path}"] = a
+        arrays.update(_sd_arrays(sd, *_NETS[net]))
     return arrays
+
+
+def module_arrays(module: nn.Module, params_root: str, state_root: str,
+                  opt: Optional[dict] = None, opt_root: Optional[str] = None
+                  ) -> Dict[str, np.ndarray]:
+    """A module's leaves under facegen's paths, and with ``opt`` its
+    optimizer state's under ``opt_root``: ``{opt_root}/0/count`` and
+    ``{opt_root}/0/{mu,nu,...}/<parameter path>``, as optax lays them out."""
+    arrays = _sd_arrays(module.state_dict(), params_root, state_root)
+    if opt is None:
+        return arrays
+    bn = _bn_prefixes(module.state_dict())
+    names = [n for n, _ in module.named_parameters()]
+    for kind, value in opt.items():
+        if kind == "count":
+            arrays[f"{opt_root}/0/count"] = value.cpu().numpy().astype(np.int32)
+            continue
+        for name, t in zip(names, value):
+            _, path, a = _jax_leaf(name, t, bn)
+            arrays[f"{opt_root}/0/{kind}/{path}"] = a
+    return arrays
+
+
+@torch.no_grad()
+def load_module_arrays(arrays: Dict[str, np.ndarray], module: nn.Module, params_root: str,
+                       state_root: str, opt: Optional[dict] = None,
+                       opt_root: Optional[str] = None) -> None:
+    """``module_arrays``'s inverse, in place: every parameter and buffer
+    must be there (strict), and with ``opt`` every optimizer leaf."""
+    module.load_state_dict(_sd_from_arrays(arrays, params_root, state_root), strict=True)
+    if opt is None:
+        return
+    index = {n: i for i, (n, _) in enumerate(module.named_parameters())}
+    for kind, value in opt.items():
+        if kind == "count":
+            value.copy_(torch.as_tensor(arrays[f"{opt_root}/0/count"]))
+            continue
+        prefix = f"{opt_root}/0/{kind}/"
+        for key, arr in arrays.items():
+            if key.startswith(prefix):
+                pname, t = _torch_leaf(key[len(prefix):], arr)
+                value[index[pname]].copy_(t)
+
+
+def _load_checked(directory: str, name: str, expected: Dict[str, np.ndarray]):
+    """(arrays, meta) of a checkpoint that holds every leaf of ``expected``
+    with its shape; leaves of other trees are ignored, as facegen's
+    ckpt.load does."""
+    arrays, meta = load(directory, name)
+    missing = sorted(set(expected) - set(arrays))
+    if missing:
+        raise KeyError(f"checkpoint {os.path.join(directory, name)!r} lacks {missing[:5]}"
+                       f"{' ...' if len(missing) > 5 else ''}")
+    for key, want in expected.items():
+        if tuple(np.shape(arrays[key])) != want.shape:
+            raise ValueError(f"checkpoint leaf {key!r} shape {np.shape(arrays[key])} "
+                             f"!= {want.shape}")
+    return arrays, meta
 
 
 _COUNTERS = ("accs", "accs_n", "confusion", "trained_d", "not_trained_d")
@@ -174,17 +251,9 @@ def _counters(state):
 def train_state_arrays(state) -> Dict[str, np.ndarray]:
     """Every leaf of a training state (a GanState or a C2FState) under
     facegen's path of that leaf."""
-    arrays = torch_to_jax({"g": state.g.state_dict(), "d": state.d.state_dict()})
+    arrays = {}
     for net, module, opt in (("g", state.g, state.opt_g), ("d", state.d, state.opt_d)):
-        bn = _bn_prefixes(module.state_dict())
-        names = [n for n, _ in module.named_parameters()]
-        for kind, value in opt.items():
-            if kind == "count":
-                arrays[f"opt_{net}/0/count"] = value.cpu().numpy().astype(np.int32)
-                continue
-            for name, t in zip(names, value):
-                _, path, a = _jax_leaf(name, t, bn)
-                arrays[f"opt_{net}/0/{kind}/{path}"] = a
+        arrays.update(module_arrays(module, *_NETS[net], opt, f"opt_{net}"))
     for key in _counters(state):
         arrays[key] = getattr(state, key).cpu().numpy()
     arrays["epoch"] = np.asarray(state.epoch, np.int32)
@@ -202,33 +271,62 @@ def load_train_state(directory: str, name: str, state) -> dict:
     optimizer state, counters, epoch). Strict: every leaf the state has
     must be there with its shape; leaves of other trees are ignored, as
     facegen's ckpt.load does. Returns the checkpoint's meta."""
-    arrays, meta = load(directory, name)
-    expected = train_state_arrays(state)
-    missing = sorted(set(expected) - set(arrays))
-    if missing:
-        raise KeyError(f"checkpoint {os.path.join(directory, name)!r} lacks {missing[:5]}"
-                       f"{' ...' if len(missing) > 5 else ''}")
-    for key, want in expected.items():
-        if tuple(np.shape(arrays[key])) != want.shape:
-            raise ValueError(f"checkpoint leaf {key!r} shape {np.shape(arrays[key])} "
-                             f"!= {want.shape}")
-    sds = jax_to_torch(arrays)
-    state.g.load_state_dict(sds["g"], strict=True)
-    state.d.load_state_dict(sds["d"], strict=True)
+    arrays, meta = _load_checked(directory, name, train_state_arrays(state))
     for net, module, opt in (("g", state.g, state.opt_g), ("d", state.d, state.opt_d)):
-        index = {n: i for i, (n, _) in enumerate(module.named_parameters())}
-        for kind, value in opt.items():
-            if kind == "count":
-                value.copy_(torch.as_tensor(arrays[f"opt_{net}/0/count"]))
-                continue
-            prefix = f"opt_{net}/0/{kind}/"
-            for key in expected:
-                if key.startswith(prefix):
-                    pname, t = _torch_leaf(key[len(prefix):], arrays[key])
-                    value[index[pname]].copy_(t)
+        load_module_arrays(arrays, module, *_NETS[net], opt, f"opt_{net}")
     for key in _counters(state):
         getattr(state, key).copy_(torch.as_tensor(arrays[key]))
     state.epoch = int(arrays["epoch"])
+    return meta
+
+
+def exists(directory: str, name: str) -> bool:
+    return os.path.exists(os.path.join(directory, name, "arrays.npz"))
+
+
+def autoencoder_arrays(model: nn.Module, opt: dict) -> Dict[str, np.ndarray]:
+    """The flat AE's checkpoint leaves: ``params/…``, ``state/…`` and
+    Adam's ``opt/0/…`` (facegen/train/ae_loop.py:185-187)."""
+    return module_arrays(model, "params", "state", opt, "opt")
+
+
+def save_autoencoder(directory: str, name: str, model: nn.Module, opt: dict,
+                     meta: Optional[dict] = None) -> str:
+    return save(directory, name, autoencoder_arrays(model, opt), meta)
+
+
+def load_autoencoder(directory: str, name: str, model: nn.Module, opt: dict) -> dict:
+    """Load an ``autoencoder`` checkpoint into ``model`` and ``opt`` in
+    place (strict); returns its meta."""
+    arrays, meta = _load_checked(directory, name, autoencoder_arrays(model, opt))
+    load_module_arrays(arrays, model, "params", "state", opt, "opt")
+    return meta
+
+
+_DECODERS = ("AE1_DECODER", "AE2_DECODER")
+
+
+def denoiser_arrays(dec1: nn.Module, dec2: nn.Module) -> Dict[str, np.ndarray]:
+    """The denoiser's checkpoint leaves: each decoder's ``params/…`` and
+    ``state/…`` under its key (facegen/models/ae.py:99-103)."""
+    arrays = {}
+    for key, dec in zip(_DECODERS, (dec1, dec2)):
+        arrays.update(module_arrays(dec, f"{key}/params", f"{key}/state"))
+    return arrays
+
+
+def save_denoiser(directory: str, name: str, dec1: nn.Module, dec2: nn.Module,
+                  meta: Optional[dict] = None) -> str:
+    return save(directory, name, denoiser_arrays(dec1, dec2), meta)
+
+
+def load_denoiser(directory: str, name: str, dec1: nn.Module, dec2: nn.Module) -> dict:
+    """Load a ``denoiser_{c}x{h}x{w}`` checkpoint into both decoders in
+    place (strict, as facegen's ckpt.load of the whole bundle); returns
+    its meta."""
+    arrays, meta = _load_checked(directory, name, denoiser_arrays(dec1, dec2))
+    for key, dec in zip(_DECODERS, (dec1, dec2)):
+        load_module_arrays(arrays, dec, f"{key}/params", f"{key}/state")
     return meta
 
 

@@ -4,6 +4,7 @@ The PNG form of nn_utils.visualizeProgress's display windows
 (nn_utils.lua:131-204). Each call writes under ``out_dir``:
 
   samples_fixed.png  G on the run's fixed noise (train.lua:195)
+  samples_denoised.png  the same through the denoiser, when one is given
   best50.png         the 50 of 300 random samples D scores highest
   worst50.png        the 50 it scores lowest (worst first)
   real100.png        100 images of the epoch's pool
@@ -16,7 +17,7 @@ probe low, and the returned report gives both ranks.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ from facegen_torch.utils.infer import GanInference, sanity_image
 
 def visualize_progress(inf: GanInference, fixed_noise: torch.Tensor, train_pool: torch.Tensor,
                        out_dir: str, generator: torch.Generator,
+                       denoiser: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                        epoch: Optional[int] = None, window: int = 3) -> dict:
     """G and D run in eval mode (set here; the train step sets train mode
     again). ``window`` is the reference's display-window id (--window):
@@ -39,7 +41,10 @@ def visualize_progress(inf: GanInference, fixed_noise: torch.Tensor, train_pool:
     def path(name):
         return os.path.join(out_dir, prefix + name)
 
-    save_grid(path("samples_fixed.png"), inf.generate(fixed_noise).cpu().numpy())
+    fixed = inf.generate(fixed_noise)
+    save_grid(path("samples_fixed.png"), fixed.cpu().numpy())
+    if denoiser is not None:
+        save_grid(path("samples_denoised.png"), denoiser(fixed).cpu().numpy())
     randoms = inf.generate_n(generator, 300)
     randoms[298] = train_pool[0].to(randoms.device).float() / 255.0
     randoms[299] = sanity_image(randoms.shape[1], randoms.shape[-1], generator).to(randoms.device)

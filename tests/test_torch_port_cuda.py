@@ -32,6 +32,13 @@ SHAPES = [(8, 16, 24, 5), (4, 8, 8, 3), (16, 32, 16, 5)]  # tests/test_upsample_
 TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2**-8, atol=2e-2)}
 
 
+def _rel_l2(ours, ref):
+    """||ours - ref|| / ||ref|| over lists of tensors, ``ours`` on any
+    device and ``ref`` on the CPU."""
+    num = sum(float(((o.detach().cpu() - r.detach()) ** 2).sum()) for o, r in zip(ours, ref))
+    return (num / max(sum(float((r.detach() ** 2).sum()) for r in ref), 1e-300)) ** 0.5
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -293,17 +300,131 @@ def test_c2f_step_in_fp32_on_the_card_matches_the_cpu(cuda_device):
     moved = type(draws)(*(tuple(type(it)(*map(move, it)) for it in part) for part in draws))
     gpu_step(gpu_state, type(pool)(*(t.to(cuda_device) for t in pool)), moved)
 
-    def rel_l2(ours, ref):
-        num = sum(float(((o.cpu() - r) ** 2).sum()) for o, r in zip(ours, ref))
-        return (num / sum(float((r ** 2).sum()) for r in ref)) ** 0.5
-
     for net in ("g", "d"):
         opt_gpu, opt_cpu = getattr(gpu_state, f"opt_{net}"), getattr(cpu_state, f"opt_{net}")
         assert int(opt_gpu["count"]) == int(opt_cpu["count"]) == 1
         for kind in ("mu", "nu"):
-            assert rel_l2(opt_gpu[kind], opt_cpu[kind]) <= 1e-3, (net, kind)
+            assert _rel_l2(opt_gpu[kind], opt_cpu[kind]) <= 1e-3, (net, kind)
     after_gpu = [p.detach() for p in (*gpu_state.g.parameters(), *gpu_state.d.parameters())]
     after_cpu = [p.detach() for p in (*cpu_state.g.parameters(), *cpu_state.d.parameters())]
-    assert rel_l2([a.cpu() - b for a, b in zip(after_gpu, before)],
+    assert _rel_l2([a.cpu() - b for a, b in zip(after_gpu, before)],
                   [a - b for a, b in zip(after_cpu, before)]) <= 1e-2
     assert torch.equal(gpu_state.confusion.cpu(), cpu_state.confusion)
+
+
+def _move(x, device):
+    return x.to(device) if torch.is_tensor(x) else {k: m.to(device) for k, m in x.items()}
+
+
+def _ae_errs(gpu_net, gpu_opt, cpu_net, cpu_opt, before):
+    """Relative l2 of a net's card step against its CPU step: Adam's
+    moments, the parameters' change and the batch-norm statistics."""
+    assert int(gpu_opt["count"]) == int(cpu_opt["count"]) == 1
+    errs = {kind: _rel_l2(gpu_opt[kind], cpu_opt[kind]) for kind in ("mu", "nu")}
+    errs["update"] = _rel_l2([p.cpu() - b for p, b in zip(gpu_net.parameters(), before)],
+                             [p - b for p, b in zip(cpu_net.parameters(), before)])
+    errs["stats"] = _rel_l2(list(gpu_net.buffers()), list(cpu_net.buffers()))
+    return errs
+
+
+@pytest.mark.cuda
+def test_ae_step_in_fp32_on_the_card_matches_the_cpu(cuda_device):
+    """One fp32 autoencoder step (scale 16, batch 8) on the same draws:
+    the loss within 1e-5 relative; Adam's moments and the update within
+    1e-3 relative l2."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.models import ae
+    from facegen_torch.nn.init import gaussian_overwrite
+    from facegen_torch.train.ae_loop import AEStep, ae_epoch_draws
+    from facegen_torch.train.optim import adam
+
+    cfg = TrainConfig(batch_size=8, scale=16, grayscale=True, noise_dim=64).validate()
+
+    def build(dev):
+        gen = torch.Generator().manual_seed(9)
+        model = ae.create_autoencoder(16, 1, 64, generator=gen, device=dev)
+        gaussian_overwrite(model, gen)
+        return model, adam(1e-3).init(list(model.parameters())), AEStep(cfg, model)
+
+    (m_c, o_c, s_c), (m_g, o_g, s_g) = build("cpu"), build(cuda_device)
+    before = [p.detach().clone() for p in m_c.parameters()]
+    pool = torch.randint(0, 256, (32, 16, 16, 1), generator=torch.Generator().manual_seed(10),
+                         dtype=torch.uint8)
+    draws = ae_epoch_draws(torch.Generator().manual_seed(11), 8, 32, s_c.mask_specs)[0]
+    loss_c = s_c(m_c, o_c, pool, draws)
+    loss_g = s_g(m_g, o_g, pool.to(cuda_device),
+                 type(draws)(*(_move(x, cuda_device) for x in draws)))
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    errs = _ae_errs(m_g, o_g, m_c, o_c, before)
+    assert all(v <= 1e-3 for v in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_denoiser_step_in_fp32_on_the_card_matches_the_cpu(cuda_device):
+    """One fp32 denoiser step (scale 8, colour, batch 8, --coefL1 1e-4,
+    whose sign term makes the gradients of the biases in front of batch
+    norms its own) on the same draws: the two BCEs within 1e-5 relative;
+    per decoder, Adam's moments, the update and the batch-norm statistics
+    within 1e-3 relative l2."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.models import ae
+    from facegen_torch.train.ae_loop import (
+        DenoiserDraws,
+        DenoiserState,
+        DenoiserStep,
+        denoiser_epoch_draws,
+    )
+    from facegen_torch.train.optim import adam
+
+    cfg = TrainConfig(batch_size=8, scale=8, coef_l1=1e-4).validate()
+
+    def build(dev):
+        enc, dec1, dec2 = ae.init_denoiser(torch.Generator().manual_seed(12), 8, 3, device=dev)
+        return (DenoiserState(enc, dec1, dec2, adam(1e-3).init(list(dec1.parameters())),
+                              adam(1e-3).init(list(dec2.parameters()))),
+                DenoiserStep(cfg, dec1))
+
+    (st_c, s_c), (st_g, s_g) = build("cpu"), build(cuda_device)
+    before = {k: [p.detach().clone() for p in getattr(st_c, k).parameters()]
+              for k in ("dec1", "dec2")}
+    pool = torch.randint(0, 256, (32, 8, 8, 3), generator=torch.Generator().manual_seed(13),
+                         dtype=torch.uint8)
+    draws = denoiser_epoch_draws(torch.Generator().manual_seed(14), 8, (8, 8, 3), 32,
+                                 s_c.mask_specs)[0]
+    loss_c = s_c(st_c, pool, draws)
+    loss_g = s_g(st_g, pool.to(cuda_device),
+                 DenoiserDraws(*(_move(x, cuda_device) for x in draws)))
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    for k, opt in (("dec1", "opt1"), ("dec2", "opt2")):
+        errs = _ae_errs(getattr(st_g, k), getattr(st_g, opt), getattr(st_c, k),
+                        getattr(st_c, opt), before[k])
+        assert all(v <= 1e-3 for v in errs.values()), (k, errs)
+
+
+@pytest.mark.cuda
+def test_load_denoiser_fn_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """AE1's decoder as --denoise serves it, with cuDNN's TF32 on as torch
+    has it by default (the denoiser turns it off for its own call): within
+    1e-5 of the CPU's, fp32."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.models import ae
+    from facegen_torch.utils import checkpoint as ckpt
+
+    _, dec1, dec2 = ae.init_denoiser(torch.Generator().manual_seed(15), 16, 3)
+    with torch.no_grad():  # larger weights than the init's, so outputs vary per input
+        for p in dec1.parameters():
+            p.mul_(40.0)
+        for b in dec1.buffers():
+            b.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(16))
+    ckpt.save_denoiser(str(tmp_path), ae.denoiser_ckpt_name(16, 3), dec1, dec2)
+    cfg = TrainConfig(save=str(tmp_path), scale=16)
+    images = torch.rand(64, 16, 16, 3, generator=torch.Generator().manual_seed(17))
+    ref = ae.load_denoiser_fn(cfg, "cpu")(images)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ours = ae.load_denoiser_fn(cfg, cuda_device)(images.to(cuda_device))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert ours.dtype == torch.float32 and float(ref.std()) > 1e-3
+    torch.testing.assert_close(ours.cpu(), ref, rtol=1e-5, atol=1e-5)
