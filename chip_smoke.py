@@ -38,12 +38,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    images/s;
 6. training path: ``facegen_torch.train.main`` at the default flags
    (G32 + D32b colour, batch 32, bf16) on the store for 2 epochs of 63
-   steps with --saveFreq 1, then a resume for a third; checks every
-   kernel's launch count against the steps and grids, finite losses,
-   metrics.jsonl, the checkpoint and its .old; holds one fp32 step on the
-   card against the same step on the CPU; reports training images/s, the
-   device ms per step, and a profile of the step by kernel family with
-   the device's busy share;
+   steps with --saveFreq 1, then a resume for a third, every step after
+   the first a replay of the step's CUDA graph (train/graph.py); checks
+   every kernel's launch count against the steps and grids, finite
+   losses, metrics.jsonl, the checkpoint and its .old; holds one fp32 step
+   on the card against the same step on the CPU; reports training
+   images/s, the capture, and the ms per step and a profile of the step
+   by kernel family with the device's busy share, for the graphed step
+   and for the eager step in the same call;
 7. c2f training path: ``facegen_torch.train_c2f.main`` at the default
    flags (fine 32, coarse 16, colour, batch 32, bf16) on the store for 2
    epochs of 63 steps with --saveFreq 1, then a resume for a third; checks
@@ -71,7 +73,21 @@ Phases, each printing its own lines; any failure exits non-zero:
     --denoise`` for 1 epoch with the grids on, reading phase 11's
     denoiser; checks samples_denoised.png and every kernel's launch count;
 13. one fp32 autoencoder step and one fp32 denoiser step on the card
-    against the same steps on the CPU.
+    against the same steps on the CPU;
+14. the graphed GAN step against the eager one: 3 steps each from one
+    state on the same draws, fp32 (TF32 off) within 1e-5 and bf16 at the
+    default flags within 1e-3 relative l2, counters equal; and, as a
+    control at the setting the card tests first used (scheme init with
+    zero G biases, --G_L2 0, fp32), eager steps against eager steps and
+    graphed against eager, with cuDNN free to choose its algorithms
+    (printed) and with its deterministic ones (checked: bit-equal);
+15. ``train.main --epochsPerCompile 4 --noplot --epochs 8 --saveFreq 4``:
+    8 metrics rows, 2 read-backs, the checkpoints, 8 epochs' launches;
+16. ``train.main --weightsVisFreq 16 --epochs 1``: the activation dumps
+    after steps 16, 32, 48 and 63, each with D's and G's PNGs;
+17. the LFW store builder: ``python -m facegen_torch.data.lfw`` on a tree
+    of 256 seeded 250x250 JPEGs in 32 person directories, the store's
+    shape and type, and one epoch of ``train.main`` on it.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -167,6 +183,15 @@ AE_LOSS_RTOL = 1e-5
 # ~1e-5); the chosen candidate is compared only where the top two scores
 # differ by more than twice that
 REFINE_TOL = 2e-4
+
+# the graphed GAN step against the eager one, 3 steps from one state on
+# the same draws, relative l2 of the parameters and Adam's moments: the
+# same kernels on the same inputs, so only the order of a few sums may
+# differ (cuDNN's choice of algorithm, atomics); fp32 with TF32 off, and
+# bf16 at the default flags, where one bf16 rounding of a sum that moved
+# shows as ~4e-3 of that entry
+GRAPH_FP32_TOL = 1e-5
+GRAPH_BF16_TOL = 1e-3
 
 # the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -668,13 +693,10 @@ def _launches():
 def phase_training(tmp: str, store: str):
     """Drive the trainer's CLI end to end; returns the kernels' launch
     counts in its 2-epoch run."""
-    import json as _json
-    import math
-
     import torch
 
     from facegen_torch import train
-    from facegen_torch.train.step import steps_per_epoch
+    from facegen_torch.train.step import draw_step, steps_per_epoch
 
     save = os.path.join(tmp, "train_logs")
     argv = ["--datasetDir", store, "--save", save, "--saveFreq", "1"]
@@ -707,13 +729,8 @@ def phase_training(tmp: str, store: str):
 
     trainer2 = train.main(argv + ["--epochs", "1", "--network", "adversarial"])
     check(trainer2.state.epoch == 4, f"resumed run ends at epoch {trainer2.state.epoch}, want 4")
-    with open(os.path.join(save, "metrics.jsonl")) as f:
-        rows = [_json.loads(line) for line in f if line.strip()]
-    check(len(rows) == 3, f"metrics.jsonl has {len(rows)} rows, want 3")
+    rows = _metrics_rows(save)
     check([r["epoch"] for r in rows] == [1, 2, 3], f"epochs {[r['epoch'] for r in rows]}")
-    for r in rows:
-        check(math.isfinite(r["loss_d_mean"]) and math.isfinite(r["loss_g_mean"]),
-              f"non-finite losses in {r}")
     print("training path: metrics.jsonl " + "; ".join(
         f"epoch {r['epoch']}: loss_d {r['loss_d_mean']:.4f} loss_g {r['loss_g_mean']:.4f} "
         f"acc_d {r['acc_d_mean']:.4f} trained D {r['trained_d']}/"
@@ -723,19 +740,39 @@ def phase_training(tmp: str, store: str):
           f"(1000 examples per epoch, host clock {rows[1]['seconds']:.3f} s for 63 steps "
           f"with the epoch's read-back; grids and pool outside the clock)")
 
+    graphed = trainer2.graphed
+    check(graphed.graph is not None and graphed.launches_per_replay == {
+        "KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2, "DW_LAUNCHES": 2},
+        f"the trainer's step was not captured as expected: {graphed.launches_per_replay}")
+    print(f"training path: the step was captured as a CUDA graph in {graphed.capture_ms:.1f} ms "
+          f"after {graphed.eager_steps} eager steps; kernel launches per replay "
+          f"{graphed.launches_per_replay}")
+
+    cfg = trainer2.cfg
     gen = torch.Generator(device=trainer2.device).manual_seed(11)
     pool = trainer2.source.epoch_pool(gen, trainer2.pool_n)
 
     def run(n):
         return trainer2.run_steps(pool, gen, n)
 
-    step_ms = _step_ms(run)
-    n_epoch, per_epoch = trainer2.cfg.n_epoch, steps_per_epoch(trainer2.cfg)
-    print(f"training path: {step_ms:.4f} ms per step on the stream (CUDA events over 30 "
-          f"steps, batch 32, bf16, waits for the host included): "
-          f"{n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at the epoch's count of "
-          f"{n_epoch} examples per {per_epoch} steps")
-    _profile_train_steps(run)
+    def run_eager(n):
+        for _ in range(n):
+            trainer2.step(trainer2.state, pool,
+                          draw_step(gen, cfg, trainer2.pool_n, trainer2.step.mask_specs))
+
+    # in turns: graphed, eager, eager, graphed
+    times = {"graphed": [], "eager": []}
+    for route in ("graphed", "eager", "eager", "graphed"):
+        times[route].append(_step_ms(run if route == "graphed" else run_eager))
+    n_epoch, per_epoch = cfg.n_epoch, steps_per_epoch(cfg)
+    for route, ts in times.items():
+        step_ms = statistics.mean(ts)
+        print(f"training path ({route}): {step_ms:.4f} ms per step on the stream (CUDA events "
+              f"over 30 steps, mean of 2 turns: {', '.join(f'{t:.4f}' for t in ts)}; batch 32, "
+              f"bf16, waits for the host included): {n_epoch / (per_epoch * step_ms / 1e3):.1f} "
+              f"images/s at the epoch's count of {n_epoch} examples per {per_epoch} steps")
+    _profile_train_steps(run, label="training path (graphed)")
+    _profile_train_steps(run_eager, label="training path (eager)")
     return launches
 
 
@@ -1334,6 +1371,294 @@ def phase_ae_step_parity():
     check(ok, "the card's fp32 denoiser step disagrees with the CPU's")
 
 
+def phase_graph_parity():
+    """3 graphed GAN steps (one eager warm-up, the capture, 2 replays)
+    against 3 eager steps from the same state on the same draws, in fp32
+    with TF32 off and in bf16 at the default flags; then the control
+    ``_graph_control``."""
+    import contextlib
+
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.models import gan
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import TrainStep, draw_step, init_state
+
+    dev = torch.device("cuda", 0)
+    pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 1000), 32, 3)
+    pool = pool.to(dev)
+    for dtype, tol in (("float32", GRAPH_FP32_TOL), ("bfloat16", GRAPH_BF16_TOL)):
+        cfg = TrainConfig(compute_dtype=dtype).validate()
+
+        def build():
+            g, d = gan.init_gan(torch.Generator().manual_seed(5), cfg.scale, cfg.channels,
+                                cfg.noise_dim, reference_init=cfg.reference_init, device=dev)
+            return init_state(cfg, g, d), TrainStep(cfg, g, d)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with full_fp32() if dtype == "float32" else contextlib.nullcontext():
+            (eager, eager_step), (graphed, graphed_step) = build(), build()
+            gen = torch.Generator(dev).manual_seed(7)
+            for _ in range(3):
+                eager_step(eager, pool, draw_step(gen, cfg, pool.shape[0], eager_step.mask_specs))
+            runner = GraphedStep(graphed_step, graphed, pool.shape[0])
+            runner.set_pool(pool)
+            ms = runner.run(torch.Generator(dev).manual_seed(7), 3)
+            torch.cuda.synchronize()
+        errs = {}
+        for net in ("g", "d"):
+            ours, ref = getattr(graphed, net).state_dict(), getattr(eager, net).state_dict()
+            errs[f"{net} params"] = _rel_l2(list(ours.values()), [t.cpu() for t in ref.values()])
+            for kind in ("mu", "nu"):
+                ref = [t.cpu() for t in getattr(eager, f"opt_{net}")[kind]]
+                errs[f"{net} {kind}"] = _rel_l2(getattr(graphed, f"opt_{net}")[kind], ref)
+        same = all(torch.equal(getattr(graphed, k), getattr(eager, k)) for k in (
+            "accs_n", "confusion", "trained_d", "not_trained_d"))
+        same &= all(torch.equal(getattr(graphed, f"opt_{n}")["count"],
+                                getattr(eager, f"opt_{n}")["count"]) for n in ("g", "d"))
+        ok = (same and runner.graph is not None and all(v <= tol for v in errs.values())
+              and bool(torch.isfinite(ms.loss_d).all()))
+        print(f"graph parity {dtype}{' (TF32 off)' if dtype == 'float32' else ''}, 3 graphed vs "
+              f"3 eager steps, relative l2: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tolerance {tol}); gate {int(graphed.trained_d)}/"
+              f"{int(graphed.trained_d) + int(graphed.not_trained_d)}, counters "
+              f"{'equal' if same else 'DIFFER'}; capture {runner.capture_ms:.1f} ms, "
+              f"{runner.pool_mib:.1f} MiB reserved by it, max memory allocated in the phase "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (two states, the pool, "
+              f"the eager and graphed steps); {'ok' if ok else 'FAIL'}")
+        check(ok, f"the graphed {dtype} step disagrees with the eager step")
+    _graph_control(pool)
+
+
+def _state_diffs(a, b):
+    """Relative l2 of ``a``'s parameters, statistics and Adam moments
+    against ``b``'s, per network and kind, and the leaf whose relative l2
+    is largest."""
+    errs, worst = {}, (0.0, "")
+    for net in ("g", "d"):
+        sa, sb = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        leaves = {f"{net}.{k}": (sa[k], sb[k]) for k in sa}
+        for kind in ("mu", "nu"):
+            for i, (x, y) in enumerate(zip(getattr(a, f"opt_{net}")[kind],
+                                           getattr(b, f"opt_{net}")[kind])):
+                leaves[f"{net}.{kind}[{i}]"] = (x, y)
+        errs[f"{net} params"] = _rel_l2([sa[k] for k in sa], [sb[k].cpu() for k in sa])
+        for kind in ("mu", "nu"):
+            errs[f"{net} {kind}"] = _rel_l2(getattr(a, f"opt_{net}")[kind],
+                                            [t.cpu() for t in getattr(b, f"opt_{net}")[kind]])
+        for name, (x, y) in leaves.items():
+            worst = max(worst, (_rel_l2([x], [y.cpu()]), name))
+    return errs, worst
+
+
+def _graph_control(pool):
+    """At the setting the card tests first used (scheme init, zero G
+    biases, --G_L2 0; fp32, TF32 off), from one state on one set of draws:
+    3 eager steps against 3 eager steps, and 3 graphed steps against 3
+    eager, first with cuDNN free to choose its algorithms (the trainer's
+    setting) and then with its deterministic ones. Prints the relative l2
+    of each pair and its worst leaf; with deterministic algorithms both
+    pairs must be bit-equal."""
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.models import gan
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import TrainStep, draw_step, init_state
+
+    dev = pool.device
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False).validate()
+
+    def build():
+        g, d = gan.init_gan(torch.Generator().manual_seed(5), cfg.scale, cfg.channels,
+                            cfg.noise_dim, reference_init=False, device=dev)
+        return init_state(cfg, g, d), TrainStep(cfg, g, d)
+
+    def eager():
+        state, step = build()
+        gen = torch.Generator(dev).manual_seed(7)
+        for _ in range(3):
+            step(state, pool, draw_step(gen, cfg, pool.shape[0], step.mask_specs))
+        return state
+
+    def graphed():
+        state, step = build()
+        runner = GraphedStep(step, state, pool.shape[0])
+        runner.set_pool(pool)
+        runner.run(torch.Generator(dev).manual_seed(7), 3)
+        return state
+
+    saved = torch.backends.cudnn.deterministic
+    try:
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            with full_fp32():
+                ref, again, replayed = eager(), eager(), graphed()
+                torch.cuda.synchronize()
+            for label, other in (("eager vs eager", again), ("graphed vs eager", replayed)):
+                errs, (worst, leaf) = _state_diffs(other, ref)
+                print(f"graph control fp32 (TF32 off), scheme init, zero G biases, G_L2 0, cuDNN "
+                      f"{'deterministic' if deterministic else 'free'}: {label}, 3 steps, relative "
+                      f"l2: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                      + f"; worst leaf {leaf} {worst:.3e}")
+                check(not deterministic or worst == 0.0,
+                      f"{label} differ under cuDNN's deterministic algorithms")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _metrics_rows(save: str):
+    import math
+
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    for r in rows:
+        check(math.isfinite(r["loss_d_mean"]) and math.isfinite(r["loss_g_mean"]),
+              f"non-finite losses in {r}")
+    return rows
+
+
+def phase_epochs_per_compile(tmp: str, store: str):
+    """``train.main --epochsPerCompile 4 --noplot --epochs 8 --saveFreq 4``
+    at the default flags; returns the kernels' launch counts in that run."""
+    import torch
+
+    from facegen_torch import train
+    from facegen_torch.train.step import steps_per_epoch
+
+    save = os.path.join(tmp, "epc_logs")
+    argv = ["--datasetDir", store, "--save", save, "--epochsPerCompile", "4", "--noplot",
+            "--epochs", "8", "--saveFreq", "4"]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    steps = 8 * steps_per_epoch(trainer.cfg)
+    print(f"epochsPerCompile path: train.main {' '.join(argv[4:])} took {run_s:.3f} s for "
+          f"{steps} steps; {trainer.readbacks} read-backs; launches {launches}")
+    want = {"upsample_conv_fwd": 4 * steps, "upsample_conv_dx": 2 * steps,
+            "upsample_conv_dw": 2 * steps}
+    check(launches == want, f"launches {launches}, want {want}")
+    check(trainer.epochs_per_compile == 4 and trainer.readbacks == 2,
+          f"{trainer.epochs_per_compile} epochs per chunk, {trainer.readbacks} read-backs")
+    rows = _metrics_rows(save)
+    check([r["epoch"] for r in rows] == list(range(1, 9)), f"epochs {[r['epoch'] for r in rows]}")
+    for name in ("adversarial", "adversarial.old"):
+        _check_files(os.path.join(save, name, "arrays.npz"))
+    with open(os.path.join(save, "adversarial", "meta.json")) as f:
+        check(json.load(f)["epoch"] == 9, "the last checkpoint is not at epoch 9")
+    print(f"epochsPerCompile path: chunk 1 (the eager warm-up step and the capture inside) "
+          f"{rows[0]['images_per_sec']:.1f} images/s, chunk 2 (warm) "
+          f"{rows[4]['images_per_sec']:.1f} images/s (host clock {4 * rows[4]['seconds']:.3f} s "
+          f"for 4 x {steps // 8} steps and the chunk's read-back; pools outside the clock)")
+    return launches
+
+
+def phase_weights_vis(tmp: str, store: str):
+    """``train.main --weightsVisFreq 16 --epochs 1`` at the default flags:
+    activation dumps after steps 16, 32, 48 and 63; returns the kernels'
+    launch counts in that run."""
+    import torch
+
+    from facegen_torch import train
+    from facegen_torch.train.step import steps_per_epoch
+
+    save = os.path.join(tmp, "netvis_logs")
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = train.main(["--datasetDir", store, "--save", save, "--weightsVisFreq", "16",
+                          "--epochs", "1"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    steps = steps_per_epoch(trainer.cfg)
+    # per step 4 forward, 2 dx, 2 dW; the grid set 4 forward; each dump's
+    # G (fp32, eval) 2 forward
+    want = {"upsample_conv_fwd": 4 * steps + 4 + 2 * 4, "upsample_conv_dx": 2 * steps,
+            "upsample_conv_dw": 2 * steps}
+    print(f"weightsVisFreq path: train.main --weightsVisFreq 16 --epochs 1 took {run_s:.3f} s; "
+          f"launches {launches}")
+    check(launches == want, f"launches {launches}, want {want}")
+    root = os.path.join(save, "viz", "netvis")
+    dumps = sorted(os.listdir(root))
+    check(dumps == [f"e0001_s{s:05d}" for s in (16, 32, 48, 63)], f"dumps {dumps}")
+    for dump in dumps:
+        for sub, want_keys in (("", ("conv", "fc")), ("g", ("upconv", "fc"))):
+            files = sorted(f for f in os.listdir(os.path.join(root, dump, sub))
+                           if f.endswith(".png"))
+            check(all(any(k in f for f in files) for k in want_keys),
+                  f"{dump}/{sub}: PNGs {files}")
+            _check_files(*(os.path.join(root, dump, sub, f) for f in files))
+    print(f"weightsVisFreq path: dumps {dumps}, each with D's "
+          f"{sorted(f for f in os.listdir(os.path.join(root, dumps[0])) if f.endswith('.png'))} "
+          f"and G's {sorted(os.listdir(os.path.join(root, dumps[0], 'g')))}")
+    return launches
+
+
+def phase_lfw_builder(tmp: str):
+    """Pack a tree of 256 seeded 250x250 JPEGs in 32 person directories
+    with ``python -m facegen_torch.data.lfw``, then train one epoch on the
+    store; returns the kernels' launch counts in that epoch."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from facegen_torch import train
+    from facegen_torch.train.step import steps_per_epoch
+
+    tree, out = os.path.join(tmp, "lfw_tree"), os.path.join(tmp, "lfw64.npy")
+    rs = np.random.RandomState(0)
+    for p in range(32):
+        person = os.path.join(tree, f"Person_{p:02d}")
+        os.makedirs(person)
+        for k in range(8):
+            coarse = rs.rand(27, 27, 3)
+            img = np.kron(coarse, np.ones((10, 10, 1)))[:250, :250] * 200
+            img += rs.rand(250, 250, 3) * 55
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(person, f"Person_{p:02d}_{k:04d}.jpg"), quality=90)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "facegen_torch.data.lfw", "--path", tree,
+                          "--out", out], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    pack_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"python -m facegen_torch.data.lfw failed: {run.stderr[-2000:]}")
+    store = np.load(out, mmap_mode="r")
+    check(store.shape == (256, 64, 64, 3) and store.dtype == np.uint8,
+          f"store {store.shape} {store.dtype}")
+    check(float(store.std()) > 10, f"store std {float(store.std())}")
+    print(f"lfw builder: python -m facegen_torch.data.lfw packed 256 JPEGs (250x250, 32 person "
+          f"directories) in {pack_s:.3f} s (with the interpreter's start): {store.shape} "
+          f"{store.dtype}, mean {float(store.mean()):.2f}")
+    save = os.path.join(tmp, "lfw_logs")
+    torch.cuda.synchronize()
+    _reset_launches()
+    trainer = train.main(["--datasetDir", out, "--save", save, "--epochs", "1", "--noplot"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    steps = steps_per_epoch(trainer.cfg)
+    want = {"upsample_conv_fwd": 4 * steps, "upsample_conv_dx": 2 * steps,
+            "upsample_conv_dw": 2 * steps}
+    check(launches == want, f"launches {launches}, want {want}")
+    check(trainer.source.size == 256, f"the trainer's store has {trainer.source.size} rows")
+    rows = _metrics_rows(save)
+    check(len(rows) == 1, f"{len(rows)} metrics rows")
+    print(f"lfw builder: one epoch of train.main on the store: loss_d {rows[0]['loss_d_mean']:.4f} "
+          f"loss_g {rows[0]['loss_g_mean']:.4f}, {rows[0]['images_per_sec']:.1f} images/s; "
+          f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         name = phase_device()
@@ -1361,10 +1686,14 @@ def main() -> int:
             by_path["ae_training"] = phase_ae_training(tmp, store)
             den_save, by_path["denoiser_training"] = phase_denoiser_training(tmp, store)
             by_path["training_denoise"] = phase_training_denoise(store, den_save)
+            by_path["training_epochs_per_compile"] = phase_epochs_per_compile(tmp, store)
+            by_path["training_weights_vis"] = phase_weights_vis(tmp, store)
+            by_path["training_lfw_store"] = phase_lfw_builder(tmp)
         with full_fp32():
             phase_step_parity()
             phase_c2f_step_parity()
             phase_ae_step_parity()
+        phase_graph_parity()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

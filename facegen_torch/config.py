@@ -54,7 +54,7 @@ class TrainConfig:
     window: int = 3               # --window: non-default ids prefix viz PNGs with w{id}_
     scale: int = 32               # --scale (the GAN's nets: 16 or 32)
     seed: int = 1                 # --seed
-    weights_vis_freq: int = 0     # --weightsVisFreq (must stay 0: not ported yet)
+    weights_vis_freq: int = 0     # --weightsVisFreq (activation dumps every N steps)
     grayscale: bool = False       # --grayscale
     denoise: bool = False         # --denoise (samples_denoised.png through AE1's decoder)
     aws: bool = False             # --aws (dataset dir switch, train.lua:166)
@@ -70,8 +70,9 @@ class TrainConfig:
     dataset_dir: Optional[str] = None
     synthetic_data: bool = False
     epochs: int = -1                      # stop after N epochs (-1 = forever)
-    epochs_per_compile: int = 0           # accepted and ignored: eager PyTorch
-                                          # has no compiled epoch program
+    epochs_per_compile: int = 0           # epochs per chunk with one read-back
+                                          # (0 = 8 under --noplot without
+                                          # weightsVisFreq, else 1)
     noise_view: str = "nhwc"              # G's fc -> planes wiring ("nhwc"/"nchw")
     boundary_pad: int = 0                 # must stay 0: not ported
     # the port's own
@@ -112,8 +113,6 @@ class TrainConfig:
         if self.boundary_pad > 0:
             raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
                              "on the TPU); leave it at 0")
-        if self.weights_vis_freq > 0:
-            raise ValueError("--weightsVisFreq: activation dumps are not ported yet")
         if tuple(self.mesh_shape) not in ((1,), (-1,)):
             raise ValueError(f"--meshShape {self.mesh_shape}: multi-device training "
                              f"is not ported yet")
@@ -262,7 +261,7 @@ def train_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale", type=int, default=32)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--weightsVisFreq", type=int, default=0, dest="weights_vis_freq",
-                   help="not ported yet: must stay 0")
+                   help="dump D's and G's activation grids every N steps (0 = off)")
     _add_bool(p, "--grayscale", "train on 1-channel images")
     _add_bool(p, "--denoise", "write samples_denoised.png through the denoiser trained at "
               "this scale (denoiser_{c}x{h}x{w} under --save)")
@@ -280,7 +279,8 @@ def train_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=-1,
                    help="number of epochs to run (-1 = forever)")
     p.add_argument("--epochsPerCompile", type=int, default=0, dest="epochs_per_compile",
-                   help="accepted and ignored: the port runs eagerly, epoch by epoch")
+                   help="train N epochs per chunk with one read-back of their results "
+                        "(0 = auto: 8 under --noplot, else 1)")
     p.add_argument("--boundaryPad", type=int, default=0, dest="boundary_pad",
                    help="not ported: must stay 0")
     _add_bool(p, "--modernInit", "disable the reference's gaussian-overwrite init")

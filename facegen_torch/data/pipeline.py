@@ -106,8 +106,8 @@ def make_source(cfg, device, holdout: int = 0) -> DataSource:
     path = lfw.default_store_path(cfg.aws, cfg.dataset_dir)
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"packed dataset {path!r} not found; build it with facegen's "
-            "`python -m facegen.data.lfw --path=/path/to/lfw` or pass --syntheticData"
+            f"packed dataset {path!r} not found; build it with "
+            "`python -m facegen_torch.data.lfw --path=/path/to/lfw` or pass --syntheticData"
         )
     store = torch.from_numpy(np.array(lfw.load_store(path))).to(device)
     return DataSource(cfg.scale, cfg.channels, device, store=store, holdout=holdout)

@@ -13,7 +13,7 @@ defines it (``body.10_dropout`` -> ``01_body.10_dropout``).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -66,11 +66,19 @@ def dropout_mask_specs(model: nn.Module, batch: int, in_shape, device=None
 
 
 def draw_masks(generator: torch.Generator,
-               specs: Mapping[str, Tuple[Tuple[int, ...], float]]) -> Dict[str, torch.Tensor]:
+               specs: Mapping[str, Tuple[Tuple[int, ...], float]],
+               out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """One keep-mask per layer of ``specs`` (``dropout_mask_specs``), drawn
-    in order on the generator's device."""
-    return {name: torch.rand(shape, generator=generator, device=generator.device) < 1.0 - rate
-            for name, (shape, rate) in specs.items()}
+    in order on the generator's device. With ``out`` (bool masks of those
+    shapes, e.g. a CUDA graph's static buffers) the masks are written into
+    its tensors, with the same values."""
+    dev = generator.device
+    if out is None:
+        out = {name: torch.empty(shape, dtype=torch.bool, device=dev)
+               for name, (shape, _) in specs.items()}
+    for name, (shape, rate) in specs.items():
+        torch.lt(torch.rand(shape, generator=generator, device=dev), 1.0 - rate, out=out[name])
+    return out
 
 
 def set_dropout_masks(model: nn.Module, masks: Mapping[str, torch.Tensor]) -> None:

@@ -135,12 +135,11 @@ class UpsampleConv(nn.Module):
     """Fused nearest-upsample(2) + same-pad KxK conv (K = 3 or 5), G's
     pyramid op. Parameters as ``Conv2d``.
 
-    Where autograd needs gradients, the collapsed weight is recomputed
-    from the weight on every call, under autograd (its einsum's backward
-    is the un-collapse), and ``UpsampleConvFunction`` runs the forward,
-    dx and dW kernels. Otherwise (eval, or training's no-grad D-phase
-    forward) the collapsed weight is computed once per weight version
-    and dtype and cached here."""
+    The collapsed weight is computed from the weight on every call: under
+    autograd where gradients are needed (its einsum's backward is the
+    un-collapse), and ``UpsampleConvFunction`` runs the forward, dx and dW
+    kernels; otherwise (eval, or training's no-grad D-phase forward) the
+    forward kernel alone."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 5,
                  w_std: Optional[float] = None, *, generator: torch.Generator, device=None):
@@ -152,28 +151,19 @@ class UpsampleConv(nn.Module):
             scale, generator))
         self.bias = nn.Parameter(uniform_(
             torch.empty(out_channels, device=device), scale, generator))
-        self._collapsed = None  # (cache key, collapsed weight)
 
     def collapsed_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        # _version moves on every in-place write (load_state_dict, optimizer
-        # steps) and data_ptr on every move: either one invalidates the cache
-        key = (self.weight._version, self.weight.data_ptr(), self.weight.device, dtype)
-        if self._collapsed is None or self._collapsed[0] != key:
-            with torch.no_grad():
-                # cast first, then sum in fp32, like facegen's
-                # collapse_weights(w.astype(x.dtype))
-                wc = collapse_weights(self.weight.to(dtype)).contiguous()
-            self._collapsed = (key, wc)
-        return self._collapsed[1]
+        # cast first, then sum in fp32, like facegen's
+        # collapse_weights(w.astype(x.dtype))
+        return collapse_weights(self.weight.to(dtype)).contiguous()
 
     def forward(self, x):
         x = x.contiguous()
-        b = self.bias.to(x.dtype)
+        wc, b = self.collapsed_weight(x.dtype), self.bias.to(x.dtype)
         if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
                                         or self.bias.requires_grad):
-            wc = collapse_weights(self.weight.to(x.dtype)).contiguous()
             return UpsampleConvFunction.apply(x, wc, b)
-        return upsample_conv(x, self.collapsed_weight(x.dtype), b)
+        return upsample_conv(x, wc, b)
 
 
 class PReLU(nn.Module):

@@ -34,7 +34,11 @@ from facegen_torch.ops import _build
 
 # Launches of each CUDA kernel in this process (forward, input gradient,
 # weight gradient). Incremented only where the kernel is launched, so a
-# run can show it went through the kernels.
+# run can show it went through the kernels. A launch captured into a CUDA
+# graph runs on every replay: train/graph.py takes back what its capture
+# counted and adds it on each replay, so under a graph the counts are
+# derived from the capture, not observed at launch; the graph's parity with
+# eager steps is what shows that the replayed kernels ran.
 KERNEL_LAUNCHES = 0
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
@@ -71,11 +75,18 @@ def _collapse_matrix(kernel: int) -> np.ndarray:
     return c
 
 
+@functools.lru_cache(maxsize=None)
+def _collapse_tensor(kernel: int, device: torch.device) -> torch.Tensor:
+    """``_collapse_matrix`` on ``device``, copied there once: a copy from
+    the host inside a CUDA graph's capture would fail."""
+    return torch.from_numpy(_collapse_matrix(kernel)).to(device)
+
+
 def collapse_weights(w: torch.Tensor) -> torch.Tensor:
     """OIHW (Cout, Cin, K, K) -> the collapsed GEMM weight (9*Cin, 4*Cout),
     summed in fp32 and returned in w's dtype."""
     cout, cin, k, _ = w.shape
-    c = torch.from_numpy(_collapse_matrix(k)).to(w.device)
+    c = _collapse_tensor(k, w.device)
     # wc[u, v, i, a, b, o] = sum_{ky,kx} C[a,ky,u] C[b,kx,v] w[o,i,ky,kx]
     wc = torch.einsum("aku,blv,oikl->uviabo", c, c, w.float())
     return wc.reshape(9 * cin, 4 * cout).to(w.dtype)

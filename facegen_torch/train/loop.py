@@ -1,16 +1,25 @@
 """Epoch loop (counterpart of facegen/train/loop.py:52-492, single
-device, one epoch at a time).
+device).
 
 Per epoch (train.lua:199-208):
   1. draw a fresh pool on the device (TRAIN_DATA);
   2. write the progress grids unless --noplot;
-  3. run the epoch's steps, whose metrics stay on the device until the
-     epoch ends and are fetched once;
+  3. run the epoch's steps through the captured step (train/graph.py),
+     whose metrics stay on the device; with --weightsVisFreq N, dump
+     activation grids every N steps and after the last;
   4. print the time per sample, the gate counters and the confusion
      matrix (adversarial.lua:302-316), append a metrics.jsonl row, reset
      the counters;
   5. every saveFreq epochs, checkpoint with ``.old`` rotation
      (adversarial.lua:319-329); a bounded run also saves at its end.
+
+--epochsPerCompile N trains N epochs as one chunk (facegen's
+``train_epochs_chunk``): the pools of the chunk are drawn first, the
+grids written once on the first, and the chunk's results are read back
+once; every epoch still gets its metrics.jsonl row, and the checkpoint
+is saved once at the end of a chunk that crossed a saveFreq boundary.
+0 means 8 under --noplot without --weightsVisFreq, else 1, as in facegen.
+A chunk trains the same steps on the same draws as N single epochs.
 
 With ``--denoise`` the grids include ``samples_denoised.png``: G's fixed
 samples through the denoiser trained at the run's scale and channels
@@ -27,7 +36,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
 
 import torch
 
@@ -36,13 +45,15 @@ from facegen_torch.data.pipeline import make_source
 from facegen_torch.models import ae, gan
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.train import metrics as M
+from facegen_torch.train.graph import GraphedStep
 from facegen_torch.train.step import (
     StepMetrics,
     TrainStep,
-    draw_step,
+    epoch_summary,
     init_state,
     reset_epoch_stats,
     steps_per_epoch,
+    summaries_to_host,
 )
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.infer import GanInference
@@ -50,6 +61,20 @@ from facegen_torch.utils.profiling import MetricsLogger
 from facegen_torch.utils.viz import visualize_progress
 
 CKPT_NAME = "adversarial"  # logs/adversarial.net in the reference
+
+
+def resolve_epochs_per_compile(cfg: TrainConfig, log) -> int:
+    """Epochs per chunk (facegen/train/loop.py:102-118): --epochsPerCompile
+    <= 0 is 8 under --noplot without --weightsVisFreq, else 1; the
+    segmented epoch of --weightsVisFreq takes one epoch at a time."""
+    epc = cfg.epochs_per_compile
+    if epc <= 0:
+        epc = 8 if (cfg.noplot and cfg.weights_vis_freq == 0) else 1
+    if epc > 1 and cfg.weights_vis_freq > 0:
+        log("<trainer> epochsPerCompile ignored: weightsVisFreq needs the segmented per-epoch "
+            "path")
+        epc = 1
+    return epc
 
 
 class Trainer:
@@ -70,13 +95,13 @@ class Trainer:
         self.step = TrainStep(cfg, g, d)
         self.inf = GanInference(g, d, cfg.noise_dim, getattr(torch, cfg.compute_dtype))
         self.pool_n = cfg.n_epoch if cfg.n_epoch > 0 else self.source.size
+        self.graphed = GraphedStep(self.step, self.state, self.pool_n, log=self._log)
+        self.epochs_per_compile = resolve_epochs_per_compile(cfg, self._log)
+        self.readbacks = 0  # device-to-host reads of epoch results, one per chunk
         # fixed noise for comparable per-epoch samples (train.lua:195)
         self.fixed_noise = self.inf.noise(seeded_generator("cpu", cfg.seed, 999), 100)
         self.metrics_log = MetricsLogger(cfg.save)
         self.denoiser = ae.load_denoiser_fn(cfg, self.device) if cfg.denoise else None
-        if cfg.epochs_per_compile:
-            self._log(f"<trainer> --epochsPerCompile {cfg.epochs_per_compile} ignored: the "
-                      f"port runs eagerly, one epoch at a time")
         if cfg.network:
             self.resume(cfg.network)
 
@@ -103,69 +128,126 @@ class Trainer:
     # -- training ------------------------------------------------------------
     def run_steps(self, pool: torch.Tensor, generator: torch.Generator,
                   n_steps: int) -> StepMetrics:
-        """``n_steps`` steps on ``pool``; their metrics stacked on the device."""
-        ms = [self.step(self.state, pool,
-                        draw_step(generator, self.cfg, pool.shape[0], self.step.mask_specs))
-              for _ in range(n_steps)]
-        return StepMetrics(*(torch.stack(xs) for xs in zip(*ms)))
+        """``n_steps`` steps on ``pool`` through the captured step; their
+        metrics stacked on the device."""
+        self.graphed.set_pool(pool)
+        return self.graphed.run(generator, n_steps)
+
+    def _epoch_generators(self, epoch_idx: int) -> List[torch.Generator]:
+        """The epoch's (pool, steps, grids) generators, the same in a chunk
+        and alone."""
+        return [seeded_generator(self.device, self.cfg.seed, 10_000 + epoch_idx, k)
+                for k in range(3)]
+
+    def _epoch_steps(self, pool: torch.Tensor, generator: torch.Generator,
+                     n_steps: int) -> StepMetrics:
+        """One epoch's steps; with --weightsVisFreq N, N steps at a time,
+        each segment followed by an activation dump (_segmented_epoch,
+        facegen/train/loop.py:401-436). The segments draw on from the same
+        generator, so they train what one run of n_steps trains."""
+        freq = self.cfg.weights_vis_freq
+        if freq <= 0:
+            return self.run_steps(pool, generator, n_steps)
+        parts, done = [], 0
+        while done < n_steps:
+            seg = min(freq, n_steps - done)
+            parts.append(self.run_steps(pool, generator, seg))
+            done += seg
+            self._netvis_dump(pool, done)
+        return StepMetrics(*(torch.cat(xs) for xs in zip(*parts)))
+
+    def _netvis_dump(self, pool: torch.Tensor, step_idx: int):
+        """Activation grids (visualizeNetwork, adversarial.lua:348-406) of D
+        on the pool's first 4 images and of G on the first 4 fixed noise
+        vectors, under ``<save>/viz/netvis/e{epoch:04d}_s{step:05d}/`` and
+        its ``g/`` (facegen/train/loop.py:438-457)."""
+        from facegen_torch.utils.netvis import visualize_network
+
+        out_dir = os.path.join(self.cfg.save, "viz", "netvis",
+                               f"e{self.state.epoch:04d}_s{step_idx:05d}")
+        probe = pool[: min(4, pool.shape[0])].float() / 255.0
+        visualize_network(self.state.d, probe, out_dir)
+        noise = self.fixed_noise[: probe.shape[0]].to(self.device)
+        visualize_network(self.state.g, noise, os.path.join(out_dir, "g"))
 
     def train_epoch(self, epoch_idx: int) -> dict:
-        cfg, dev = self.cfg, self.device
+        return self.train_epochs_chunk(epoch_idx, 1)[0]
+
+    def train_epochs_chunk(self, start_idx: int, n: int) -> List[dict]:
+        """Train epochs ``start_idx`` .. ``start_idx + n - 1`` (0-based
+        indices of the random streams) with one read-back of their results;
+        returns each epoch's stats."""
+        cfg = self.cfg
+        gens = [self._epoch_generators(start_idx + j) for j in range(n)]
         self._log("Loading new training data...")
-        pool = self.source.epoch_pool(seeded_generator(dev, cfg.seed, 10_000 + epoch_idx, 0),
-                                      self.pool_n)
+        pools = [self.source.epoch_pool(g[0], self.pool_n) for g in gens]
         if not cfg.noplot:
             report = visualize_progress(
-                self.inf, self.fixed_noise, pool, os.path.join(cfg.save, "viz"),
-                seeded_generator(dev, cfg.seed, 10_000 + epoch_idx, 2),
+                self.inf, self.fixed_noise, pools[0], os.path.join(cfg.save, "viz"), gens[0][2],
                 denoiser=self.denoiser, epoch=self.state.epoch, window=cfg.window)
             self._log(f"<viz> probe ranks/300: real={report['real_probe_rank']} "
                       f"synth={report['synth_probe_rank']}")
 
         n_steps = steps_per_epoch(cfg, self.pool_n)
-        self._log(f"<trainer> Epoch #{self.state.epoch} [batchSize = {cfg.batch_size}]")
+        epoch_before = self.state.epoch
+        if n == 1:
+            self._log(f"<trainer> Epoch #{epoch_before} [batchSize = {cfg.batch_size}]")
+        else:
+            self._log(f"<trainer> Epochs #{epoch_before}-#{epoch_before + n - 1} "
+                      f"[batchSize = {cfg.batch_size}, epochsPerCompile = {n}]")
         t0 = time.perf_counter()
-        ms = self.run_steps(pool, seeded_generator(dev, cfg.seed, 10_000 + epoch_idx, 1), n_steps)
-        # the epoch's one read-back, which also waits for the device
-        host = {k: v.cpu().numpy() for k, v in ms._asdict().items()}
-        trained, not_trained = int(self.state.trained_d), int(self.state.not_trained_d)
-        conf = self.state.confusion.cpu().numpy()
+        summaries = []
+        for pool, g in zip(pools, gens):
+            ms = self._epoch_steps(pool, g[1], n_steps)
+            summaries.append(epoch_summary(self.state, ms))
+            reset_epoch_stats(self.state)
+            self.state.epoch += 1
+        # the chunk's one read-back, which also waits for the device
+        summaries = summaries_to_host(summaries)
+        self.readbacks += 1
         dt = time.perf_counter() - t0
+        del pools
 
         n_examples = cfg.n_epoch if cfg.n_epoch > 0 else self.pool_n
-        self._log(f"<trainer> time required for this epoch = {dt:.3f} s")
-        self._log(f"<trainer> time to learn 1 sample = {1000 * dt / n_examples:.4f} ms")
-        self._log(f"<trainer> trained D {trained} of {trained + not_trained} times.")
-        self._log(M.format_confusion(conf))
-        self.state.epoch += 1
-        stats = {
-            "epoch": self.state.epoch - 1,
-            "seconds": dt,
-            "images_per_sec": n_examples / dt,
-            "loss_d_mean": float(host["loss_d"].mean()),
-            "loss_g_mean": float(host["loss_g"].mean()),
-            "acc_d_mean": float(host["acc_d"].mean()),
-            "total_valid": M.total_valid(conf),
-            "trained_d": trained,
-            "not_trained_d": not_trained,
-        }
-        reset_epoch_stats(self.state)
-        self.metrics_log.log(stats)
-        if (self.state.epoch - 1) % cfg.save_freq == 0:
+        self._log(f"<trainer> time required for {'this epoch' if n == 1 else f'{n} epochs'} "
+                  f"= {dt:.3f} s")
+        self._log(f"<trainer> time to learn 1 sample = {1000 * dt / (n * n_examples):.4f} ms")
+        all_stats = []
+        for j, s in enumerate(summaries):
+            self._log(f"<trainer> {'' if n == 1 else f'epoch #{epoch_before + j}: '}trained D "
+                      f"{s.trained_d} of {s.trained_d + s.not_trained_d} times.")
+            self._log(M.format_confusion(s.confusion))
+            stats = {
+                "epoch": epoch_before + j,
+                "seconds": dt / n,
+                "images_per_sec": n * n_examples / dt,
+                "loss_d_mean": s.loss_d,
+                "loss_g_mean": s.loss_g,
+                "acc_d_mean": s.acc_d,
+                "total_valid": s.total_valid,
+                "trained_d": s.trained_d,
+                "not_trained_d": s.not_trained_d,
+            }
+            self.metrics_log.log(stats)
+            all_stats.append(stats)
+        # every saveFreq epochs (adversarial.lua:319); a chunk keeps only its
+        # last state, so it saves once if it crossed a boundary
+        if any((epoch_before + j) % cfg.save_freq == 0 for j in range(n)):
             self.save()
-        return stats
+        return all_stats
 
     def run(self, epochs: Optional[int] = None) -> Iterator[dict]:
         """Train ``epochs`` epochs (default --epochs; -1 runs forever like
-        the reference's ``while true``), yielding each epoch's stats. A
-        bounded run saves once more at its end unless its last epoch
-        just saved."""
+        the reference's ``while true``), in chunks of --epochsPerCompile,
+        yielding each epoch's stats. A bounded run saves once more at its
+        end unless its last epoch just saved."""
         n = epochs if epochs is not None else (self.cfg.epochs if self.cfg.epochs > 0 else None)
         start = self.state.epoch - 1
         i = 0
         while n is None or i < n:
-            yield self.train_epoch(start + i)
-            i += 1
+            chunk = self.epochs_per_compile if n is None else min(self.epochs_per_compile, n - i)
+            yield from self.train_epochs_chunk(start + i, chunk)
+            i += chunk
         if (self.state.epoch - 1) % self.cfg.save_freq != 0:
             self.save()
 
@@ -178,12 +260,11 @@ def main(argv=None, device=None) -> Trainer:
     """The trainer CLI, ``python -m facegen_torch.train``: facegen's flags
     and defaults (batch 32, Adam, D_L2 1e-4, D clamp 1, G clamp 5, bf16
     activations over fp32 parameters, 1000 examples or 63 steps per
-    epoch) on ``cuda:{--gpu}``; it exits with an error without a GPU.
-    Flags of paths that are not ported exit with a message that says so:
-    --meshShape other than one device, --weightsVisFreq > 0,
-    --boundaryPad > 0. --epochsPerCompile is accepted and ignored.
-    ``device`` lets the tests run it on the CPU; the command line has no
-    such flag."""
+    epoch) on ``cuda:{--gpu}``, every step after the first few through a
+    CUDA graph; it exits with an error without a GPU. Flags of paths that
+    are not ported exit with a message that says so: --meshShape other
+    than one device, --boundaryPad > 0. ``device`` lets the tests run it
+    on the CPU; the command line has no such flag."""
     from facegen_torch.config import cli_device, train_config_from_args
 
     cfg = train_config_from_args(argv)

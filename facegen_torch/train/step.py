@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -113,23 +114,84 @@ def steps_per_epoch(cfg: TrainConfig, pool_size: Optional[int] = None) -> int:
     return max(count, 1)
 
 
-def draw_step(generator: torch.Generator, cfg: TrainConfig, pool_n: int,
-              mask_specs: Dict[str, Tuple[Tuple[int, ...], float]]) -> StepDraws:
-    """One step's draws from ``generator``, on its device. ``mask_specs``
-    maps each of D's dropout layers to its mask shape at the full batch
-    and its rate (``TrainStep.mask_specs``)."""
-    dev = generator.device
+def empty_draws(cfg: TrainConfig, mask_specs: Dict[str, Tuple[Tuple[int, ...], float]],
+                device) -> StepDraws:
+    """Uninitialised buffers of one step's draws, for ``draw_step(out=)``."""
+    half = cfg.batch_size // 2
+
+    def masks():
+        return {name: torch.empty(shape, dtype=torch.bool, device=device)
+                for name, (shape, _) in mask_specs.items()}
 
     def noise(n):
-        return torch.rand(n, cfg.noise_dim, generator=generator, device=dev) * 2.0 - 1.0
+        return torch.empty(n, cfg.noise_dim, device=device)
 
-    half = cfg.batch_size // 2
-    d = tuple(DDraws(torch.randint(0, pool_n, (half,), generator=generator, device=dev),
-                     noise(half), dropout.draw_masks(generator, mask_specs))
-              for _ in range(cfg.d_iterations))
-    g = tuple(GDraws(noise(cfg.batch_size), dropout.draw_masks(generator, mask_specs))
-              for _ in range(cfg.g_iterations))
-    return StepDraws(d, g)
+    return StepDraws(
+        tuple(DDraws(torch.empty(half, dtype=torch.int64, device=device), noise(half), masks())
+              for _ in range(cfg.d_iterations)),
+        tuple(GDraws(noise(cfg.batch_size), masks()) for _ in range(cfg.g_iterations)))
+
+
+def draw_step(generator: torch.Generator, cfg: TrainConfig, pool_n: int,
+              mask_specs: Dict[str, Tuple[Tuple[int, ...], float]],
+              out: Optional[StepDraws] = None) -> StepDraws:
+    """One step's draws from ``generator``, on its device. ``mask_specs``
+    maps each of D's dropout layers to its mask shape at the full batch
+    and its rate (``TrainStep.mask_specs``). With ``out`` (``empty_draws``,
+    e.g. a CUDA graph's static buffers) they are written into its tensors:
+    the same values, drawn in the same order."""
+    dev = generator.device
+    if out is None:
+        out = empty_draws(cfg, mask_specs, dev)
+
+    def noise(buf):  # U(-1, 1)
+        torch.rand(buf.shape, generator=generator, device=dev, out=buf)
+        buf.mul_(2.0).sub_(1.0)
+
+    for dd in out.d:
+        torch.randint(0, pool_n, dd.idx.shape, generator=generator, device=dev, out=dd.idx)
+        noise(dd.noise)
+        dropout.draw_masks(generator, mask_specs, out=dd.masks)
+    for gd in out.g:
+        noise(gd.noise)
+        dropout.draw_masks(generator, mask_specs, out=gd.masks)
+    return out
+
+
+class EpochSummary(NamedTuple):
+    """One epoch's results (facegen/train/step.py:465-473), made on the
+    device before the epoch's counters are reset, so that a chunk of
+    epochs is read back once (``summaries_to_host``)."""
+
+    loss_d: torch.Tensor         # the epoch's means
+    loss_g: torch.Tensor
+    acc_d: torch.Tensor
+    total_valid: torch.Tensor    # fp64: the confusion matrix's share of right predictions
+    trained_d: torch.Tensor
+    not_trained_d: torch.Tensor
+    confusion: torch.Tensor      # (2, 2) int32
+
+
+def epoch_summary(state: GanState, ms: StepMetrics) -> EpochSummary:
+    """The summary of the epoch whose steps' metrics are ``ms`` and whose
+    counters ``state`` holds."""
+    c = state.confusion.clone()
+    total_valid = (c[0, 0] + c[1, 1]).double() / c.sum().clamp(min=1).double()
+    return EpochSummary(ms.loss_d.mean(), ms.loss_g.mean(), ms.acc_d.mean(), total_valid,
+                        state.trained_d.clone(), state.not_trained_d.clone(), c)
+
+
+def summaries_to_host(summaries) -> list:
+    """EpochSummary tuples of Python numbers (the confusion a numpy (2, 2)
+    int32 array), read back in one copy: every field goes into one fp64
+    row (counts are exact there)."""
+    rows = torch.stack([torch.cat([torch.stack([x.double() for x in s[:6]]),
+                                   s.confusion.reshape(4).double()]) for s in summaries])
+    out = []
+    for r in rows.cpu().numpy():
+        out.append(EpochSummary(*(float(v) for v in r[:4]), int(r[4]), int(r[5]),
+                                r[6:].astype(np.int32).reshape(2, 2)))
+    return out
 
 
 class TrainStep:

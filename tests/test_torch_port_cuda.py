@@ -428,3 +428,200 @@ def test_load_denoiser_fn_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         torch.backends.cudnn.allow_tf32 = False
     assert ours.dtype == torch.float32 and float(ref.std()) > 1e-3
     torch.testing.assert_close(ours.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+def _gan_step(device, cfg, seed=5):
+    """A G32 + D32b training state and step, the same on every call. G's
+    biases are drawn nonzero: with --G_L2 1e-3 (and the reference's
+    sign-term bug) the penalty then sets the gradients of the
+    upsample-convs' biases, which feed batch norms and are otherwise
+    rounding noise that Adam turns into a whole step of either sign
+    (cuDNN's weight gradients need not sum in the same order twice)."""
+    from facegen_torch.train.step import TrainStep, init_state
+
+    g, d = gan.init_gan(torch.Generator().manual_seed(seed), cfg.scale, cfg.channels,
+                        cfg.noise_dim, reference_init=False, device=device)
+    bias_gen = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for name, p in g.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.rand(p.shape, generator=bias_gen) * 0.2 - 0.1)
+    return init_state(cfg, g, d), TrainStep(cfg, g, d)
+
+
+def _gan_pool(device, n=256):
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+
+    return prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), n), 32, 3).to(device)
+
+
+def _eager_steps(state, step, pool, generator, n):
+    from facegen_torch.train.step import draw_step
+
+    for _ in range(n):
+        step(state, pool, draw_step(generator, step.cfg, pool.shape[0], step.mask_specs))
+
+
+def _assert_states_close(a, b, tol):
+    """Parameters, statistics and Adam's moments within ``tol`` relative l2
+    per network; counts, counters, ring and confusion equal."""
+    for net in ("g", "d"):
+        ours, ref = getattr(a, net).state_dict(), getattr(b, net).state_dict()
+        assert _rel_l2(list(ours.values()), [t.cpu() for t in ref.values()]) <= tol, net
+        opt_a, opt_b = getattr(a, f"opt_{net}"), getattr(b, f"opt_{net}")
+        assert torch.equal(opt_a["count"], opt_b["count"])
+        for kind in ("mu", "nu"):
+            assert _rel_l2(opt_a[kind], [t.cpu() for t in opt_b[kind]]) <= tol, (net, kind)
+    for key in ("accs_n", "confusion", "trained_d", "not_trained_d"):
+        assert torch.equal(getattr(a, key), getattr(b, key)), key
+    assert _rel_l2([a.accs], [b.accs.cpu()]) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-3)])
+def test_graphed_steps_match_eager_steps(cuda_device, dtype, tol):
+    """3 steps through the CUDA graph (one eager warm-up, the capture, two
+    replays) against 3 eager steps from the same state and draws: fp32
+    (TF32 off) within 1e-5 relative l2, bf16 within 1e-3; counters equal."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import WARMUP_STEPS, GraphedStep
+
+    cfg = TrainConfig(compute_dtype=dtype, reference_init=False, g_l2=1e-3).validate()
+    pool = _gan_pool(cuda_device)
+    eager, eager_step = _gan_step(cuda_device, cfg)
+    graphed, graphed_step = _gan_step(cuda_device, cfg)
+    _eager_steps(eager, eager_step, pool, torch.Generator(cuda_device).manual_seed(7), 3)
+    runner = GraphedStep(graphed_step, graphed, pool.shape[0])
+    runner.set_pool(pool)
+    ms = runner.run(torch.Generator(cuda_device).manual_seed(7), 3)
+    torch.cuda.synchronize()
+    assert runner.graph is not None and runner.eager_steps == WARMUP_STEPS == 1
+    assert ms.loss_d.shape == (3,) and bool(torch.isfinite(ms.loss_g).all())
+    assert int(graphed.trained_d) + int(graphed.not_trained_d) == 3
+    _assert_states_close(graphed, eager, tol)
+
+
+@pytest.mark.cuda
+def test_graphed_steps_equal_eager_steps_with_deterministic_cudnn(cuda_device):
+    """At the setting where two eager runs differ when cuDNN chooses its
+    algorithms freely (scheme init, zero G biases, --G_L2 0; fp32, TF32
+    off), with cuDNN's deterministic algorithms 3 graphed steps equal 3
+    eager steps bit for bit: the replay itself adds no difference."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import TrainStep, init_state
+
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False).validate()
+    pool = _gan_pool(cuda_device)
+
+    def build():
+        g, d = gan.init_gan(torch.Generator().manual_seed(5), cfg.scale, cfg.channels,
+                            cfg.noise_dim, reference_init=False, device=cuda_device)
+        return init_state(cfg, g, d), TrainStep(cfg, g, d)
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, eager_step = build()
+        _eager_steps(eager, eager_step, pool, torch.Generator(cuda_device).manual_seed(7), 3)
+        graphed, graphed_step = build()
+        runner = GraphedStep(graphed_step, graphed, pool.shape[0])
+        runner.set_pool(pool)
+        runner.run(torch.Generator(cuda_device).manual_seed(7), 3)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert runner.graph is not None
+    _assert_states_close(graphed, eager, 0.0)
+
+
+@pytest.mark.cuda
+def test_graphed_draws_and_launch_counts(cuda_device):
+    """The static draws hold draw_step's draws of the last step, and the
+    kernel counters after a warm-up step and 4 replays read 5 eager steps'
+    launches."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import draw_step
+
+    cfg = TrainConfig().validate()
+    pool = _gan_pool(cuda_device)
+    state, step = _gan_step(cuda_device, cfg)
+    counts = lambda: (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES)  # noqa: E731
+    before = counts()
+    _eager_steps(state, step, pool, torch.Generator(cuda_device).manual_seed(1), 1)
+    per_step = tuple(b - a for a, b in zip(before, counts()))
+    assert per_step == (4, 2, 2)
+    runner = GraphedStep(step, state, pool.shape[0])
+    runner.set_pool(pool)
+    before = counts()
+    runner.run(torch.Generator(cuda_device).manual_seed(2), 5)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, counts())) == tuple(5 * n for n in per_step)
+    assert runner.launches_per_replay == dict(zip(("KERNEL_LAUNCHES", "DX_LAUNCHES",
+                                                   "DW_LAUNCHES"), per_step))
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    for _ in range(5):
+        want = draw_step(gen, cfg, pool.shape[0], step.mask_specs)
+    for a, b in zip(want.d + want.g, runner.draws.d + runner.draws.g):
+        for x, y in zip(a, b):
+            if isinstance(x, dict):
+                assert all(torch.equal(x[k], y[k]) for k in x)
+            else:
+                assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_resume_then_graphed_steps_match_eager_steps(cuda_device, tmp_path):
+    """A checkpoint loaded in place under a GraphedStep made before the
+    load, then 3 graphed steps, against the same load and 3 eager steps
+    (fp32, TF32 off, 1e-5)."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.utils import checkpoint as ckpt
+
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
+    pool = _gan_pool(cuda_device)
+    first, first_step = _gan_step(cuda_device, cfg)
+    _eager_steps(first, first_step, pool, torch.Generator(cuda_device).manual_seed(3), 2)
+    ckpt.save_train_state(str(tmp_path), "adversarial", first)
+    graphed, graphed_step = _gan_step(cuda_device, cfg, seed=9)
+    runner = GraphedStep(graphed_step, graphed, pool.shape[0])
+    ckpt.load_train_state(str(tmp_path), "adversarial", graphed)
+    eager, eager_step = _gan_step(cuda_device, cfg, seed=9)
+    ckpt.load_train_state(str(tmp_path), "adversarial", eager)
+    runner.set_pool(pool)
+    runner.run(torch.Generator(cuda_device).manual_seed(4), 3)
+    _eager_steps(eager, eager_step, pool, torch.Generator(cuda_device).manual_seed(4), 3)
+    torch.cuda.synchronize()
+    assert int(graphed.opt_d["count"]) == 5
+    _assert_states_close(graphed, eager, 1e-5)
+
+
+@pytest.mark.cuda
+def test_eval_forward_after_replays_sees_the_new_weights(cuda_device):
+    """A replay writes G's weights in place: G's eval-mode forward after
+    replays must give what a copy of G made after them gives (the grids and
+    the activation dumps run between an epoch's replays)."""
+    import copy
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+
+    cfg = TrainConfig().validate()
+    pool = _gan_pool(cuda_device)
+    state, step = _gan_step(cuda_device, cfg)
+    runner = GraphedStep(step, state, pool.shape[0])
+    runner.set_pool(pool)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    noise = (torch.rand(8, 100, generator=torch.Generator().manual_seed(4)) * 2 - 1).to(cuda_device)
+    inf = GanInference(state.g, state.d, 100)
+    runner.run(gen, 3)  # a warm-up step, the capture, 2 replays
+    state.g.eval()  # as visualize_progress sets it; the train step leaves G in train mode
+    before = inf.generate(noise)
+    runner.run(gen, 2)
+    got = inf.generate(noise)
+    want = GanInference(copy.deepcopy(state.g), state.d, 100).generate(noise)
+    assert not torch.equal(got, before)
+    assert torch.equal(got, want)

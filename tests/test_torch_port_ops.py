@@ -86,9 +86,12 @@ def test_other_devices_raise_instead_of_falling_back():
 
 
 def test_layer_caches_the_collapsed_weight_until_the_weight_changes():
+    """The collapsed weight is computed on every call, so it follows every
+    in-place write to the weight (an optimizer step, a load, a graph
+    replay) at once."""
     layer = UpsampleConv(8, 8, 5, generator=torch.Generator().manual_seed(0)).eval()
     wc = layer.collapsed_weight(torch.float32)
-    assert layer.collapsed_weight(torch.float32) is wc
+    assert torch.equal(layer.collapsed_weight(torch.float32), wc)
     with torch.no_grad():
         layer.weight.mul_(2.0)
     wc2 = layer.collapsed_weight(torch.float32)

@@ -148,7 +148,6 @@ def test_cli_parses_like_jax(argv):
     (["--meshShape", "4"], "not ported yet"), (["--meshShape", "2,2"], "not ported yet"),
     # --denoise is ported (tests/test_torch_port_ae.py); on several devices it is not
     (["--denoise", "--meshShape", "2"], "not ported yet"),
-    (["--weightsVisFreq", "5"], "not ported yet"),
     (["--boundaryPad", "8"], "not ported"), (["--batchSize", "5"], "multiple of 2"),
 ])
 def test_cli_rejects_what_is_not_ported(argv, message, capsys):
