@@ -87,7 +87,27 @@ Phases, each printing its own lines; any failure exits non-zero:
     after steps 16, 32, 48 and 63, each with D's and G's PNGs;
 17. the LFW store builder: ``python -m facegen_torch.data.lfw`` on a tree
     of 256 seeded 250x250 JPEGs in 32 person directories, the store's
-    shape and type, and one epoch of ``train.main`` on it.
+    shape and type, and one epoch of ``train.main`` on it;
+18. data parallel, a 1-rank NCCL group: ``python -m facegen_torch.train
+    --meshShape -1`` at the default flags as the one rank of a group
+    (FACEGEN_COORDINATOR on a free local port), 2 epochs with --saveFreq
+    1: the route (the all-reduces inside the CUDA graph), every kernel's
+    launches, metrics.jsonl and the checkpoints; then, in this process,
+    a 1-rank NCCL group's graphed step against the single-device graphed
+    step, 3 steps from one state in fp32 (TF32 off) under cuDNN's
+    deterministic algorithms (bit-equal), and both timed at the default
+    flags on the stream and profiled (busy share);
+19. data parallel, two ranks sharing the card over gloo (NCCL refuses
+    two ranks on one device), run as two processes of this script
+    (``--dp-gloo-rank``), and the same 2-rank program on the CPU: 3 fp32
+    steps (cuDNN deterministic) at the default flags (local batch 16) on
+    per-rank draws from numpy; the card's ranks bit-equal, the card against the CPU within
+    the tolerances, the launches by shape (the forward at N = 8 and 16,
+    dx and dW at N = 16) and the gloo step's time at the default flags;
+20. data-parallel serving: ``run_sampling`` on two replicas sharing the
+    card (--runs 2 --neighbours) against one device from the same seed:
+    the files, the launches, the wall time; the replicas' images, scores
+    and neighbours against one device's in fp32 and in bf16.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -140,6 +160,11 @@ WMMA_DW_MS = {(32, 8, 128, 256): 0.0806, (32, 16, 256, 128): 0.2714}
 # phase (N = 16), the G phase (N = 32) and the progress grids (100, 300)
 FWD_TRAIN_SHAPES = [(n, h, cin, cout, 5) for n in (16, 32, 100, 300)
                     for h, cin, cout in ((8, 128, 256), (16, 256, 128))]
+# G32's two layers at the local batch of a 2-rank data-parallel step
+# (global batch 32): the forward at N = 8 in the D phase and 16 in the G
+# phase, dx and dW at N = 16
+DP_FWD_SHAPES = [(8, 8, 128, 256, 5), (8, 16, 256, 128, 5)]
+DP_BWD_SHAPES = [(16, 8, 128, 256, 5), (16, 16, 256, 128, 5)]
 
 FP32_TOL = 1e-4       # fp32 accumulate on both sides; TF32 off
 BF16_ATOL = 2e-2      # plus the bf16 output rounding, half an ulp:
@@ -192,6 +217,14 @@ REFINE_TOL = 2e-4
 # shows as ~4e-3 of that entry
 GRAPH_FP32_TOL = 1e-5
 GRAPH_BF16_TOL = 1e-3
+# 2 ranks sharing the card over gloo against the same 2-rank program on
+# the CPU, 3 fp32 steps (TF32 off, cuDNN deterministic), relative l2 per
+# network: the parameters' change and Adam's moments within 1e-3;
+# counters and confusion equal; the card's two ranks bit-equal
+DP_TOL = 1e-3
+# the sampler on 2 replicas against one device, fp32 with TF32 off: the
+# same convs on half the batch, where cuDNN may choose other algorithms
+DP_SERVE_FP32_TOL = 1e-5
 
 # the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -335,7 +368,7 @@ def phase_kernels():
 
     max_err = {"train": 0.0, "sampler": 0.0, "c2f": 0.0}  # bf16, at the paths' shapes
     for si, (n, h, cin, cout, k) in enumerate(G_SHAPES + FWD_TRAIN_SHAPES + G16_SHAPES
-                                              + ODD_SHAPES):
+                                              + ODD_SHAPES + DP_FWD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, b = _inputs(n, h, cin, cout, k, dtype, seed=si)
             wc = uc.collapse_weights(w)
@@ -365,7 +398,8 @@ def phase_kernels():
     # one library call (cuDNN's phase conv on a pre-made NCHW view with a
     # pre-made weight: no depth-to-space, no bias), in alternating turns
     rows = {"train": [], "sampler": [], "c2f": []}
-    for n, h, cin, cout, k in G_SHAPES + G16_SAMPLER_SHAPES + TRAIN_SHAPES + FWD_TRAIN_SHAPES[:2]:
+    for n, h, cin, cout, k in (G_SHAPES + G16_SAMPLER_SHAPES + TRAIN_SHAPES + FWD_TRAIN_SHAPES[:2]
+                               + DP_FWD_SHAPES):
         x, w, b = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         wc = uc.collapse_weights(w)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
@@ -383,9 +417,11 @@ def phase_kernels():
         flop = 2 * n * h * h * 4 * cout * 9 * cin
         nbytes = 2 * (x.numel() + wc.numel() + cout + 4 * n * h * h * cout)
         sampler = (n, h, cin, cout, k) in G_SHAPES + G16_SAMPLER_SHAPES
+        dp = (n, h, cin, cout, k) in DP_FWD_SHAPES
         row = _row("upsample_conv_fwd", (n, h, cin, cout), t, runs, flop, nbytes,
                    launches_per_g_call=1 if sampler else 0,
-                   launches_per_step=0 if sampler else 1)
+                   launches_per_step=0 if sampler or dp else 1,
+                   launches_per_rank_step_2_ranks=1 if dp else 0)
         print(f"time bf16 N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
               f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
               f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
@@ -549,7 +585,7 @@ def phase_bwd_kernels():
 
     err = {"dx": 0.0, "dw": 0.0}
     for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + G16_SHAPES[:2] + ODD_SHAPES
-                                              + DW_TMA_SHAPES):
+                                              + DW_TMA_SHAPES + DP_BWD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, _ = _inputs(n, h, cin, cout, k, dtype, seed=100 + si)
             dy = torch.randn(n, 2 * h, 2 * h, cout, generator=torch.Generator().manual_seed(si))
@@ -583,7 +619,8 @@ def phase_bwd_kernels():
     # transposed phase weight; dW, torch.nn.grad.conv2d_weight of the
     # phase conv (bf16, as the kernel's inputs)
     rows = {"dx": [], "dw": []}
-    for n, h, cin, cout, k in TRAIN_SHAPES:
+    for n, h, cin, cout, k in TRAIN_SHAPES + DP_BWD_SHAPES:
+        dp = (n, h, cin, cout, k) in DP_BWD_SHAPES
         x, w, _ = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         dy = torch.randn(n, 2 * h, 2 * h, cout, device="cuda", dtype=torch.bfloat16)
         wc = uc.collapse_weights(w)
@@ -603,7 +640,8 @@ def phase_bwd_kernels():
                  2 * (x.numel() + dy.numel()) + 4 * wc.numel())):
             t, runs = _time_turns({"kernel": kern, "plain": plain, "library": library})
             row = _row(f"upsample_conv_{which}", (n, h, cin, cout), t, runs, flop, nbytes,
-                       launches_per_g_call=0, launches_per_step=1)
+                       launches_per_g_call=0, launches_per_step=0 if dp else 1,
+                       launches_per_rank_step_2_ranks=1 if dp else 0)
             print(f"time bf16 {which} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
                   f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
                   f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
@@ -611,8 +649,9 @@ def phase_bwd_kernels():
                   + (f"; note: the WMMA kernel it replaced took "
                      f"{WMMA_DW_MS[(n, h, cin, cout)]:.4f} ms (not timed in this run: "
                      f"tools/compare_upconv_kernels.py against the parent tree)"
-                     if which == "dw" else ""))
-            rows[which].append(row)
+                     if which == "dw" and not dp else ""))
+            if not dp:  # the kernels line: the single-device step's shapes
+                rows[which].append(row)
         del x, w, dy, wc, dyc, x_cl, w_dx
 
     # the Function's gradients against autograd of the plain forward, fp32
@@ -850,28 +889,20 @@ def phase_step_parity():
     from facegen_torch.config import TrainConfig
     from facegen_torch.data.pipeline import prepare_pool
     from facegen_torch.data.synthetic import draw_synthetic_faces
-    from facegen_torch.models import gan
     from facegen_torch.train.step import (
         DDraws,
         GDraws,
         StepDraws,
         TrainStep,
         draw_step,
-        init_state,
     )
 
     cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
     dev = torch.device("cuda", 0)
 
     def build(device):
-        g, d = gan.init_gan(torch.Generator().manual_seed(5), cfg.scale, cfg.channels,
-                            cfg.noise_dim, reference_init=False, device=device)
-        bias_gen = torch.Generator().manual_seed(8)
-        with torch.no_grad():
-            for name, p in g.named_parameters():
-                if name.endswith("bias"):
-                    p.copy_(torch.rand(p.shape, generator=bias_gen) * 0.2 - 0.1)
-        return init_state(cfg, g, d), TrainStep(cfg, g, d)
+        state = _train_state(cfg, device, g_biases=True)
+        return state, TrainStep(cfg, state.g, state.d)
 
     cpu_state, cpu_step = build("cpu")
     gpu_state, gpu_step = build(dev)
@@ -1383,10 +1414,9 @@ def phase_graph_parity():
     from facegen_torch.config import TrainConfig
     from facegen_torch.data.pipeline import prepare_pool
     from facegen_torch.data.synthetic import draw_synthetic_faces
-    from facegen_torch.models import gan
     from facegen_torch.sample import full_fp32
     from facegen_torch.train.graph import GraphedStep
-    from facegen_torch.train.step import TrainStep, draw_step, init_state
+    from facegen_torch.train.step import TrainStep, draw_step
 
     dev = torch.device("cuda", 0)
     pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 1000), 32, 3)
@@ -1395,9 +1425,8 @@ def phase_graph_parity():
         cfg = TrainConfig(compute_dtype=dtype).validate()
 
         def build():
-            g, d = gan.init_gan(torch.Generator().manual_seed(5), cfg.scale, cfg.channels,
-                                cfg.noise_dim, reference_init=cfg.reference_init, device=dev)
-            return init_state(cfg, g, d), TrainStep(cfg, g, d)
+            state = _train_state(cfg, dev)
+            return state, TrainStep(cfg, state.g, state.d)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1467,18 +1496,16 @@ def _graph_control(pool):
     import torch
 
     from facegen_torch.config import TrainConfig
-    from facegen_torch.models import gan
     from facegen_torch.sample import full_fp32
     from facegen_torch.train.graph import GraphedStep
-    from facegen_torch.train.step import TrainStep, draw_step, init_state
+    from facegen_torch.train.step import TrainStep, draw_step
 
     dev = pool.device
     cfg = TrainConfig(compute_dtype="float32", reference_init=False).validate()
 
     def build():
-        g, d = gan.init_gan(torch.Generator().manual_seed(5), cfg.scale, cfg.channels,
-                            cfg.noise_dim, reference_init=False, device=dev)
-        return init_state(cfg, g, d), TrainStep(cfg, g, d)
+        state = _train_state(cfg, dev)
+        return state, TrainStep(cfg, state.g, state.d)
 
     def eager():
         state, step = build()
@@ -1659,6 +1686,403 @@ def phase_lfw_builder(tmp: str):
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _coordinator_env(port: int, world: int, rank: int) -> dict:
+    return {"FACEGEN_COORDINATOR": f"127.0.0.1:{port}", "FACEGEN_NUM_PROCESSES": str(world),
+            "FACEGEN_PROCESS_ID": str(rank)}
+
+
+def _train_state(cfg, device, seed=5, g_biases=False):
+    """A GanState of seeded G and D (weights drawn on the CPU from
+    ``seed``); ``g_biases``: G's biases U(-0.1, 0.1) from seed 8."""
+    import torch
+
+    from facegen_torch.models import gan
+    from facegen_torch.train.step import init_state
+
+    g, d = gan.init_gan(torch.Generator().manual_seed(seed), cfg.scale, cfg.channels,
+                        cfg.noise_dim, reference_init=cfg.reference_init, device=device)
+    if g_biases:
+        bias_gen = torch.Generator().manual_seed(8)
+        with torch.no_grad():
+            for name, p in g.named_parameters():
+                if name.endswith("bias"):
+                    p.copy_(torch.rand(p.shape, generator=bias_gen) * 0.2 - 0.1)
+    return init_state(cfg, g, d)
+
+
+# the 1-rank NCCL trainer run: python -m facegen_torch.train as a rank of
+# a group, with the wrappers' counts set to 0 before it and printed after
+DP_CLI = (
+    "import json, runpy, sys\n"
+    "from facegen_torch.ops import upsample_conv as uc\n"
+    "uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0\n"
+    "sys.argv = ['facegen_torch.train'] + sys.argv[1:]\n"
+    "runpy.run_module('facegen_torch.train', run_name='__main__', alter_sys=True)\n"
+    "print('launches ' + json.dumps({'upsample_conv_fwd': uc.KERNEL_LAUNCHES, "
+    "'upsample_conv_dx': uc.DX_LAUNCHES, 'upsample_conv_dw': uc.DW_LAUNCHES}))\n"
+)
+
+
+def phase_dp_nccl(tmp: str, store: str):
+    """``python -m facegen_torch.train`` as a 1-rank NCCL group (--meshShape
+    -1, the default flags, 2 epochs, --saveFreq 1); then, in this process,
+    a 1-rank NCCL group's graphed step against the single-device graphed
+    step: bit-equal in fp32 under cuDNN's deterministic algorithms, and
+    both timed at the default flags. Returns the CLI run's launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.parallel import make_mesh, maybe_initialize
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import TrainStep, steps_per_epoch
+
+    save = os.path.join(tmp, "dp_nccl_logs")
+    argv = ["--datasetDir", store, "--save", save, "--saveFreq", "1", "--epochs", "2",
+            "--meshShape", "-1"]
+    env = dict(os.environ, **_coordinator_env(_free_port(), 1, 0))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", DP_CLI, *argv], env=env, capture_output=True,
+                         text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    run_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"the 1-rank NCCL trainer failed: {run.stderr[-3000:]}")
+    out = run.stdout
+    launches = json.loads(out.rsplit("launches ", 1)[1].splitlines()[0])
+    route = next((ln for ln in out.splitlines() if "step route:" in ln), "")
+    captured = next((ln for ln in out.splitlines() if "captured the train step" in ln), "")
+    print(f"dp nccl path: python -m facegen_torch.train --meshShape -1 as rank 0 of 1 (NCCL) "
+          f"took {run_s:.3f} s with the interpreter's start; {route.strip()}; launches {launches}")
+    print(f"dp nccl path: {captured.strip()}")
+    check("NCCL's all-reduces over 1 ranks inside it" in route, f"route: {route!r}")
+    check(bool(captured), "the 1-rank NCCL trainer did not capture its step")
+    steps = 2 * steps_per_epoch(TrainConfig())
+    want = {"upsample_conv_fwd": 4 * steps + 4 * 2, "upsample_conv_dx": 2 * steps,
+            "upsample_conv_dw": 2 * steps}
+    check(launches == want, f"launches {launches}, want {want}")
+    rows = _metrics_rows(save)
+    check([r["epoch"] for r in rows] == [1, 2], f"epochs {[r['epoch'] for r in rows]}")
+    for name in ("adversarial", "adversarial.old"):
+        _check_files(os.path.join(save, name, "arrays.npz"))
+    print(f"dp nccl path: metrics.jsonl " + "; ".join(
+        f"epoch {r['epoch']}: loss_d {r['loss_d_mean']:.4f} loss_g {r['loss_g_mean']:.4f} "
+        f"{r['images_per_sec']:.1f} images/s" for r in rows))
+
+    dev = torch.device("cuda", 0)
+    check(maybe_initialize(_coordinator_env(_free_port(), 1, 0)), "no NCCL group")
+    try:
+        mesh = make_mesh((-1,))
+        check(mesh.backend == "nccl" and mesh.device == dev, f"mesh {mesh}")
+        pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 1000), 32, 3)
+        pool = pool.to(dev)
+
+        def graphed(cfg, dp):
+            state = _train_state(cfg, dev)
+            runner = GraphedStep(TrainStep(cfg, state.g, state.d, mesh if dp else None), state,
+                                 pool.shape[0])
+            runner.set_pool(pool)
+            return state, runner
+
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            cfg = TrainConfig(compute_dtype="float32").validate()
+            with full_fp32():
+                (plain, r_plain), (dp, r_dp) = graphed(cfg, False), graphed(cfg, True)
+                r_plain.run(torch.Generator(dev).manual_seed(7), 3)
+                r_dp.run(torch.Generator(dev).manual_seed(7), 3)
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        errs, (worst, leaf) = _state_diffs(dp, plain)
+        same = all(torch.equal(getattr(dp, k), getattr(plain, k)) for k in (
+            "accs", "accs_n", "confusion", "trained_d", "not_trained_d"))
+        print(f"dp nccl parity fp32 (TF32 off, cuDNN deterministic), 3 graphed steps of a 1-rank "
+              f"NCCL group vs the single-device graphed step, relative l2: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs.items()) + f"; worst leaf {leaf} {worst:.3e}; "
+              f"counters {'equal' if same else 'DIFFER'}; {r_dp.route}")
+        check(r_dp.graph is not None and worst == 0.0 and same,
+              "the 1-rank NCCL graphed step is not bit-equal to the single-device one")
+
+        cfg = TrainConfig().validate()  # the default flags: bf16
+        (_, r_plain), (_, r_dp) = graphed(cfg, False), graphed(cfg, True)
+        gens = {"single": torch.Generator(dev).manual_seed(11),
+                "dp": torch.Generator(dev).manual_seed(11)}
+        runs = {"single": lambda n: r_plain.run(gens["single"], n),
+                "dp": lambda n: r_dp.run(gens["dp"], n)}
+        times = {"single": [], "dp": []}
+        for route in ("single", "dp", "dp", "single"):
+            times[route].append(_step_ms(runs[route]))
+        for route, ts in times.items():
+            print(f"dp nccl path ({route}): {statistics.mean(ts):.4f} ms per graphed step on the "
+                  f"stream (CUDA events over 30 steps, mean of 2 turns: "
+                  f"{', '.join(f'{t:.4f}' for t in ts)}; default flags, batch 32, bf16)")
+        _profile_train_steps(runs["single"], label="dp nccl path (single-device graphed step)")
+        _profile_train_steps(runs["dp"], label="dp nccl path (1-rank NCCL graphed step)")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+# the shared-card 2-rank program: a rank of a gloo group on ``device``
+# takes 3 eager fp32 steps at the default flags (local batch 16) on its
+# draws from numpy, writes its state and its launches by shape, and
+# times steps at the default flags (bf16)
+DP_WORKER_FLAG = "--dp-gloo-rank"
+
+
+def dp_gloo_rank(rank: int, port: int, device: str, out: str) -> None:
+    import collections
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.ops import upsample_conv as uc
+    from facegen_torch.parallel import make_mesh, maybe_initialize, shard_pool
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import DDraws, GDraws, StepDraws, TrainStep
+    from facegen_torch.utils import checkpoint as ckpt
+
+    torch.set_num_threads(3)
+    dev = torch.device(device)
+    maybe_initialize(_coordinator_env(port, 2, rank), device_type=dev.type, backend="gloo")
+    try:
+        mesh = make_mesh((2,), device=dev)
+        by_shape = collections.Counter()
+        launch, launch_bwd = uc._launch, uc._launch_bwd
+
+        def counted(x, wc, b):
+            by_shape[f"upsample_conv_fwd N={x.shape[0]}"] += 1
+            return launch(x, wc, b)
+
+        def counted_bwd(which, a, b):
+            by_shape[f"upsample_conv_{which} N={a.shape[0]}"] += 1
+            return launch_bwd(which, a, b)
+
+        uc._launch, uc._launch_bwd = counted, counted_bwd
+        pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32, 3)
+        cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
+        # cuDNN's deterministic algorithms: with its free ones two fp32 runs
+        # of the same steps differ by up to ~5e-4 (phase 14's control)
+        torch.backends.cudnn.deterministic = True
+        with full_fp32():
+            state = _train_state(cfg, dev, g_biases=True)
+            step = TrainStep(cfg, state.g, state.d, mesh)
+            local = shard_pool(pool, mesh).to(dev)
+            rs = np.random.RandomState(100 + rank)
+
+            def draws():
+                def masks():
+                    return {k: torch.from_numpy(rs.rand(*shape) < 1.0 - rate).to(dev)
+                            for k, (shape, rate) in step.mask_specs.items()}
+
+                half, nd = step.batch // 2, cfg.noise_dim
+                d = DDraws(torch.from_numpy(rs.randint(0, local.shape[0], half)).to(dev),
+                           torch.from_numpy(rs.uniform(-1, 1, (half, nd)).astype(np.float32))
+                           .to(dev), masks())
+                g = GDraws(torch.from_numpy(rs.uniform(-1, 1, (step.batch, nd))
+                                            .astype(np.float32)).to(dev), masks())
+                return StepDraws((d,), (g,))
+
+            for _ in range(3):
+                step(state, local, draws())
+        torch.backends.cudnn.deterministic = False
+        uc._launch, uc._launch_bwd = launch, launch_bwd
+        arrays, meta = ckpt.train_state_arrays(state), {"launches": dict(by_shape)}
+        if dev.type == "cuda":  # the gloo step's time at the default flags
+            cfg = TrainConfig().validate()
+            state = _train_state(cfg, dev)
+            runner = GraphedStep(TrainStep(cfg, state.g, state.d, mesh), state, local.shape[0])
+            runner.set_pool(local)
+            gen = torch.Generator(dev).manual_seed(11 + rank)
+            runner.run(gen, 3)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            runner.run(gen, 10)
+            end.record()
+            torch.cuda.synchronize()
+            meta.update(stream_ms=start.elapsed_time(end) / 10,
+                        host_ms=(time.perf_counter() - t0) * 1e3 / 10, route=runner.route)
+        ckpt.save(out, f"rank{rank}", arrays, meta)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_gloo(tmp: str):
+    """Two ranks sharing cuda:0 over gloo, and the same 2-rank program on
+    the CPU (plain kernel versions), all four processes at once: 3 fp32
+    steps each at the default flags from one seeded state on per-rank
+    draws, cuDNN's algorithms deterministic. The card's ranks must be bit-equal to each other and within
+    DP_TOL of the CPU's. Returns the card's
+    launches (both ranks)."""
+    import collections
+
+    import numpy as np
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.utils import checkpoint as ckpt
+
+    here = os.path.abspath(__file__)
+    outs = {dev: os.path.join(tmp, f"dp_gloo_{dev.split(':')[0]}") for dev in ("cuda:0", "cpu")}
+    procs = []
+    t0 = time.perf_counter()
+    for dev, out in outs.items():
+        port = _free_port()
+        procs += [subprocess.Popen([sys.executable, here, DP_WORKER_FLAG, str(r), str(port), dev,
+                                    out], cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    run_s = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"a dp gloo rank failed: {log[-3000:]}")
+    (c0, m0), (c1, m1) = (ckpt.load(outs["cuda:0"], f"rank{r}") for r in range(2))
+    (p0, _), (p1, _) = (ckpt.load(outs["cpu"], f"rank{r}") for r in range(2))
+    ranks_equal = sorted(c0) == sorted(c1) and all(np.array_equal(c0[k], c1[k]) for k in c0)
+    cpu_ranks_equal = all(np.array_equal(p0[k], p1[k]) for k in p0)
+    start = ckpt.train_state_arrays(_train_state(
+        TrainConfig(compute_dtype="float32", reference_init=False).validate(), "cpu",
+        g_biases=True))
+    errs = {}
+    for net in ("g", "d"):
+        keys = [k for k in c0 if k.startswith(f"params_{net}/")]
+        errs[f"{net} update"] = _np_rel_l2([c0[k] - start[k] for k in keys],
+                                           [p0[k] - start[k] for k in keys])
+        for kind in ("mu", "nu"):
+            keys = [k for k in c0 if k.startswith(f"opt_{net}/0/{kind}/")]
+            errs[f"{net} {kind}"] = _np_rel_l2([c0[k] for k in keys], [p0[k] for k in keys])
+    worst = max((_np_rel_l2([c0[k] - start.get(k, 0)], [p0[k] - start.get(k, 0)]), k)
+                for k in c0 if k.startswith(("params_", "opt_")) and c0[k].dtype.kind == "f")
+    exact = [k for k in c0 if "/" not in k or k.endswith("/count")]
+    counters = all(np.array_equal(c0[k], p0[k]) for k in exact)
+    ok = (ranks_equal and cpu_ranks_equal and counters
+          and all(v <= DP_TOL for v in errs.values()))
+    by_shape = dict(collections.Counter(m0["launches"]) + collections.Counter(m1["launches"]))
+    print(f"dp gloo path: 2 ranks sharing cuda:0 over gloo and 2 on the CPU, 3 fp32 steps at the "
+          f"default flags (local batch 16) in {run_s:.3f} s (4 processes, with their start); card "
+          f"ranks bit-equal: {ranks_equal}; CPU ranks bit-equal: {cpu_ranks_equal}; card vs CPU "
+          f"relative l2: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {DP_TOL}); worst leaf {worst[1]} {worst[0]:.3e}; counters and "
+          f"confusion {'equal' if counters else 'DIFFER'} (confusion {c0['confusion'].tolist()}); "
+          f"{'ok' if ok else 'FAIL'}")
+    print(f"dp gloo path: kernel launches on the card by shape (both ranks, 3 steps): "
+          f"{json.dumps(dict(sorted(by_shape.items())))}")
+    for r, m in enumerate((m0, m1)):
+        print(f"dp gloo path (rank {r}): {m['stream_ms']:.4f} ms per step on the stream, "
+              f"{m['host_ms']:.3f} ms of host clock (CUDA events over 10 steps after 3, default "
+              f"flags, local batch 16, bf16; {m['route']})")
+    check(ok, "the 2-rank gloo step on the card disagrees")
+    want = {"upsample_conv_fwd N=8": 2 * 2 * 3, "upsample_conv_fwd N=16": 2 * 2 * 3,
+            "upsample_conv_dx N=16": 2 * 2 * 3, "upsample_conv_dw N=16": 2 * 2 * 3}
+    check(by_shape == want, f"launches by shape {by_shape}, want {want}")
+    return {name: sum(v for k, v in by_shape.items() if k.startswith(name + " "))
+            for name in KERNELS}
+
+
+def _np_rel_l2(ours, ref):
+    """Relative l2 error of a list of numpy arrays, in fp64."""
+    import numpy as np
+
+    num = sum(float(((o.astype(np.float64) - r) ** 2).sum()) for o, r in zip(ours, ref))
+    den = sum(float((r.astype(np.float64) ** 2).sum()) for r in ref)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def phase_dp_sampler(tmp: str, store: str):
+    """``run_sampling`` served by two replicas on cuda:0 (--runs 2
+    --neighbours) against the single-device run from the same seed: the
+    files, the launches and the wall time; then the replicas' images,
+    scores and neighbours against one device's, in fp32 (TF32 off) within
+    DP_SERVE_FP32_TOL with equal indices, and in the served bf16 within
+    the bf16 tolerance. Returns the replicated run's launches."""
+    import contextlib
+
+    import torch
+
+    from facegen_torch import sample
+    from facegen_torch.config import SampleConfig
+    from facegen_torch.models import gan
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.utils.infer import GanInference, nearest_neighbours, prepare_nn_dataset
+
+    dev = torch.device("cuda", 0)
+    save_dir = os.path.join(tmp, "logs")  # phase 5's checkpoint
+    walls, launches = {}, {}
+    for label, devices in (("one device", None), ("2 replicas", [dev, dev])):
+        cfg = SampleConfig(save=save_dir, runs=2, neighbours=True, dataset_dir=store,
+                           writeto=os.path.join(tmp, f"dp_samples_{len(devices or [0])}"))
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        paths = sample.run_sampling(cfg, device=dev, devices=devices, verbose=False)
+        torch.cuda.synchronize()
+        walls[label], launches[label] = time.perf_counter() - t0, _launches()
+        check(len(paths) == 12, f"{label}: {len(paths)} files")
+        _check_files(*paths)
+    print(f"dp sampler path: run_sampling --runs 2 --neighbours took {walls['2 replicas']:.3f} s "
+          f"on 2 replicas sharing cuda:0 against {walls['one device']:.3f} s on one device "
+          f"(host clock, with checkpoint load, store preparation, NN search and PNGs); launches "
+          f"{launches['2 replicas']} against {launches['one device']}")
+    check(launches["2 replicas"]["upsample_conv_fwd"] == 2 * 2 * 2,
+          f"2 replicas x 2 layers x 2 runs forward launches, got {launches['2 replicas']}")
+
+    g, d, _ = gan.restore_gan("adversarial", default_dir=save_dir, device=dev)
+    noise = GanInference(g, d, 100).noise(sample.run_generator(1, 1), sample.N_SAMPLES)
+    data = sample.load_dataset(SampleConfig(scale=32, grayscale=False, dataset_dir=store), dev)
+    lines, ok = [], True
+    for dtype, ctx in ((torch.float32, full_fp32), (torch.bfloat16, contextlib.nullcontext)):
+        with ctx():
+            one = GanInference(g, d, 100, dtype)
+            two = GanInference(g, d, 100, dtype, devices=[dev, dev])
+            imgs, imgs2 = one.generate(noise), two.generate(noise)
+            scores, scores2 = one.score(imgs), two.score(imgs)
+            best = one.rank(imgs, max_out=16)[0]
+            idx, _ = nearest_neighbours(best, prepare_nn_dataset(data, dev))
+            idx2, _ = nearest_neighbours(best, prepare_nn_dataset(data, [dev, dev]))
+            torch.cuda.synchronize()
+        e_img = float((imgs2 - imgs).abs().max())
+        e_score = float((scores2 - scores).abs().max())
+        if dtype == torch.float32:
+            good = e_img <= DP_SERVE_FP32_TOL and e_score <= DP_SERVE_FP32_TOL
+        else:
+            good = (bool(((imgs2 - imgs).abs() <= BF16_ATOL + BF16_RTOL * imgs.abs()).all())
+                    and bool(((scores2 - scores).abs() <= BF16_ATOL + BF16_RTOL
+                              * scores.abs()).all()))
+        good &= bool((idx == idx2).all())
+        ok &= good
+        lines.append(f"{'fp32 (TF32 off)' if dtype == torch.float32 else 'bf16 (served)'}: "
+                     f"images {e_img:.3e}, scores {e_score:.3e}, neighbour indices "
+                     f"{'equal' if (idx == idx2).all() else 'DIFFER'}")
+    print(f"dp sampler path: 2 replicas vs one device on run 1's noise (1024): {'; '.join(lines)} "
+          f"(tolerances {DP_SERVE_FP32_TOL} fp32, {BF16_ATOL} + {BF16_RTOL:.4f} x |ref| bf16); "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the replicated sampler disagrees with one device")
+    return launches["2 replicas"]
+
+
 def main() -> int:
     try:
         name = phase_device()
@@ -1689,6 +2113,9 @@ def main() -> int:
             by_path["training_epochs_per_compile"] = phase_epochs_per_compile(tmp, store)
             by_path["training_weights_vis"] = phase_weights_vis(tmp, store)
             by_path["training_lfw_store"] = phase_lfw_builder(tmp)
+            by_path["training_dp_nccl_1_rank"] = phase_dp_nccl(tmp, store)
+            by_path["training_dp_gloo_2_ranks_one_card"] = phase_dp_gloo(tmp)
+            by_path["sampler_dp_2_replicas"] = phase_dp_sampler(tmp, store)
         with full_fp32():
             phase_step_parity()
             phase_c2f_step_parity()
@@ -1712,4 +2139,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [DP_WORKER_FLAG]:  # a rank of phase 19
+        dp_gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -12,7 +12,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
+
+
+def data_axis(mesh_shape: Sequence[int]) -> int:
+    """The data axis of ``--meshShape`` 'DP' or 'DP,1': DP, or -1 for
+    every device. Raises ValueError for the 2-D mesh ('DP,MP' with
+    MP > 1) and for a size that is neither positive nor -1."""
+    shape, flag = tuple(mesh_shape), ",".join(str(v) for v in mesh_shape)
+    if len(shape) == 2 and shape[1] == 1:
+        shape = shape[:1]
+    if len(shape) != 1:
+        raise ValueError(f"--meshShape {flag}: the 2-D mesh ('DP,MP' with MP > 1) is not "
+                         f"ported yet")
+    if shape[0] == 0 or shape[0] < -1:
+        raise ValueError(f"--meshShape {flag}: a positive size or -1")
+    return shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +77,7 @@ class TrainConfig:
     coef_l2: float = 0.0          # --coefL2
     ae_clamp: float = 1.0         # --AE_clamp
     # facegen's additions
-    mesh_shape: Tuple[int, ...] = (1,)    # one device: multi-device is not ported yet
+    mesh_shape: Tuple[int, ...] = (1,)    # 'DP' ranks of a process group (parallel/)
     compute_dtype: str = "bfloat16"       # activations dtype; params stay fp32
     reference_init: bool = True           # the reference's gaussian overwrite
     reference_g_penalty_bug: bool = True  # adversarial.lua:223: G_L2 scales both
@@ -113,9 +128,9 @@ class TrainConfig:
         if self.boundary_pad > 0:
             raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
                              "on the TPU); leave it at 0")
-        if tuple(self.mesh_shape) not in ((1,), (-1,)):
-            raise ValueError(f"--meshShape {self.mesh_shape}: multi-device training "
-                             f"is not ported yet")
+        # 'DP' or 'DP,1'; train/loop.py:main checks it against the
+        # process group when it makes the mesh
+        data_axis(self.mesh_shape)
         return self
 
 
@@ -216,7 +231,7 @@ class SampleConfig:
     d_c2f_network: Optional[str] = None  # --D_c2f32: c2f D from another checkpoint
     save_c2f: str = ""            # --save_c2f32 (empty = --save_base)
     c2f_tries: int = 10           # candidate diffs per image (sample.lua:177)
-    mesh_shape: Tuple[int, ...] = ()  # not ported yet: must stay empty
+    mesh_shape: Tuple[int, ...] = ()  # 'DP' serving cards; empty = one (sample.py)
 
     @property
     def channels(self) -> int:
@@ -230,7 +245,7 @@ def _add_bool(p: argparse.ArgumentParser, name: str, help: str):
 def train_arg_parser() -> argparse.ArgumentParser:
     """facegen's trainer CLI (facegen/config.py:271-349), flag for flag."""
     p = argparse.ArgumentParser(
-        description="facegen_torch GAN trainer on one CUDA GPU (reference: th train.lua)")
+        description="facegen_torch GAN trainer, one CUDA GPU per process (reference: th train.lua)")
     p.add_argument("--batchSize", type=int, default=32, dest="batch_size")
     p.add_argument("--save", type=str, default="logs")
     p.add_argument("--saveFreq", type=int, default=30, dest="save_freq")
@@ -275,7 +290,11 @@ def train_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--computeDtype", type=str, default="bfloat16", dest="compute_dtype",
                    choices=["bfloat16", "float32"])
     p.add_argument("--meshShape", type=str, default="-1", dest="mesh_shape",
-                   help="'1' or '-1' (one device); more devices are not ported yet")
+                   help="'N' or '-1': data parallel over the N ranks of a process group, "
+                        "one process per device (launch N processes with "
+                        "FACEGEN_COORDINATOR, FACEGEN_NUM_PROCESSES, FACEGEN_PROCESS_ID); "
+                        "'1' or '-1' without one: one device; the 2-D 'DP,MP' is not "
+                        "ported yet")
     p.add_argument("--epochs", type=int, default=-1,
                    help="number of epochs to run (-1 = forever)")
     p.add_argument("--epochsPerCompile", type=int, default=0, dest="epochs_per_compile",

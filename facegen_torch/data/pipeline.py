@@ -6,7 +6,9 @@ gray for 1-channel runs, resized to the training scale and kept as uint8
 on the device; the train step gathers its batches from it there. The
 whole store lives on the GPU (the 13k-image LFW store is ~160 MB), so
 no host work or prefetch thread is needed; synthetic runs draw fresh
-faces each epoch instead (data/synthetic.py).
+faces each epoch instead (data/synthetic.py). Under data parallelism
+every rank draws the same pool from the epoch's pool generator and
+keeps its own rows (parallel/mesh.py:shard_pool, train/loop.py).
 """
 
 from __future__ import annotations

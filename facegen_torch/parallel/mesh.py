@@ -1,0 +1,110 @@
+"""The 1-D data mesh (counterpart of facegen/parallel/mesh.py).
+
+facegen's data parallelism is local-batch: every device holds the
+replicated state, draws half of its local batch from its own rows of
+the epoch pool with its own random stream, uses its own batch's
+statistics in batch norm, and the step averages the gradients, the
+losses, the running statistics and the batch accuracy over the devices
+(the gate decides on the global accuracy) and sums the confusion
+matrix (facegen/train/step.py:296-310, 358-361). In the port a device is
+a process of a ``torch.distributed`` group (parallel/multihost.py) and
+the mesh is that group:
+
+- ``replicate`` broadcasts rank 0's tensors: every rank builds the same
+  weights from the seed and loads the same checkpoint, and the broadcast
+  makes replication hold by construction;
+- ``shard_pool`` keeps a rank's contiguous block of the epoch pool, the
+  layout facegen's ``P('data')`` gives;
+- facegen's shard_map factories (``make_parallel_step``, ``_epoch``,
+  ``_multi_epoch``, ``_segment``) are the ``mesh`` argument of
+  ``train/step.py:TrainStep``, ``train/graph.py:GraphedStep`` and
+  ``train/loop.py:Trainer``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from facegen_torch.config import data_axis
+from facegen_torch.parallel.multihost import rank_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataMesh:
+    """This process's place in the data-parallel group (the default
+    process group): ``rank`` of ``size`` ranks, each on its own
+    ``device``."""
+
+    rank: int
+    size: int
+    device: torch.device
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend()
+
+    def all_reduce_sum_(self, t: torch.Tensor) -> None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+
+
+def _fmt(mesh_shape: Sequence[int]) -> str:
+    return ",".join(str(v) for v in mesh_shape)
+
+
+def resolve_mesh_shape(mesh_shape: Sequence[int], world_size: Optional[int]) -> int:
+    """The number of data-parallel ranks ``--meshShape`` asks for, given
+    the size of the process group that is up (None: no group): -1 is the
+    group's size, or one device without a group. Raises ValueError as
+    ``data_axis`` does, for a size other than the group's, and for more
+    than one device without a group."""
+    dp = data_axis(mesh_shape)
+    if world_size is None:
+        if dp in (1, -1):
+            return 1
+        raise ValueError(
+            f"--meshShape {dp}: no process group is up. The port trains data parallel with "
+            f"one process per device: launch {dp} processes with FACEGEN_COORDINATOR=host:port, "
+            f"FACEGEN_NUM_PROCESSES={dp} and FACEGEN_PROCESS_ID=0..{dp - 1} (one process over "
+            f"several devices, as facegen's single-process mesh, is not ported yet)")
+    if dp == -1:
+        return world_size
+    if dp != world_size:
+        raise ValueError(f"--meshShape {dp} asks for {dp} ranks, but the process group has "
+                         f"{world_size}")
+    return dp
+
+
+def make_mesh(mesh_shape: Sequence[int] = (-1,), device=None) -> DataMesh:
+    """The data mesh of the process group that is up (facegen's
+    ``make_mesh``, :42-61): ``(-1,)`` is the whole group, ``(N,)`` must be
+    its size. ``device``: this rank's device, by default
+    ``cuda:(rank % device_count)``."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"make_mesh({_fmt(mesh_shape)}): no process group is up "
+                         f"(parallel/multihost.py:maybe_initialize)")
+    size = resolve_mesh_shape(mesh_shape, dist.get_world_size())
+    rank = dist.get_rank()
+    device = torch.device(device) if device is not None else rank_device(rank)
+    return DataMesh(rank, size, device)
+
+
+@torch.no_grad()
+def replicate(tensors: Iterable[torch.Tensor], mesh: DataMesh) -> None:
+    """Overwrite each tensor in place with rank 0's (facegen's
+    ``replicate``, :64-75)."""
+    for t in tensors:
+        dist.broadcast(t, src=0)
+
+
+def shard_pool(pool: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """This rank's rows of the epoch pool (facegen's ``shard_pool``,
+    :78-90): of the first ``(P // n) * n`` rows, rank r keeps the block
+    ``[r * P // n, (r + 1) * P // n)``."""
+    per = pool.shape[0] // mesh.size
+    if per == 0:
+        raise ValueError(f"a pool of {pool.shape[0]} rows has none for each of {mesh.size} ranks")
+    return pool[mesh.rank * per:(mesh.rank + 1) * per]

@@ -17,6 +17,12 @@ The CLI runs on ``cuda:{--gpu}`` and exits with an error without a GPU;
 ``run_sampling`` also takes a CPU device. Noise and permutations come
 from a CPU ``torch.Generator`` seeded from --seed and the run index
 (``run_generator``), so a run draws the same on every device.
+
+--meshShape 'DP' (or 'DP,1'; -1 = every visible card) serves data
+parallel from one process, as facegen's sampler does over its local
+devices (facegen/sample.py:83-94): G and D replicated on cuda:0 ..
+cuda:DP-1, every request split over them and the NN search's rows
+sharded (utils/infer.py); the grids are those of one device.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from facegen_torch.config import SampleConfig
+from facegen_torch.config import SampleConfig, data_axis
 from facegen_torch.models import c2f, gan
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.utils import checkpoint as ckpt
@@ -155,8 +161,18 @@ def load_dataset(cfg: SampleConfig, device) -> torch.Tensor:
     return prepare_pool(raw, cfg.scale, cfg.channels)
 
 
+def serving_devices(mesh_shape) -> list:
+    """The cards --meshShape 'DP' or 'DP,1' serves on: cuda:0 .. cuda:DP-1,
+    -1 for every visible card. Raises ValueError for the 2-D mesh and for
+    more cards than are visible."""
+    dp, count = data_axis(mesh_shape), torch.cuda.device_count()
+    if dp > count:
+        raise ValueError(f"--meshShape {dp}: {count} CUDA device(s) visible")
+    return [torch.device("cuda", i) for i in range(count if dp == -1 else dp)]
+
+
 def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
-                 c2f_noise=None, verbose: bool = True):
+                 c2f_noise=None, verbose: bool = True, devices=None):
     """Run the sampler; returns the written paths.
 
     dataset: optional (N, H, W, C) uint8 images at the model's scale for
@@ -166,12 +182,17 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
     run's own noise; the permutations are drawn either way.
     c2f_noise: optional (runs, 3, 64, c2f_tries, fine, fine, 1) draws used
     in place of the refinement's noise of best, worst and random.
+    devices: serve data parallel on these devices (``GanInference``'s),
+    the first in place of ``device``; default those of cfg.mesh_shape
+    (``serving_devices``), none when it is empty.
     """
-    if cfg.mesh_shape:
-        raise NotImplementedError("--meshShape: multi-device serving is not ported yet")
+    if devices is None and cfg.mesh_shape:
+        devices = serving_devices(cfg.mesh_shape)
+    if devices is not None:
+        device = devices[0]
     device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
     g, d, cfg = load_models(cfg, device)
-    inf = GanInference(g, d, cfg.noise_dim)
+    inf = GanInference(g, d, cfg.noise_dim, devices=devices)
     c2f_nets = None
     if cfg.c2f:  # the refinement nets, loaded once (sample.lua:70)
         g_c2f, d_c2f, c2f_res = load_c2f(cfg, device)
@@ -224,7 +245,7 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
                     dataset = load_dataset(cfg, device)
                 elif not torch.is_tensor(dataset):
                     dataset = torch.as_tensor(np.asarray(dataset))
-                nn_dataset = prepare_nn_dataset(dataset, device)
+                nn_dataset = prepare_nn_dataset(dataset, devices or device)
             idx, _ = nearest_neighbours(best[:16], nn_dataset)
             matches = dataset[torch.from_numpy(idx[:, 0]).to(dataset.device)].cpu().float()
             if dataset.dtype == torch.uint8:
@@ -239,7 +260,7 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="facegen_torch sampler on one CUDA GPU (reference: th sample.lua)")
+        description="facegen_torch sampler on CUDA GPUs (reference: th sample.lua)")
     p.add_argument("--save_base", type=str, default="logs", dest="save")
     p.add_argument("--G_base", type=str, default="adversarial", dest="network")
     p.add_argument("--D_base", type=str, default=None, dest="d_network",
@@ -271,14 +292,26 @@ def main(argv=None):
     p.add_argument("--c2f_tries", type=int, default=10,
                    help="candidate diffs per image, best D score wins (sample.lua:177)")
     p.add_argument("--meshShape", type=str, default="", dest="mesh_shape",
-                   help="not ported yet: must stay empty (one GPU)")
+                   help="serve data parallel on 'DP' cards (or 'DP,1'; -1 = all visible) "
+                        "from this process; empty = --gpu alone; 'DP,MP' is not ported yet")
     a = p.parse_args(argv)
-    if a.mesh_shape:
-        p.error("--meshShape: multi-device serving is not ported yet")
+    try:
+        mesh = tuple(int(v) for v in a.mesh_shape.split(",")) if a.mesh_shape else ()
+    except ValueError:
+        p.error(f"--meshShape {a.mesh_shape!r}: not a comma-separated list of ints")
+    try:
+        if mesh:  # the 2-D mesh exits here, with or without a GPU
+            data_axis(mesh)
+    except ValueError as e:
+        p.error(str(e))
     if not torch.cuda.is_available():
         p.error("no CUDA GPU: the sampler CLI runs on cuda:{--gpu} only")
     if not 0 <= a.gpu < torch.cuda.device_count():
         p.error(f"--gpu {a.gpu}: {torch.cuda.device_count()} CUDA device(s) visible")
+    try:
+        devices = serving_devices(mesh) if mesh else None
+    except ValueError as e:
+        p.error(str(e))
     cfg = SampleConfig(
         save=a.save, network=a.network, batch_size=a.batch_size,
         noise_dim=a.noise_dim, scale=a.scale, grayscale=a.grayscale,
@@ -286,8 +319,9 @@ def main(argv=None):
         writeto=a.writeto, aws=a.aws, dataset_dir=a.dataset_dir,
         d_network=a.d_network, c2f=a.c2f, c2f_network=a.c2f_network,
         d_c2f_network=a.d_c2f_network, save_c2f=a.save_c2f, c2f_tries=a.c2f_tries,
+        mesh_shape=mesh,
     )
-    run_sampling(cfg, device=torch.device("cuda", a.gpu))
+    run_sampling(cfg, device=torch.device("cuda", a.gpu), devices=devices)
     print("Finished.")
 
 

@@ -41,10 +41,20 @@ recorded, and each replay adds it (``ops/upsample_conv.py``). The counts
 under replay are thus derived from the capture, not observed; that the
 replayed kernels ran is shown by the graph's parity with eager steps.
 
-On the CPU (the tests) the same class runs ``TrainStep`` eagerly on the
-same buffers: the one place where the two routes part. On a CUDA device
-every step after the warm-up replays the graph; a failure to capture or
-to replay raises, and nothing falls back to eager steps.
+On a data mesh (``TrainStep(..., mesh=)``, parallel/mesh.py) the step's
+all-reduces are part of what is captured: under NCCL each is issued on
+the capture stream inside the graph and replays with it. Its flat
+buffer is allocated in the eager warm-up, and ``warmup_collectives``
+runs when the object is built, so the communicator exists before the
+capture. A gloo all-reduce of a CUDA tensor waits on the host and
+cannot be captured: under gloo every step runs eagerly.
+
+The route is chosen from the device and the backend when the object is
+built (``route``, which the trainer logs): on the CPU (the tests) and
+under gloo the same class runs ``TrainStep`` eagerly on the same
+buffers; on a CUDA device alone or under NCCL every step after the
+warm-up replays the graph, and a failure to capture or to replay
+raises: nothing falls back to eager steps.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from typing import Callable, Optional
 import torch
 
 from facegen_torch.ops import upsample_conv as uc
+from facegen_torch.parallel.multihost import warmup_collectives
 from facegen_torch.train.step import (
     GanState,
     StepMetrics,
@@ -78,7 +89,21 @@ class GraphedStep:
         self.device = state.accs.device
         self.log = log or (lambda msg: None)
         self.pool: Optional[torch.Tensor] = None
-        self.draws = empty_draws(step.cfg, step.mask_specs, self.device)
+        self.draws = empty_draws(step.cfg, step.mask_specs, self.device, step.batch)
+        mesh = step.mesh
+        self.captures = self.device.type == "cuda" and (mesh is None or mesh.backend == "nccl")
+        if self.captures:
+            self.route = "one CUDA graph replay a step" + (
+                "" if mesh is None else f", NCCL's all-reduces over {mesh.size} ranks inside it")
+        elif self.device.type == "cuda":
+            self.route = (f"eager steps: a gloo all-reduce of a CUDA tensor waits on the host "
+                          f"and cannot be captured ({mesh.size} ranks)")
+        else:
+            self.route = "eager steps on the CPU" + (
+                "" if mesh is None else f", gloo over {mesh.size} ranks")
+        self.log(f"<trainer> step route: {self.route}")
+        if mesh is not None:
+            warmup_collectives(mesh)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.metrics: Optional[torch.Tensor] = None
         self.eager_steps = 0
@@ -113,7 +138,7 @@ class GraphedStep:
         row.copy_(torch.stack(self.step(self.state, self.pool, self.draws)))
 
     def _step(self, generator: torch.Generator, row: torch.Tensor) -> None:
-        if self.device.type != "cuda":
+        if not self.captures:
             self._eager(generator, row)
             return
         if self.graph is None and self.eager_steps < WARMUP_STEPS:

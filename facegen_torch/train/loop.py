@@ -1,5 +1,4 @@
-"""Epoch loop (counterpart of facegen/train/loop.py:52-492, single
-device).
+"""Epoch loop (counterpart of facegen/train/loop.py:52-519).
 
 Per epoch (train.lua:199-208):
   1. draw a fresh pool on the device (TRAIN_DATA);
@@ -30,6 +29,16 @@ epoch counter, as facegen does (the reference drops the optimizer
 state, train.lua:122). Random streams: every epoch draws from
 generators seeded by (seed, 10000 + epoch index), so a resumed run draws
 fresh pools instead of replaying the first epochs.
+
+Data parallel (``mesh``, parallel/mesh.py; facegen/train/loop.py:52-97,
+495-519): one process per device, each with the whole state. Every rank
+builds the same weights from the seed and loads the same ``--network``,
+and rank 0's state is broadcast after both. Every rank draws the same
+epoch pool and keeps its rows; the steps' generator folds in the rank
+when the group has more than one, so a 1-rank group draws what a single
+device draws. Rank 0 alone logs and writes metrics.jsonl, the
+checkpoints, the progress grids (from the whole pool, as facegen's read
+the global pool) and the activation dumps.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from facegen_torch.config import TrainConfig
 from facegen_torch.data.pipeline import make_source
 from facegen_torch.models import ae, gan
 from facegen_torch.nn.init import seeded_generator
+from facegen_torch.parallel.mesh import replicate, shard_pool
 from facegen_torch.train import metrics as M
 from facegen_torch.train.graph import GraphedStep
 from facegen_torch.train.step import (
@@ -52,6 +62,7 @@ from facegen_torch.train.step import (
     epoch_summary,
     init_state,
     reset_epoch_stats,
+    state_tensors,
     steps_per_epoch,
     summaries_to_host,
 )
@@ -78,35 +89,50 @@ def resolve_epochs_per_compile(cfg: TrainConfig, log) -> int:
 
 
 class Trainer:
-    """Owns the models, the training state, the data source and the step."""
+    """Owns the models, the training state, the data source and the step;
+    with ``mesh``, this rank's share of data-parallel training on the
+    mesh's device."""
 
-    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True):
+    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None):
         self.cfg = cfg.validate()
         if cfg.scale not in (16, 32):  # the AE and denoiser CLIs share the flag, not the limit
             raise ValueError(f"--scale {cfg.scale}: G16/G32 only (16 or 32)")
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device}, but the mesh's rank runs on {mesh.device}")
+            device = mesh.device
         self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
-        self.verbose = verbose
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0  # logs, metrics, checkpoints, grids
+        self.verbose = verbose and self.writes
         self.source = make_source(cfg, self.device)
         # weights drawn on the CPU: the same seed gives the same weights on every device
         g, d = gan.init_gan(torch.Generator().manual_seed(cfg.seed), cfg.scale, cfg.channels,
                             cfg.noise_dim, reference_init=cfg.reference_init,
                             noise_view=cfg.noise_view, device=self.device)
         self.state = init_state(cfg, g, d)
-        self.step = TrainStep(cfg, g, d)
+        self.step = TrainStep(cfg, g, d, mesh)
         self.inf = GanInference(g, d, cfg.noise_dim, getattr(torch, cfg.compute_dtype))
         self.pool_n = cfg.n_epoch if cfg.n_epoch > 0 else self.source.size
-        self.graphed = GraphedStep(self.step, self.state, self.pool_n, log=self._log)
+        # the steps draw from this rank's rows of the pool
+        self.graphed = GraphedStep(self.step, self.state,
+                                   self.pool_n // (1 if mesh is None else mesh.size),
+                                   log=self._log)
         self.epochs_per_compile = resolve_epochs_per_compile(cfg, self._log)
         self.readbacks = 0  # device-to-host reads of epoch results, one per chunk
         # fixed noise for comparable per-epoch samples (train.lua:195)
         self.fixed_noise = self.inf.noise(seeded_generator("cpu", cfg.seed, 999), 100)
-        self.metrics_log = MetricsLogger(cfg.save)
+        self.metrics_log = MetricsLogger(cfg.save) if self.writes else None
         self.denoiser = ae.load_denoiser_fn(cfg, self.device) if cfg.denoise else None
         if cfg.network:
             self.resume(cfg.network)
+        elif mesh is not None:
+            replicate(state_tensors(self.state), mesh)
 
     # -- checkpoints -------------------------------------------------------
     def save(self):
+        if not self.writes:
+            return
         meta = {**ckpt.config_meta(self.cfg), "epoch": self.state.epoch}
         path = ckpt.save_train_state(self.cfg.save, CKPT_NAME, self.state, meta)
         self._log(f"<trainer> saved checkpoint to {path}")
@@ -122,6 +148,8 @@ class Trainer:
             raise ValueError(f"checkpoint {network!r} was trained with noise_view={ck_view!r} "
                              f"but this run uses noise_view={self.cfg.noise_view!r}")
         ckpt.load_train_state(directory, name, self.state)
+        if self.mesh is not None:
+            replicate(state_tensors(self.state), self.mesh)
         self._log(f"<trainer> reloaded previously trained network: {network} "
                   f"(epoch {self.state.epoch})")
 
@@ -135,9 +163,17 @@ class Trainer:
 
     def _epoch_generators(self, epoch_idx: int) -> List[torch.Generator]:
         """The epoch's (pool, steps, grids) generators, the same in a chunk
-        and alone."""
-        return [seeded_generator(self.device, self.cfg.seed, 10_000 + epoch_idx, k)
-                for k in range(3)]
+        and alone; on a mesh of several ranks the steps' folds in the rank
+        (facegen/parallel/mesh.py:113-115)."""
+        words = [(k,) for k in range(3)]
+        if self.mesh is not None and self.mesh.size > 1:
+            words[1] = (1, self.mesh.rank)
+        return [seeded_generator(self.device, self.cfg.seed, 10_000 + epoch_idx, *w)
+                for w in words]
+
+    def _rows(self, pool: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of an epoch pool."""
+        return pool if self.mesh is None else shard_pool(pool, self.mesh)
 
     def _epoch_steps(self, pool: torch.Tensor, generator: torch.Generator,
                      n_steps: int) -> StepMetrics:
@@ -146,14 +182,16 @@ class Trainer:
         facegen/train/loop.py:401-436). The segments draw on from the same
         generator, so they train what one run of n_steps trains."""
         freq = self.cfg.weights_vis_freq
+        rows = self._rows(pool)
         if freq <= 0:
-            return self.run_steps(pool, generator, n_steps)
+            return self.run_steps(rows, generator, n_steps)
         parts, done = [], 0
         while done < n_steps:
             seg = min(freq, n_steps - done)
-            parts.append(self.run_steps(pool, generator, seg))
+            parts.append(self.run_steps(rows, generator, seg))
             done += seg
-            self._netvis_dump(pool, done)
+            if self.writes:
+                self._netvis_dump(pool, done)
         return StepMetrics(*(torch.cat(xs) for xs in zip(*parts)))
 
     def _netvis_dump(self, pool: torch.Tensor, step_idx: int):
@@ -181,7 +219,7 @@ class Trainer:
         gens = [self._epoch_generators(start_idx + j) for j in range(n)]
         self._log("Loading new training data...")
         pools = [self.source.epoch_pool(g[0], self.pool_n) for g in gens]
-        if not cfg.noplot:
+        if not cfg.noplot and self.writes:
             report = visualize_progress(
                 self.inf, self.fixed_noise, pools[0], os.path.join(cfg.save, "viz"), gens[0][2],
                 denoiser=self.denoiser, epoch=self.state.epoch, window=cfg.window)
@@ -228,7 +266,8 @@ class Trainer:
                 "trained_d": s.trained_d,
                 "not_trained_d": s.not_trained_d,
             }
-            self.metrics_log.log(stats)
+            if self.writes:
+                self.metrics_log.log(stats)
             all_stats.append(stats)
         # every saveFreq epochs (adversarial.lua:319); a chunk keeps only its
         # last state, so it saves once if it crossed a boundary
@@ -261,18 +300,35 @@ def main(argv=None, device=None) -> Trainer:
     and defaults (batch 32, Adam, D_L2 1e-4, D clamp 1, G clamp 5, bf16
     activations over fp32 parameters, 1000 examples or 63 steps per
     epoch) on ``cuda:{--gpu}``, every step after the first few through a
-    CUDA graph; it exits with an error without a GPU. Flags of paths that
-    are not ported exit with a message that says so: --meshShape other
-    than one device, --boundaryPad > 0. ``device`` lets the tests run it
-    on the CPU; the command line has no such flag."""
-    from facegen_torch.config import cli_device, train_config_from_args
+    CUDA graph; it exits with an error without a GPU. Launched as N
+    processes (parallel/multihost.py: FACEGEN_COORDINATOR,
+    FACEGEN_NUM_PROCESSES, FACEGEN_PROCESS_ID) it trains data parallel
+    over them with --meshShape N or -1, rank r on ``cuda:(r %
+    device_count)``. Flags of paths that are not ported exit with a
+    message that says so: the 2-D --meshShape 'DP,MP', --boundaryPad > 0.
+    ``device`` lets the tests run it on the CPU (gloo between ranks); the
+    command line has no such flag."""
+    from facegen_torch.config import cli_device, train_arg_parser, train_config_from_args
+    from facegen_torch.parallel import make_mesh, maybe_initialize, resolve_mesh_shape
 
+    maybe_initialize(device_type="cuda" if device is None else torch.device(device).type)
     cfg = train_config_from_args(argv)
-    if device is None:
+    mesh = None
+    try:  # --meshShape against the process group that is up, if any
+        if torch.distributed.is_initialized():
+            mesh = make_mesh(cfg.mesh_shape, device=device)
+        else:
+            resolve_mesh_shape(cfg.mesh_shape, None)
+    except ValueError as e:
+        train_arg_parser().error(str(e))
+    if mesh is None and device is None:
         device = cli_device(cfg.gpu, "trainer")
-    trainer = Trainer(cfg, device=device)
-    print(f"Number of free parameters in D: {sum(p.numel() for p in trainer.state.d.parameters())}")
-    print(f"Number of free parameters in G: {sum(p.numel() for p in trainer.state.g.parameters())}")
+    trainer = Trainer(cfg, device=device, mesh=mesh)
+    if trainer.writes:
+        print(f"Number of free parameters in D: "
+              f"{sum(p.numel() for p in trainer.state.d.parameters())}")
+        print(f"Number of free parameters in G: "
+              f"{sum(p.numel() for p in trainer.state.g.parameters())}")
     for _ in trainer.run():
         pass
     return trainer

@@ -20,12 +20,26 @@ G iteration the noise and D's masks.
 reproduce facegen's draws and inject them. Nothing is read back to the
 host inside a step: the step's metrics stay on the device until the
 epoch ends (train/loop.py).
+
+On a data mesh (parallel/mesh.py) each rank runs the step on its local
+batch (the global batch over the ranks; its draws at that size, from its
+own rows of the pool) and reduces at facegen's points
+(facegen/train/step.py:296-310, 358-361): after the D iteration's
+backward, both nets' running batch-norm statistics, D's gradients, the
+BCE loss and the batch accuracy are averaged and the batch's confusion
+counts summed, before the penalty, the clamp and the gate; after the G
+iteration's backward, both nets' statistics, G's gradients and the loss
+are averaged. Each iteration packs its values into one flat fp32 buffer
+and issues one SUM all-reduce (gloo has no average; one collective
+beats one per tensor), then divides the averaged part by the number of
+ranks. Every rank then holds the same values and takes the same branch
+of the gate, so the replicas stay bit-equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +48,7 @@ from torch import nn
 from facegen_torch.config import TrainConfig
 from facegen_torch.nn import dropout
 from facegen_torch.train import losses, metrics
-from facegen_torch.train.optim import gated_update, make_optimizer
+from facegen_torch.train.optim import _state_tensors, gated_update, make_optimizer
 
 
 @dataclasses.dataclass
@@ -115,9 +129,11 @@ def steps_per_epoch(cfg: TrainConfig, pool_size: Optional[int] = None) -> int:
 
 
 def empty_draws(cfg: TrainConfig, mask_specs: Dict[str, Tuple[Tuple[int, ...], float]],
-                device) -> StepDraws:
-    """Uninitialised buffers of one step's draws, for ``draw_step(out=)``."""
-    half = cfg.batch_size // 2
+                device, batch: Optional[int] = None) -> StepDraws:
+    """Uninitialised buffers of one step's draws, for ``draw_step(out=)``,
+    at ``batch`` (``TrainStep.batch``; default the config's batch)."""
+    batch = cfg.batch_size if batch is None else batch
+    half = batch // 2
 
     def masks():
         return {name: torch.empty(shape, dtype=torch.bool, device=device)
@@ -129,17 +145,18 @@ def empty_draws(cfg: TrainConfig, mask_specs: Dict[str, Tuple[Tuple[int, ...], f
     return StepDraws(
         tuple(DDraws(torch.empty(half, dtype=torch.int64, device=device), noise(half), masks())
               for _ in range(cfg.d_iterations)),
-        tuple(GDraws(noise(cfg.batch_size), masks()) for _ in range(cfg.g_iterations)))
+        tuple(GDraws(noise(batch), masks()) for _ in range(cfg.g_iterations)))
 
 
 def draw_step(generator: torch.Generator, cfg: TrainConfig, pool_n: int,
               mask_specs: Dict[str, Tuple[Tuple[int, ...], float]],
               out: Optional[StepDraws] = None) -> StepDraws:
     """One step's draws from ``generator``, on its device. ``mask_specs``
-    maps each of D's dropout layers to its mask shape at the full batch
-    and its rate (``TrainStep.mask_specs``). With ``out`` (``empty_draws``,
-    e.g. a CUDA graph's static buffers) they are written into its tensors:
-    the same values, drawn in the same order."""
+    maps each of D's dropout layers to its mask shape at the step's batch
+    and its rate (``TrainStep.mask_specs``). Without ``out`` they are made
+    at the config's batch; with ``out`` (``empty_draws``, e.g. a CUDA
+    graph's static buffers or a rank's local batch) they are written into
+    its tensors: the same values, drawn in the same order."""
     dev = generator.device
     if out is None:
         out = empty_draws(cfg, mask_specs, dev)
@@ -197,19 +214,46 @@ def summaries_to_host(summaries) -> list:
 class TrainStep:
     """``step(state, pool, draws) -> StepMetrics``, updating ``state`` in
     place. ``pool`` is the epoch's (P, H, W, C) uint8 images on the
-    networks' device."""
+    networks' device: this rank's rows on a ``mesh``."""
 
-    def __init__(self, cfg: TrainConfig, g: nn.Module, d: nn.Module):
-        self.cfg = cfg
+    def __init__(self, cfg: TrainConfig, g: nn.Module, d: nn.Module, mesh=None):
+        n = 1 if mesh is None else mesh.size
+        if cfg.batch_size % (2 * n):  # facegen/train/step.py:235-237
+            raise ValueError(f"batch {cfg.batch_size} does not split into half real and half "
+                             f"fake images on each of {n} ranks")
+        self.cfg, self.mesh = cfg, mesh
+        self.batch = cfg.batch_size // n  # this rank's batch
         self.tx_d = make_optimizer(cfg.d_optmethod, cfg, "D")
         self.tx_g = make_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
         device = next(d.parameters()).device
-        self.mask_specs = dropout.dropout_mask_specs(d, cfg.batch_size, cfg.img_shape, device)
+        self.mask_specs = dropout.dropout_mask_specs(d, self.batch, cfg.img_shape, device)
+        self._flat: Dict[str, torch.Tensor] = {}  # the iterations' reduction buffers
+
+    def _reduce(self, key: str, state: GanState, means: List[torch.Tensor],
+                sums: Tuple[torch.Tensor, ...] = ()) -> List[torch.Tensor]:
+        """Average both nets' batch-norm statistics (in place) and ``means``
+        over the mesh, and sum ``sums``, in one SUM all-reduce of the
+        iteration's flat fp32 buffer (allocated at the first call, so a
+        CUDA graph's capture finds it in place). Returns the reduced
+        ``means`` and ``sums``, fp32 views of the buffer."""
+        stats = [b for net in (state.g, state.d) for b in net.buffers()]
+        parts = stats + means + list(sums)
+        sizes = [t.numel() for t in parts]
+        flat = self._flat.get(key)
+        if flat is None:
+            flat = self._flat[key] = torch.empty(sum(sizes), device=parts[0].device)
+        torch.cat([t.reshape(-1).float() for t in parts], out=flat)
+        self.mesh.all_reduce_sum_(flat)
+        flat[:sum(sizes[:len(stats) + len(means)])].div_(self.mesh.size)  # pmean = psum / n
+        out = [p.view(t.shape) for p, t in zip(flat.split(sizes), parts)]
+        for b, r in zip(stats, out):
+            b.copy_(r)
+        return out[len(stats):]
 
     def d_iteration(self, state: GanState, pool: torch.Tensor, draws: DDraws):
         cfg, g, d = self.cfg, state.g, state.d
-        half = cfg.batch_size // 2
+        half = self.batch // 2
         params = list(d.parameters())
         real = pool[draws.idx].to(self.dtype) / 255.0
         g.train()
@@ -223,13 +267,17 @@ class TrainStep:
         logits = d(inputs)
         loss = losses.bce_with_logits(logits, targets)
         grads = torch.autograd.grad(loss, params)
+        loss, logits = loss.detach(), logits.detach()
+        acc = losses.batch_accuracy(logits, targets)
+        counts = metrics.update_confusion(metrics.empty_confusion(logits.device), logits, targets)
+        if self.mesh is not None:  # facegen/train/step.py:296-310
+            *grads, loss, acc, counts = self._reduce("d", state, [*grads, loss, acc], (counts,))
+            acc, counts = acc.clone(), counts.to(torch.int32)
         # penalties on the pre-update parameters, then the clamp
-        loss = loss.detach() + losses.penalty_loss(params, cfg.d_l1, cfg.d_l2)
+        loss = loss + losses.penalty_loss(params, cfg.d_l1, cfg.d_l2)
         grads = losses.add_penalty_grads(grads, params, cfg.d_l1, cfg.d_l2)
         grads = losses.clamp_grads(grads, cfg.d_clamp)
 
-        logits = logits.detach()
-        acc = losses.batch_accuracy(logits, targets)
         # push into the ring, then average (adversarial.lua:154-167)
         k_ring = state.accs.shape[0]
         state.accs.scatter_(0, (state.accs_n % k_ring).long().reshape(1), acc.reshape(1))
@@ -237,7 +285,7 @@ class TrainStep:
         acc_avg = state.accs.sum() / torch.clamp(state.accs_n, max=k_ring).float()
         do_train = acc_avg < cfg.d_max_acc
         gated_update(self.tx_d, grads, state.opt_d, params, do_train)
-        state.confusion.copy_(metrics.update_confusion(state.confusion, logits, targets))
+        state.confusion += counts
         state.trained_d += do_train.int()
         state.not_trained_d += (~do_train).int()
         return loss, acc, do_train
@@ -252,7 +300,10 @@ class TrainStep:
         logits = d(imgs)  # D's parameters as the D phase left them
         loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device))
         grads = torch.autograd.grad(loss, params)
-        loss = loss.detach() + losses.penalty_loss(params, cfg.g_l1, cfg.g_l2)
+        loss = loss.detach()
+        if self.mesh is not None:  # facegen/train/step.py:358-361
+            *grads, loss = self._reduce("g", state, [*grads, loss])
+        loss = loss + losses.penalty_loss(params, cfg.g_l1, cfg.g_l2)
         # the reference's bug (adversarial.lua:223): G_L2 scales the sign term too
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
         grads = losses.add_penalty_grads(grads, params, sign_coef, cfg.g_l2)
@@ -270,3 +321,10 @@ class TrainStep:
             loss_g = self.g_iteration(state, gd)
         return StepMetrics(loss_d, loss_g, acc, gate.float())
 
+
+def state_tensors(state: GanState) -> List[torch.Tensor]:
+    """Every tensor of ``state``: both nets' parameters and statistics,
+    the optimizer states, the ring, the confusion matrix and the counters."""
+    return [*state.g.parameters(), *state.g.buffers(), *state.d.parameters(),
+            *state.d.buffers(), *_state_tensors(state.opt_g), *_state_tensors(state.opt_d),
+            state.accs, state.accs_n, state.confusion, state.trained_d, state.not_trained_d]

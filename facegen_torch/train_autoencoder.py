@@ -17,7 +17,12 @@ from __future__ import annotations
 import dataclasses
 import sys
 
-from facegen_torch.config import cli_device, train_config_from_args
+from facegen_torch.config import (
+    cli_device,
+    data_axis,
+    train_arg_parser,
+    train_config_from_args,
+)
 from facegen_torch.train.ae_loop import AETrainer
 
 
@@ -27,6 +32,9 @@ def main(argv=None, device=None) -> AETrainer:
     if not any(a.startswith("--noiseDim") for a in argv):
         argv += ["--noiseDim", "256"]
     cfg = train_config_from_args(argv)
+    if data_axis(cfg.mesh_shape) not in (1, -1):
+        train_arg_parser().error(f"--meshShape {cfg.mesh_shape}: the autoencoder trainer's "
+                                 f"multi-device training is not ported yet")
     # the reference AE is 1-channel only (train_autoencoder.lua:56-57)
     cfg = dataclasses.replace(cfg, grayscale=True)
     if device is None:

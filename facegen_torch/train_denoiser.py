@@ -16,7 +16,12 @@ from __future__ import annotations
 
 import sys
 
-from facegen_torch.config import cli_device, train_config_from_args
+from facegen_torch.config import (
+    cli_device,
+    data_axis,
+    train_arg_parser,
+    train_config_from_args,
+)
 from facegen_torch.train.ae_loop import DenoiserTrainer
 
 
@@ -26,6 +31,9 @@ def main(argv=None, device=None) -> DenoiserTrainer:
     if not any(a.startswith("--scale") for a in argv):
         argv += ["--scale", "16"]
     cfg = train_config_from_args(argv)
+    if data_axis(cfg.mesh_shape) not in (1, -1):
+        train_arg_parser().error(f"--meshShape {cfg.mesh_shape}: the denoiser trainer's "
+                                 f"multi-device training is not ported yet")
     if device is None:
         device = cli_device(cfg.gpu, "denoiser trainer")
     trainer = DenoiserTrainer(cfg, device=device)

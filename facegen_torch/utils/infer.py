@@ -1,9 +1,21 @@
 """Inference helpers: generation, D scoring, ranking and the
-nearest-neighbour search (counterpart of facegen/utils/infer.py)."""
+nearest-neighbour search (counterpart of facegen/utils/infer.py).
+
+Data-parallel serving (facegen's ``mesh`` argument, served by
+``gspmd_infer_jit``, facegen/parallel/gspmd.py:219-245): with
+``devices``, ``GanInference`` keeps one eval-mode replica of G and D on
+each device, splits every request over them, wrap-padding a count that
+does not divide (the first rows repeated, facegen's ``_wrap_pad``), and
+gathers the results in order on the first device; the noise is drawn
+once for the whole request. ``prepare_nn_dataset`` shards the dataset's
+rows over the devices, padded with sentinel rows that never win, and
+``nearest_neighbours`` merges each shard's top-k.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import copy
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,12 +29,32 @@ class GanInference:
     cast at use; D's sigmoid runs on fp32 logits."""
 
     def __init__(self, g: nn.Module, d: nn.Module, noise_dim: int,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, devices: Optional[Sequence] = None):
         self.g = g.eval()
         self.d = d.eval()
         self.noise_dim = noise_dim
         self.dtype = compute_dtype
         self.device = next(g.parameters()).device
+        # a replica of G and of D per device of a data-parallel request
+        self.g_replicas, self.d_replicas = [self.g], [self.d]
+        if devices is not None:
+            devices = [torch.device(dev) for dev in devices]
+            self.g_replicas = [copy.deepcopy(g).to(dev).eval() for dev in devices]
+            self.d_replicas = [copy.deepcopy(d).to(dev).eval() for dev in devices]
+            self.device = devices[0]  # where the results gather
+
+    def _split(self, nets: List[nn.Module], x: torch.Tensor) -> torch.Tensor:
+        """``nets[i]`` on the i-th of ``len(nets)`` equal parts of ``x``,
+        wrap-padded; the fp32 outputs in order on ``self.device``, cut back
+        to ``len(x)``."""
+        if len(nets) == 1:
+            return nets[0](x.to(self.device, self.dtype)).float()
+        n, k = x.shape[0], len(nets)
+        total = n + (-n % k)
+        padded = x.repeat((-(-total // n),) + (1,) * (x.dim() - 1))[:total]
+        parts = [net(part.to(next(net.parameters()).device, self.dtype))
+                 for net, part in zip(nets, padded.chunk(k))]
+        return torch.cat([p.float().to(self.device) for p in parts])[:n]
 
     def noise(self, generator: torch.Generator, n: int) -> torch.Tensor:
         """U(-1, 1) noise (nn_utils.lua:35-39), drawn on the generator's device."""
@@ -32,7 +64,7 @@ class GanInference:
     @torch.no_grad()
     def generate(self, noise: torch.Tensor) -> torch.Tensor:
         """(n, noise_dim) -> (n, H, W, C) fp32 images in [0, 1]."""
-        return self.g(noise.to(self.device, self.dtype)).float()
+        return self._split(self.g_replicas, noise)
 
     def generate_n(self, generator: torch.Generator, n: int) -> torch.Tensor:
         return self.generate(self.noise(generator, n))
@@ -40,8 +72,7 @@ class GanInference:
     @torch.no_grad()
     def score(self, images: torch.Tensor) -> torch.Tensor:
         """(n, H, W, C) images -> (n,) D probabilities."""
-        logits = self.d(images.to(self.device, self.dtype))
-        return torch.sigmoid(logits.float()).reshape(-1)
+        return torch.sigmoid(self._split(self.d_replicas, images)).reshape(-1)
 
     def rank(self, images: torch.Tensor, ascending: bool = False,
              max_out: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,31 +102,57 @@ def sanity_image(scale: int, channels: int, generator: torch.Generator) -> torch
     return img
 
 
-def prepare_nn_dataset(dataset, device) -> torch.Tensor:
-    """(N, H, W, C) images -> (N, H*W*C) fp32 on ``device``, uint8
-    scaled to [0, 1]; done once for repeated queries."""
+SENTINEL = 1e6  # a padding row's value: ~3e15 squared distance from any [0, 1] image
+
+
+def prepare_nn_dataset(dataset, device) -> Union[torch.Tensor, List[torch.Tensor]]:
+    """(N, H, W, C) images -> (N, H*W*C) fp32 on ``device``, uint8 scaled
+    to [0, 1]; done once for repeated queries. ``device`` a list of
+    devices: a list of equal shards of the rows, one on each, the last
+    ones padded with ``SENTINEL`` rows, which never enter a top-k
+    (facegen/utils/infer.py:102-124)."""
     t = torch.as_tensor(np.asarray(dataset)) if not torch.is_tensor(dataset) else dataset
+    if isinstance(device, (list, tuple)):
+        flat = prepare_nn_dataset(t, "cpu")
+        pad = -flat.shape[0] % len(device)
+        flat = torch.cat([flat, flat.new_full((pad, flat.shape[1]), SENTINEL)])
+        return [part.to(dev) for part, dev in zip(flat.chunk(len(device)), device)]
     flat = t.reshape(t.shape[0], -1).to(device)
     if flat.dtype == torch.uint8:
         return flat.float() / 255.0
     return flat.float()
 
 
+def _top_k(q: torch.Tensor, df: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(squared distances, indices) of the k rows of ``df`` nearest each
+    query: one |q|^2 - 2 q d^T + |d|^2 product and a top-k on df's device."""
+    q = q.to(df.device)
+    d2 = (q * q).sum(1, keepdim=True) - 2.0 * (q @ df.T) + (df * df).sum(1)[None, :]
+    neg_top, idx = torch.topk(-d2.clamp_min(0.0), k, dim=1)
+    return -neg_top, idx
+
+
 def nearest_neighbours(queries: torch.Tensor, dataset, k: int = 1,
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """For each query image the k nearest dataset images by L2 distance,
-    as (indices, distances). One |q|^2 - 2 q d^T + |d|^2 product and a
-    top-k on the device replace sample.lua:133-151's per-pair loop.
-    ``dataset`` is a 2-D tensor from ``prepare_nn_dataset`` or images to
-    prepare on the queries' device."""
+    as (indices, distances). A product and a top-k on the device replace
+    sample.lua:133-151's per-pair loop. ``dataset`` is a 2-D tensor from
+    ``prepare_nn_dataset``, a list of its shards (each searched on its
+    device, their top-k merged), or images to prepare on the queries'
+    device."""
     q = queries if torch.is_tensor(queries) else torch.as_tensor(np.asarray(queries))
     if q.dtype == torch.uint8:
         q = q.float() / 255.0
     q = q.reshape(q.shape[0], -1).float()
-    if torch.is_tensor(dataset) and dataset.dim() == 2:
-        df = dataset.to(q.device)
+    if isinstance(dataset, list):
+        found = [_top_k(q, part, k) for part in dataset]
+        offsets = np.cumsum([0] + [part.shape[0] for part in dataset[:-1]])
+        d2 = torch.cat([d.to(q.device) for d, _ in found], dim=1)
+        idx = torch.cat([i.to(q.device) + int(o) for (_, i), o in zip(found, offsets)], dim=1)
+        d2, pick = torch.topk(-d2, k, dim=1)
+        d2, idx = -d2, idx.gather(1, pick)
     else:
-        df = prepare_nn_dataset(dataset, q.device)
-    d2 = (q * q).sum(1, keepdim=True) - 2.0 * (q @ df.T) + (df * df).sum(1)[None, :]
-    neg_top, idx = torch.topk(-d2.clamp_min(0.0), k, dim=1)
-    return idx.cpu().numpy(), torch.sqrt(-neg_top).cpu().numpy()
+        if not (torch.is_tensor(dataset) and dataset.dim() == 2):
+            dataset = prepare_nn_dataset(dataset, q.device)
+        d2, idx = _top_k(q, dataset, k)
+    return idx.cpu().numpy(), torch.sqrt(d2).cpu().numpy()

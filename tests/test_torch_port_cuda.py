@@ -537,6 +537,49 @@ def test_graphed_steps_equal_eager_steps_with_deterministic_cudnn(cuda_device):
 
 
 @pytest.mark.cuda
+def test_one_rank_nccl_graphed_step_equals_the_single_device_one(cuda_device):
+    """A 1-rank NCCL group's data-parallel step, its all-reduces captured
+    in the CUDA graph, against the single-device graphed step: 3 steps
+    from one state on the same draws, fp32 (TF32 off) under cuDNN's
+    deterministic algorithms, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.parallel import make_mesh, maybe_initialize
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import TrainStep
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert maybe_initialize({"FACEGEN_COORDINATOR": f"127.0.0.1:{port}",
+                             "FACEGEN_NUM_PROCESSES": "1", "FACEGEN_PROCESS_ID": "0"})
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh((-1,))
+        assert (mesh.size, mesh.backend, mesh.device) == (1, "nccl", cuda_device)
+        cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
+        pool = _gan_pool(cuda_device)
+        states = []
+        for dp in (False, True):
+            state, _ = _gan_step(cuda_device, cfg)
+            runner = GraphedStep(TrainStep(cfg, state.g, state.d, mesh if dp else None), state,
+                                 pool.shape[0])
+            runner.set_pool(pool)
+            runner.run(torch.Generator(cuda_device).manual_seed(7), 3)
+            assert runner.graph is not None
+            states.append(state)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        dist.destroy_process_group()
+    _assert_states_close(states[1], states[0], 0.0)
+
+
+@pytest.mark.cuda
 def test_graphed_draws_and_launch_counts(cuda_device):
     """The static draws hold draw_step's draws of the last step, and the
     kernel counters after a warm-up step and 4 replays read 5 eager steps'

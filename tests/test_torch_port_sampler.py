@@ -183,7 +183,7 @@ def test_d_base_ranks_with_another_checkpoints_d(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--meshShape", "2"], "not ported yet"),
+    (["--meshShape", "2,2"], "not ported yet"),
 ])
 def test_cli_rejects_unported_flags(argv, message, capsys):
     with pytest.raises(SystemExit) as e:

@@ -152,7 +152,7 @@ def test_cli_parses_like_jax(argv):
 ])
 def test_cli_rejects_what_is_not_ported(argv, message, capsys):
     with pytest.raises(SystemExit):
-        train_config_from_args(argv)
+        train.main(argv, device="cpu")
     assert message in capsys.readouterr().err
 
 
