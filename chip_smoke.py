@@ -107,7 +107,29 @@ Phases, each printing its own lines; any failure exits non-zero:
 20. data-parallel serving: ``run_sampling`` on two replicas sharing the
     card (--runs 2 --neighbours) against one device from the same seed:
     the files, the launches, the wall time; the replicas' images, scores
-    and neighbours against one device's in fp32 and in bf16.
+    and neighbours against one device's in fp32 and in bf16;
+21. the quality report: ``python -m facegen_torch.eval.parity`` at full
+    width (``--n 1024 --n_train 4096`` on the store) in its three modes,
+    with phase 5's seeded checkpoint as A (phase 6's, 3 epochs from the
+    reference's init, has a flat G and constant D features, and A's D
+    embeds): against phase 6's checkpoint (``--network_b``), against a
+    32x32 grid of 1024 of A's samples on other noise (``--samples_b``) and
+    alone; facegen's keys, finite numbers and the forward kernel's 4 + 2 +
+    2 launches; each run's wall time and the G calls' device ms; the fp32
+    report on the card (TF32 off) against the CPU's on the same injected
+    draws (n = 256), A against a second seeded GAN, within the CPU tests'
+    tolerances;
+22. export: ``python -m facegen_torch.export`` of A (phase 5's checkpoint),
+    ``NumpyGenerator`` against the card's fp32 G on 64 noise vectors;
+23. the trainer's ``trace_dir`` at the default flags for 2 epochs: the
+    per-op table of the traced epoch lists UpconvFwd, UpconvDx and UpconvDw
+    at 63 x (4, 2, 2) calls, its device time per step within 25 % of phase
+    6's profile of the graphed step; ``debug_nans``: 2 eager steps with
+    finite losses, then a NaN G weight that must raise.
+
+Every step profile (phases 5-20) reads the device's events from a trace
+(facegen_torch.utils.profiling: ``trace`` + ``aggregate_trace``) and the
+host's wall time from as many untraced steps run just before.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -116,6 +138,8 @@ exits non-zero before printing either.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -225,6 +249,10 @@ DP_TOL = 1e-3
 # the sampler on 2 replicas against one device, fp32 with TF32 off: the
 # same convs on half the batch, where cuDNN may choose other algorithms
 DP_SERVE_FP32_TOL = 1e-5
+
+# the exported G on NumPy against the card's fp32 G (TF32 off): nine fp32
+# sums in other orders over trained weights, ~1e-6
+EXPORT_TOL = 1e-4
 
 # the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -544,33 +572,44 @@ def phase_main_path(tmp: str, store: str):
     return by_kernel
 
 
-def _profile_g_call(inf, gen, calls=3):
-    """Device time of one generate_n(1024), by kernel family (torch.profiler,
-    kernel events only)."""
+def _device_ops(fn):
+    """The device's events while ``fn()`` runs, summed by name: a trace of
+    it (facegen_torch.utils.profiling.trace) and its per-op table
+    (aggregate_trace; kernels, copies and fills on the GPU's tracks)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            inf.generate_n(gen, 1024)
-        torch.cuda.synchronize()
-    families = {"upsample-conv forward (igemm_sm90)": ("igemm_sm90",),
+    from facegen_torch.utils.profiling import aggregate_trace, trace
+
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            fn()
+            torch.cuda.synchronize()
+        return aggregate_trace(logdir, top=1 << 30)
+
+
+def _by_family(ops, families, other):
+    """Device us of ``aggregate_trace`` rows by family of kernel name."""
+    us = dict.fromkeys(list(families) + [other], 0.0)
+    for r in ops:
+        name = r["name"].lower()
+        us[next((f for f, keys in families.items() if any(k in name for k in keys)),
+                other)] += r["total_us"]
+    return us
+
+
+def _profile_g_call(inf, gen, calls=3):
+    """Device time of one generate_n(1024), by kernel family (a trace's
+    device events)."""
+    summary = _device_ops(lambda: [inf.generate_n(gen, 1024) for _ in range(calls)])
+    families = {"upsample-conv forward (igemm_sm90)": ("igemm_sm90", "upconvfwd"),
                 "batch norm": ("batch_norm", "batchnorm", "bn_"),
                 "cuDNN / cuBLAS (conv_out, fc)": ("cudnn", "xmma", "gemm", "conv", "cutlass"),
                 "PReLU": ("prelu",)}
-    us = dict.fromkeys(list(families) + ["other (casts, sigmoid, noise, copies)"], 0.0)
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
-        name = ev.key.lower()
-        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
-                   "other (casts, sigmoid, noise, copies)")
-        us[fam] += t
-    total = sum(us.values()) / calls / 1e3
+    us = _by_family(summary["ops"], families, "other (casts, sigmoid, noise, copies)")
+    total = summary["total_us"] / calls / 1e3
     check(total > 0, "the profiler saw no device time in generate_n")
-    print(f"main path: G call device time {total:.4f} ms (torch.profiler, {calls} calls of "
-          f"generate_n(1024), kernel events): " + "; ".join(
+    print(f"main path: G call device time {total:.4f} ms (torch.profiler trace, {calls} calls "
+          f"of generate_n(1024), device events): " + "; ".join(
               f"{f} {v / calls / 1e3:.4f} ms ({100 * v / calls / 1e3 / total:.1f} %)"
               for f, v in sorted(us.items(), key=lambda kv: -kv[1])))
 
@@ -731,7 +770,8 @@ def _launches():
 
 def phase_training(tmp: str, store: str):
     """Drive the trainer's CLI end to end; returns the kernels' launch
-    counts in its 2-epoch run."""
+    counts in its 2-epoch run and the graphed step's device ms from its
+    profile."""
     import torch
 
     from facegen_torch import train
@@ -810,9 +850,9 @@ def phase_training(tmp: str, store: str):
               f"over 30 steps, mean of 2 turns: {', '.join(f'{t:.4f}' for t in ts)}; batch 32, "
               f"bf16, waits for the host included): {n_epoch / (per_epoch * step_ms / 1e3):.1f} "
               f"images/s at the epoch's count of {n_epoch} examples per {per_epoch} steps")
-    _profile_train_steps(run, label="training path (graphed)")
+    graphed_ms = _profile_train_steps(run, label="training path (graphed)")
     _profile_train_steps(run_eager, label="training path (eager)")
-    return launches
+    return launches, graphed_ms
 
 
 def _step_ms(run, steps=30, warmup=5):
@@ -831,46 +871,39 @@ def _step_ms(run, steps=30, warmup=5):
 
 
 def _profile_train_steps(run, steps=5, label="training path", top=0):
-    """Device time of a training step by kernel family (torch.profiler,
-    kernel events only) against the host's wall time of the same steps:
-    the device's busy share; with ``top``, the kernels that take the most
-    device time, each with its ms per step. ``run(n)`` runs n steps."""
+    """Device time of a training step by kernel family (a trace's device
+    events over ``steps`` steps) against the host's wall time of as many
+    steps run untraced just before: the device's busy share; with ``top``,
+    the kernels that take the most device time, each with its ms per step.
+    ``run(n)`` runs n steps. Returns the device ms per step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     run(10)  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    summary = _device_ops(lambda: run(steps))
     families = {"upsample-conv dW (UpconvDw)": ("upconvdw",),
                 "upsample-conv dx (UpconvDx)": ("upconvdx",),
                 "upsample-conv forward (UpconvFwd)": ("upconvfwd",),
                 "split-K sums (reduce_splits)": ("reduce_splits",),
                 "cuDNN / cuBLAS": ("cudnn", "xmma", "gemm", "conv", "cutlass", "sm90_")}
-    other = "elementwise, reductions, copies"
-    us = dict.fromkeys(list(families) + [other], 0.0)
-    launches, kernels = 0, []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
-        name = ev.key.lower()
-        us[next((f for f, keys in families.items() if any(k in name for k in keys)), other)] += t
-        launches += ev.count
-        kernels.append((t, ev.count, ev.key))
-    busy_ms = sum(us.values()) / steps / 1e3
+    us = _by_family(summary["ops"], families, "elementwise, reductions, copies")
+    busy_ms = summary["total_us"] / steps / 1e3
+    launches = sum(r["calls"] for r in summary["ops"])
     check(busy_ms > 0, f"the profiler saw no device time in the {label} steps")
-    for t, count, key in sorted(kernels, reverse=True)[:top]:
-        print(f"{label}: kernel {t / steps / 1e3:.4f} ms per step in {count / steps:.0f} "
-              f"launches: {key[:160]}")
-    print(f"{label}: step profile (torch.profiler, {steps} steps after 10 warm-up, kernel "
-          f"events): {busy_ms:.4f} ms of device time in {wall_ms:.3f} ms of host wall per step, "
-          f"busy {100 * busy_ms / wall_ms:.1f} %, {launches / steps:.0f} kernels a step; " + "; ".join(
+    for r in summary["ops"][:top]:
+        print(f"{label}: kernel {r['total_us'] / steps / 1e3:.4f} ms per step in "
+              f"{r['calls'] / steps:.0f} launches: {r['name'][:160]}")
+    print(f"{label}: step profile (torch.profiler trace of {steps} steps after 10 warm-up, "
+          f"device events; host wall of {steps} untraced steps): {busy_ms:.4f} ms of device "
+          f"time in {wall_ms:.3f} ms of host wall per step, busy {100 * busy_ms / wall_ms:.1f} "
+          f"%, {launches / steps:.0f} kernels a step; " + "; ".join(
               f"{f} {v / steps / 1e3:.4f} ms ({100 * v / steps / 1e3 / busy_ms:.1f} %)"
               for f, v in sorted(us.items(), key=lambda kv: -kv[1])))
+    return busy_ms
 
 
 def _rel_l2(ours, ref):
@@ -2083,6 +2116,262 @@ def phase_dp_sampler(tmp: str, store: str):
     return launches["2 replicas"]
 
 
+# facegen's report keys (facegen/eval/parity.py:325-345, 388-451, 479-484),
+# None for a leaf
+PARITY_KEYS = {
+    "n_samples": None, "labels": None,
+    "rank_correlation": dict.fromkeys(("spearman_rho", "pool", "pool_size")),
+    "nn_distance": dict.fromkeys(("mean_a", "mean_b", "std_a", "std_b", "ks_stat",
+                                  "ks_pvalue")),
+    "frechet_d_features": dict.fromkeys(("a_vs_real", "b_vs_real", "a_vs_b")),
+    "parity": dict.fromkeys(("rank_parity", "nn_parity")),
+}
+_VS = ("ours_vs_reference", "ours_vs_real", "reference_vs_real")
+SAMPLE_KEYS = {
+    "n_samples": dict.fromkeys(("ours", "reference")), "labels": None,
+    "d_score": dict.fromkeys(("mean_ours", "mean_reference", "ks_stat", "ks_pvalue")),
+    "frechet_d_features": dict.fromkeys(_VS), "frechet_pixels": dict.fromkeys(_VS),
+    "pixel_moments": dict.fromkeys(("mean_ours", "mean_reference", "std_ours",
+                                    "std_reference")),
+    "nn_distance": dict.fromkeys(("mean_ours", "mean_reference", "ks_stat", "ks_pvalue")),
+    "calibration": {"note": None, "nn_half_vs_half": dict.fromkeys(("mean", "p10", "p90")),
+                    "nn_leave_one_out": dict.fromkeys(("mean", "p10", "p90"))},
+}
+SELF_KEYS = {"n_samples": None, "nn_distance": dict.fromkeys(("mean", "std", "min", "max")),
+             "frechet_vs_real": None}
+
+
+def _key_tree(report):
+    return {k: _key_tree(v) if isinstance(v, dict) else None for k, v in report.items()}
+
+
+def _numbers(report):
+    """Every number of a report (bools and strings left out)."""
+    for v in report.values():
+        if isinstance(v, dict):
+            yield from _numbers(v)
+        elif isinstance(v, list):
+            yield from (x for x in v if isinstance(x, float))
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield v
+
+
+def _g_call_ms(inf, noise, reps=5):
+    """Device ms of one G call on ``noise`` (CUDA events, median of
+    ``reps`` after 2 warm-up calls)."""
+    import torch
+
+    times = []
+    for i in range(reps + 2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        inf.generate(noise)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_quality_report(tmp: str, store: str):
+    """``python -m facegen_torch.eval.parity`` in its three modes at full
+    width (G32 + D32b, --n 1024 --n_train 4096) on the store: A is phase
+    5's seeded checkpoint, B phase 6's trained one, the grid 1024 of A's
+    samples on other noise; then the fp32 report on the card against the
+    CPU's on injected draws (n = 256), A against a second seeded GAN.
+    Returns the kernels' launch counts in the three runs."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.eval import parity
+    from facegen_torch.models import gan
+    from facegen_torch.models.gan import restore_gan
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.utils.infer import GanInference
+
+    dev = torch.device("cuda", 0)
+    # A embeds the populations with its D. Phase 6's checkpoint, 3 epochs
+    # from the reference's init, generates one flat image and its D's
+    # penultimate features are constant (every Fréchet distance 0 as A), so
+    # it is B, and phase 5's seeded G32 + D32b with calibrated batch norms is A
+    net_a = os.path.join(tmp, "logs", "adversarial")
+    net_b = os.path.join(tmp, "train_logs", "adversarial")
+    infs = {k: GanInference(*restore_gan(net, device=dev)[:2], 100)
+            for k, net in (("A", net_a), ("B", net_b))}
+    noise = infs["A"].noise(torch.Generator().manual_seed(4), 1024)
+    tiles = (infs["A"].generate(noise).cpu().numpy() * 255.0 + 0.5).clip(0, 255).astype(np.uint8)
+    grid = os.path.join(tmp, "grid1024.png")
+    Image.fromarray(tiles.reshape(32, 32, 32, 32, 3).transpose(0, 2, 1, 3, 4).reshape(
+        1024, 1024, 3)).save(grid)
+
+    common = ["--network_a", net_a, "--n", "1024", "--n_train", "4096", "--data", store]
+    runs = {"parity (A vs B)": (common + ["--network_b", net_b], PARITY_KEYS, 4),
+            "sample (A vs a grid of 1024 of A's samples)": (common + ["--samples_b", grid],
+                                                     SAMPLE_KEYS, 2),
+            "self (A)": (common, SELF_KEYS, 2)}
+    total = dict.fromkeys(KERNELS, 0)
+    for label, (argv, keys, fwd) in runs.items():
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            report = parity.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _launches()
+        total = {k: total[k] + launches[k] for k in total}
+        check(json.loads(out.getvalue()) == report, f"{label}: printed report differs")
+        check(_key_tree(report) == keys, f"{label}: keys {_key_tree(report)}")
+        check(all(np.isfinite(v) for v in _numbers(report)), f"{label}: non-finite {report}")
+        want = {"upsample_conv_fwd": fwd, "upsample_conv_dx": 0, "upsample_conv_dw": 0}
+        check(launches == want, f"{label}: launches {launches}, want {want}")
+        print(f"quality report {label}: parity.main took {run_s:.3f} s (wall, with checkpoint "
+              f"loads, store preparation and host statistics); launches {launches}")
+        print(f"quality report {label}: {json.dumps(report)}")
+    for k, inf in infs.items():
+        print(f"quality report: G call {k} at N = 1024, bf16: "
+              f"{_g_call_ms(inf, noise.to(dev)):.4f} ms on the device (CUDA events, median of 5)")
+
+    # the fp32 report, card against CPU, on the same injected draws
+    n = 256
+    gen = torch.Generator().manual_seed(8)
+    draws = dict(noise_a=torch.rand(n, 100, generator=gen) * 2 - 1,
+                 noise_b=torch.rand(n, 100, generator=gen) * 2 - 1,
+                 real_perm=torch.randperm(1024, generator=gen))
+    train = prepare_pool(torch.from_numpy(np.load(store)[:1024]).to(dev), 32, 3).cpu().numpy()
+    g_c, d_c = gan.init_gan(torch.Generator().manual_seed(1), 32, 3, 100, reference_init=False)
+    calibrate_batch_norm(g_c, draws["noise_b"])
+    reports = {}
+    for where in (dev, "cpu"):
+        g_a, d_a, _ = restore_gan(net_a, device=where)
+        g_b, d_b = (copy.deepcopy(m).to(where) for m in (g_c, d_c))
+        t0 = time.perf_counter()
+        with full_fp32():
+            reports[str(where)] = parity.parity_report(
+                g_a, d_a, g_b, d_b, train, n_samples=n, compute_dtype=torch.float32, **draws)
+        print(f"quality report fp32 parity_report (n = {n}) on {where}: "
+              f"{time.perf_counter() - t0:.3f} s")
+    diffs = parity.report_diffs(reports[str(dev)], reports["cpu"], n)
+    print(f"quality report fp32, card vs CPU: card {json.dumps(reports[str(dev)])}; "
+          f"CPU {json.dumps(reports['cpu'])}; {'ok' if not diffs else f'FAIL {diffs}'}")
+    check(not diffs, f"the card's fp32 report departs from the CPU's: {diffs}")
+    return total
+
+
+def phase_export(tmp: str):
+    """``python -m facegen_torch.export`` of phase 21's A (phase 5's seeded
+    checkpoint, whose G is not flat); ``NumpyGenerator`` against the card's
+    fp32 G on 64 noise vectors."""
+    import numpy as np
+    import torch
+
+    from facegen_torch import export
+    from facegen_torch.models.gan import restore_gan
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.utils.infer import GanInference
+
+    out = os.path.join(tmp, "generator.npz")
+    export.main(["--save", os.path.join(tmp, "logs"), "--network", "adversarial", "--out", out])
+    gen = export.NumpyGenerator(out)
+    g, d, _ = restore_gan(os.path.join(tmp, "logs", "adversarial"), device=torch.device("cuda", 0))
+    z = np.random.RandomState(0).uniform(-1, 1, (64, 100)).astype(np.float32)
+    t0 = time.perf_counter()
+    ours = gen(z)
+    np_s = time.perf_counter() - t0
+    with full_fp32():
+        ref = GanInference(g, d, 100, compute_dtype=torch.float32).generate(
+            torch.from_numpy(z)).cpu().numpy()
+    err = float(np.abs(ours - ref).max())
+    print(f"export: NumpyGenerator ({os.path.getsize(out) / 2**20:.1f} MiB file, 64 samples in "
+          f"{np_s:.3f} s on the host) vs the card's fp32 G: max_abs_err={err:.3e} (tolerance "
+          f"{EXPORT_TOL}); image std {float(ref.std()):.4f}")
+    check(ours.shape == (64, 32, 32, 3) and err <= EXPORT_TOL, f"export disagrees: {err}")
+
+
+def phase_trace_and_debug(tmp: str, store: str, graphed_ms: float):
+    """The trainer at the default flags with trace_dir for 2 epochs: the
+    per-op table of the traced epoch (its 63 steps alone) against phase 6's
+    profile of the graphed step; then debug_nans: 2 eager steps with finite
+    losses, and a NaN G weight, which must raise. Returns the kernels'
+    launch counts in the traced run."""
+    import math
+
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.loop import Trainer
+    from facegen_torch.train.step import steps_per_epoch
+    from facegen_torch.utils.profiling import aggregate_trace, enable_nan_debugging, \
+        format_op_table
+
+    trace_dir = os.path.join(tmp, "trace")
+    cfg = TrainConfig(dataset_dir=store, save=os.path.join(tmp, "trace_logs"),
+                      trace_dir=trace_dir).validate()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg)
+    rows = list(trainer.run(2))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    steps = steps_per_epoch(cfg)
+    want = {"upsample_conv_fwd": 4 * 2 * steps + 4 * 2, "upsample_conv_dx": 2 * 2 * steps,
+            "upsample_conv_dw": 2 * 2 * steps}
+    print(f"trace path: Trainer(trace_dir=...).run(2) took {run_s:.3f} s; launches {launches}")
+    check(launches == want, f"launches {launches}, want {want}")
+    check(trainer.epochs_per_compile == 1 and trainer.graphed.graph is not None,
+          "the traced run did not replay a graph one epoch at a time")
+    check(all(math.isfinite(r["loss_d_mean"]) for r in rows), f"non-finite losses {rows}")
+    summary = aggregate_trace(trace_dir, top=1 << 30)
+    calls = {k: sum(r["calls"] for r in summary["ops"] if k.lower() in r["name"].lower())
+             for k in ("UpconvFwd", "UpconvDx", "UpconvDw")}
+    want_calls = {"UpconvFwd": 4 * steps, "UpconvDx": 2 * steps, "UpconvDw": 2 * steps}
+    print(f"trace path: the traced epoch's table lists {calls} (want {want_calls}); its first "
+          f"12 rows:")
+    print(format_op_table({**summary, "ops": summary["ops"][:12]}))
+    check(calls == want_calls, f"traced kernel calls {calls}, want {want_calls}")
+    per_step = summary["total_us"] / steps / 1e3
+    print(f"trace path: {per_step:.4f} ms of device time per step in the traced epoch "
+          f"({summary['total_us'] / 1e3:.3f} ms over {steps} steps, "
+          f"{sum(r['calls'] for r in summary['ops']) / steps:.0f} device events a step) against "
+          f"{graphed_ms:.4f} ms in phase 6's profile of the graphed step (limit 25 %)")
+    check(abs(per_step / graphed_ms - 1) <= 0.25, "the traced epoch's device time per step is "
+          "more than 25 % from phase 6's profile")
+
+    dbg = TrainConfig(dataset_dir=store, save=os.path.join(tmp, "debug_logs"), debug_nans=True,
+                      n_epoch=32, noplot=True).validate()
+    try:
+        t0 = time.perf_counter()
+        trainer = Trainer(dbg)
+        rows = list(trainer.run(1))
+        torch.cuda.synchronize()
+        print(f"debug_nans: {steps_per_epoch(dbg)} eager steps in {time.perf_counter() - t0:.3f} "
+              f"s (route: {trainer.graphed.route}); loss_d {rows[0]['loss_d_mean']:.4f}, loss_g "
+              f"{rows[0]['loss_g_mean']:.4f}")
+        check(trainer.graphed.graph is None and steps_per_epoch(dbg) == 2
+              and math.isfinite(rows[0]["loss_d_mean"] + rows[0]["loss_g_mean"]),
+              "the debug_nans run did not run 2 finite eager steps")
+        trainer = Trainer(dataclasses.replace(dbg, save=os.path.join(tmp, "debug_nan_logs")))
+        with torch.no_grad():
+            trainer.state.g.get_submodule("00_fc").weight[0, 0] = float("nan")
+        try:
+            list(trainer.run(1))
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        print(f"debug_nans with a NaN G weight: {'raised: ' + raised if raised else 'FAIL'}")
+        check(raised is not None and "00_fc" in raised, "a NaN weight did not raise")
+    finally:
+        enable_nan_debugging(False)
+    return launches
+
+
 def main() -> int:
     try:
         name = phase_device()
@@ -2104,7 +2393,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             store = write_store(tmp)
             by_path = {"sampler": phase_main_path(tmp, store)}
-            by_path["training"] = launches = phase_training(tmp, store)
+            launches, graphed_ms = phase_training(tmp, store)
+            by_path["training"] = launches
             c2f_save, by_path["c2f_training"] = phase_c2f_training(tmp, store)
             by_path["c2f_sampler"] = phase_c2f_sampler(tmp, c2f_save)
             by_path["ae_training"] = phase_ae_training(tmp, store)
@@ -2116,6 +2406,9 @@ def main() -> int:
             by_path["training_dp_nccl_1_rank"] = phase_dp_nccl(tmp, store)
             by_path["training_dp_gloo_2_ranks_one_card"] = phase_dp_gloo(tmp)
             by_path["sampler_dp_2_replicas"] = phase_dp_sampler(tmp, store)
+            by_path["quality_report"] = phase_quality_report(tmp, store)
+            phase_export(tmp)
+            by_path["training_traced"] = phase_trace_and_debug(tmp, store, graphed_ms)
         with full_fp32():
             phase_step_parity()
             phase_c2f_step_parity()

@@ -33,10 +33,11 @@ def data_axis(mesh_shape: Sequence[int]) -> int:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Flags of ``th train.lua`` (train.lua:16-50) and facegen's
-    additions. Not carried: facegen's trace_dir and debug_nans (JAX
-    tooling), and guard_nonfinite and g_train_in_d_phase, ablations no
-    flag sets (the port always trains G's statistics in the D phase and
-    never skips a non-finite update, as facegen's defaults do).
+    additions. ``trace_dir`` and ``debug_nans`` are config fields with no
+    flag, as in facegen (train/loop.py reads them). Not carried:
+    guard_nonfinite and g_train_in_d_phase, ablations no flag sets (the
+    port always trains G's statistics in the D phase and never skips a
+    non-finite update, as facegen's defaults do).
     ``validate`` rejects the paths that are not ported. The autoencoder
     and denoiser trainers read the same flags (their own: coef_l1,
     coef_l2, ae_clamp)."""
@@ -88,6 +89,8 @@ class TrainConfig:
     epochs_per_compile: int = 0           # epochs per chunk with one read-back
                                           # (0 = 8 under --noplot without
                                           # weightsVisFreq, else 1)
+    trace_dir: Optional[str] = None       # torch.profiler trace of epoch 1 (no flag)
+    debug_nans: bool = False              # NaN debug mode, eager steps (no flag)
     noise_view: str = "nhwc"              # G's fc -> planes wiring ("nhwc"/"nchw")
     boundary_pad: int = 0                 # must stay 0: not ported
     # the port's own

@@ -50,11 +50,12 @@ capture. A gloo all-reduce of a CUDA tensor waits on the host and
 cannot be captured: under gloo every step runs eagerly.
 
 The route is chosen from the device and the backend when the object is
-built (``route``, which the trainer logs): on the CPU (the tests) and
-under gloo the same class runs ``TrainStep`` eagerly on the same
-buffers; on a CUDA device alone or under NCCL every step after the
-warm-up replays the graph, and a failure to capture or to replay
-raises: nothing falls back to eager steps.
+built (``route``, which the trainer logs): on the CPU (the tests), under
+gloo and with ``capture=False`` (the trainer's debug_nans, whose checks
+wait for the device) the same class runs ``TrainStep`` eagerly on the
+same buffers; otherwise, on a CUDA device alone or under NCCL, every
+step after the warm-up replays the graph, and a failure to capture or
+to replay raises: nothing falls back to eager steps.
 """
 
 from __future__ import annotations
@@ -84,17 +85,20 @@ class GraphedStep:
     ``generator``; their metrics stacked on the device."""
 
     def __init__(self, step: TrainStep, state: GanState, pool_n: int,
-                 log: Optional[Callable[[str], None]] = None):
+                 log: Optional[Callable[[str], None]] = None, capture: bool = True):
         self.step, self.state, self.pool_n = step, state, pool_n
         self.device = state.accs.device
         self.log = log or (lambda msg: None)
         self.pool: Optional[torch.Tensor] = None
         self.draws = empty_draws(step.cfg, step.mask_specs, self.device, step.batch)
         mesh = step.mesh
-        self.captures = self.device.type == "cuda" and (mesh is None or mesh.backend == "nccl")
+        self.captures = capture and self.device.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
         if self.captures:
             self.route = "one CUDA graph replay a step" + (
                 "" if mesh is None else f", NCCL's all-reduces over {mesh.size} ranks inside it")
+        elif self.device.type == "cuda" and not capture:
+            self.route = "eager steps: debug_nans checks wait for the device, which no capture allows"
         elif self.device.type == "cuda":
             self.route = (f"eager steps: a gloo all-reduce of a CUDA tensor waits on the host "
                           f"and cannot be captured ({mesh.size} ranks)")

@@ -20,6 +20,12 @@ is saved once at the end of a chunk that crossed a saveFreq boundary.
 0 means 8 under --noplot without --weightsVisFreq, else 1, as in facegen.
 A chunk trains the same steps on the same draws as N single epochs.
 
+Two config fields with no flag, as in facegen: ``trace_dir`` profiles
+the steps of the second epoch (index 1) into a torch.profiler trace
+(utils/profiling.py:trace; ``aggregate_trace`` makes its per-op table)
+and holds --epochsPerCompile to 1; ``debug_nans`` turns on
+``enable_nan_debugging`` and runs every step eagerly.
+
 With ``--denoise`` the grids include ``samples_denoised.png``: G's fixed
 samples through the denoiser trained at the run's scale and channels
 (models/ae.py:load_denoiser_fn; a missing checkpoint is an error).
@@ -68,7 +74,7 @@ from facegen_torch.train.step import (
 )
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.infer import GanInference
-from facegen_torch.utils.profiling import MetricsLogger
+from facegen_torch.utils.profiling import MetricsLogger, enable_nan_debugging
 from facegen_torch.utils.viz import visualize_progress
 
 CKPT_NAME = "adversarial"  # logs/adversarial.net in the reference
@@ -76,14 +82,18 @@ CKPT_NAME = "adversarial"  # logs/adversarial.net in the reference
 
 def resolve_epochs_per_compile(cfg: TrainConfig, log) -> int:
     """Epochs per chunk (facegen/train/loop.py:102-118): --epochsPerCompile
-    <= 0 is 8 under --noplot without --weightsVisFreq, else 1; the
-    segmented epoch of --weightsVisFreq takes one epoch at a time."""
+    <= 0 is 8 under --noplot without --weightsVisFreq and without a
+    trace_dir, else 1; the segmented epoch of --weightsVisFreq and the
+    traced epoch take one epoch at a time."""
     epc = cfg.epochs_per_compile
     if epc <= 0:
-        epc = 8 if (cfg.noplot and cfg.weights_vis_freq == 0) else 1
+        epc = 8 if (cfg.noplot and cfg.weights_vis_freq == 0 and not cfg.trace_dir) else 1
     if epc > 1 and cfg.weights_vis_freq > 0:
         log("<trainer> epochsPerCompile ignored: weightsVisFreq needs the segmented per-epoch "
             "path")
+        epc = 1
+    if epc > 1 and cfg.trace_dir:
+        log("<trainer> epochsPerCompile ignored: --traceDir captures the per-epoch program")
         epc = 1
     return epc
 
@@ -114,10 +124,14 @@ class Trainer:
         self.step = TrainStep(cfg, g, d, mesh)
         self.inf = GanInference(g, d, cfg.noise_dim, getattr(torch, cfg.compute_dtype))
         self.pool_n = cfg.n_epoch if cfg.n_epoch > 0 else self.source.size
-        # the steps draw from this rank's rows of the pool
+        if cfg.debug_nans:
+            enable_nan_debugging(True)
+        # the steps draw from this rank's rows of the pool; debug_nans's
+        # checks wait for the device, which no CUDA-graph capture allows,
+        # so its steps run eagerly
         self.graphed = GraphedStep(self.step, self.state,
                                    self.pool_n // (1 if mesh is None else mesh.size),
-                                   log=self._log)
+                                   log=self._log, capture=not cfg.debug_nans)
         self.epochs_per_compile = resolve_epochs_per_compile(cfg, self._log)
         self.readbacks = 0  # device-to-host reads of epoch results, one per chunk
         # fixed noise for comparable per-epoch samples (train.lua:195)
@@ -194,15 +208,34 @@ class Trainer:
                 self._netvis_dump(pool, done)
         return StepMetrics(*(torch.cat(xs) for xs in zip(*parts)))
 
-    def _netvis_dump(self, pool: torch.Tensor, step_idx: int):
+    def _traced_epoch(self, pool: torch.Tensor, generator: torch.Generator,
+                      n_steps: int) -> StepMetrics:
+        """The second epoch (index 1: the first holds the warm-up and the
+        capture, so this one is all replays) under ``trace(trace_dir)``,
+        the steps alone (facegen/train/loop.py:224-236). It runs whole;
+        with --weightsVisFreq it dumps once, after its last step, so that
+        the dumps' record has the epoch."""
+        from facegen_torch.utils.profiling import trace
+
+        with trace(self.cfg.trace_dir):
+            ms = self.run_steps(self._rows(pool), generator, n_steps)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self._log(f"<trainer> traced epoch #{self.state.epoch} into {self.cfg.trace_dir}")
+        if self.cfg.weights_vis_freq > 0 and self.writes:
+            # named, as facegen names it, by the epoch count after the epoch
+            self._netvis_dump(pool, n_steps, self.state.epoch + 1)
+        return ms
+
+    def _netvis_dump(self, pool: torch.Tensor, step_idx: int, epoch: Optional[int] = None):
         """Activation grids (visualizeNetwork, adversarial.lua:348-406) of D
         on the pool's first 4 images and of G on the first 4 fixed noise
         vectors, under ``<save>/viz/netvis/e{epoch:04d}_s{step:05d}/`` and
         its ``g/`` (facegen/train/loop.py:438-457)."""
         from facegen_torch.utils.netvis import visualize_network
 
-        out_dir = os.path.join(self.cfg.save, "viz", "netvis",
-                               f"e{self.state.epoch:04d}_s{step_idx:05d}")
+        epoch = self.state.epoch if epoch is None else epoch
+        out_dir = os.path.join(self.cfg.save, "viz", "netvis", f"e{epoch:04d}_s{step_idx:05d}")
         probe = pool[: min(4, pool.shape[0])].float() / 255.0
         visualize_network(self.state.d, probe, out_dir)
         noise = self.fixed_noise[: probe.shape[0]].to(self.device)
@@ -235,8 +268,11 @@ class Trainer:
                       f"[batchSize = {cfg.batch_size}, epochsPerCompile = {n}]")
         t0 = time.perf_counter()
         summaries = []
-        for pool, g in zip(pools, gens):
-            ms = self._epoch_steps(pool, g[1], n_steps)
+        for j, (pool, g) in enumerate(zip(pools, gens)):
+            if cfg.trace_dir and start_idx + j == 1:
+                ms = self._traced_epoch(pool, g[1], n_steps)
+            else:
+                ms = self._epoch_steps(pool, g[1], n_steps)
             summaries.append(epoch_summary(self.state, ms))
             reset_epoch_stats(self.state)
             self.state.epoch += 1

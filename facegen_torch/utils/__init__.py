@@ -1,1 +1,1 @@
-"""Checkpoints, inference and image grids of the port."""
+"""Checkpoints, inference, image grids, profiling and the dashboard of the port."""

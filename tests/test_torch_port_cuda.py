@@ -668,3 +668,85 @@ def test_eval_forward_after_replays_sees_the_new_weights(cuda_device):
     want = GanInference(copy.deepcopy(state.g), state.d, 100).generate(noise)
     assert not torch.equal(got, before)
     assert torch.equal(got, want)
+
+
+def _spread_gan(device, seed):
+    """G32 + D32b away from init's flat output: G's and D's kernels x6 and
+    x3, G's statistics moved (tests/test_torch_port_eval.py does the same
+    to facegen's weights)."""
+    g, d = gan.init_gan(torch.Generator().manual_seed(seed), 32, 3, 100, reference_init=False)
+    with torch.no_grad():
+        for net, factor in ((g, 6.0), (d, 3.0)):
+            for name, t in net.state_dict().items():
+                if name.endswith("weight") and t.dim() > 1:
+                    t.mul_(factor)
+                elif net is g and name.endswith(("running_mean", "running_var")):
+                    t.mul_(2.0).add_(0.05)
+    return g.to(device), d.to(device)
+
+
+@pytest.mark.cuda
+def test_parity_report_on_the_card_matches_the_cpu(cuda_device):
+    """The fp32 parity report (TF32 off) of two full-width GANs on the same
+    injected draws, card against CPU, within the CPU tests' tolerances; two
+    G calls, four forward launches."""
+    import numpy as np
+
+    from facegen_torch.eval import parity
+
+    n = 64
+    gen = torch.Generator().manual_seed(8)
+    draws = dict(noise_a=torch.rand(n, 100, generator=gen) * 2 - 1,
+                 noise_b=torch.rand(n, 100, generator=gen) * 2 - 1,
+                 real_perm=torch.randperm(128, generator=gen))
+    train = _gan_pool("cpu", 128).numpy()
+    reports = {}
+    for device in (cuda_device, torch.device("cpu")):
+        (g_a, d_a), (g_b, d_b) = _spread_gan(device, 0), _spread_gan(device, 1)
+        before = uc.KERNEL_LAUNCHES
+        reports[device.type] = parity.parity_report(g_a, d_a, g_b, d_b, train, n_samples=n,
+                                                    compute_dtype=torch.float32, **draws)
+        if device.type == "cuda":
+            assert uc.KERNEL_LAUNCHES == before + 4
+    assert reports["cuda"].keys() == reports["cpu"].keys()
+    assert not parity.report_diffs(reports["cuda"], reports["cpu"], n)
+    assert np.isfinite(reports["cuda"]["frechet_d_features"]["a_vs_b"])
+
+
+@pytest.mark.cuda
+def test_numpy_generator_matches_the_cards_g(cuda_device, tmp_path):
+    """The exported G served by NumPy against the card's fp32 G, 1e-4."""
+    import numpy as np
+
+    from facegen_torch import export
+
+    g, d = _spread_gan(cuda_device, 2)
+    gen = export.NumpyGenerator(export.export_generator(g, str(tmp_path / "g.npz"), 32, 3, 100))
+    z = np.random.RandomState(0).uniform(-1, 1, (16, 100)).astype(np.float32)
+    ref = GanInference(g, d, 100, compute_dtype=torch.float32).generate(torch.from_numpy(z))
+    np.testing.assert_allclose(gen(z), ref.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_trace_of_graphed_replays_lists_the_three_kernels(cuda_device, tmp_path):
+    """aggregate_trace of 3 replays of the graphed step at the default
+    flags lists UpconvFwd, UpconvDx and UpconvDw at 3 x (4, 2, 2) calls."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.utils.profiling import aggregate_trace, trace
+
+    cfg = TrainConfig().validate()
+    pool = _gan_pool(cuda_device)
+    state, step = _gan_step(cuda_device, cfg)
+    runner = GraphedStep(step, state, pool.shape[0])
+    runner.set_pool(pool)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    runner.run(gen, 2)  # the warm-up step and the capture
+    with trace(str(tmp_path)):
+        runner.run(gen, 3)
+        torch.cuda.synchronize()
+    summary = aggregate_trace(str(tmp_path), top=1 << 30)
+    calls = {k: sum(r["calls"] for r in summary["ops"] if k.lower() in r["name"].lower())
+             for k in ("UpconvFwd", "UpconvDx", "UpconvDw")}
+    assert calls == {"UpconvFwd": 12, "UpconvDx": 6, "UpconvDw": 6}
+    assert summary["total_us"] > 0 and summary["device"] != "host (no device track)"

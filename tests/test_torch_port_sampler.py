@@ -202,6 +202,9 @@ def test_port_imports_no_jax_and_no_facegen():
     code = (
         "import sys, torch\n"
         "import facegen_torch.sample\n"
+        "import facegen_torch.eval, facegen_torch.eval.parity, facegen_torch.eval.refgrid\n"
+        "import facegen_torch.export, facegen_torch.utils.profiling, facegen_torch.utils.viewer\n"
+        "from facegen_torch.eval import parity_report\n"
         "from facegen_torch.models import gan\n"
         "from facegen_torch.utils.infer import GanInference\n"
         "g, d = gan.init_gan(torch.Generator().manual_seed(0), 16, 1, 8)\n"
