@@ -125,9 +125,30 @@ Phases, each printing its own lines; any failure exits non-zero:
     per-op table of the traced epoch lists UpconvFwd, UpconvDx and UpconvDw
     at 63 x (4, 2, 2) calls, its device time per step within 25 % of phase
     6's profile of the graphed step; ``debug_nans``: 2 eager steps with
-    finite losses, then a NaN G weight that must raise.
+    finite losses, then a NaN G weight that must raise;
+24. the 2-D data x model mesh (parallel/gspmd.py) at world 1 under NCCL:
+    ``make_mesh2d(1, 1)`` of a 1-rank group, its graphed step (all-reduces
+    and all-gathers inside the graph) bit-equal to the single-device
+    graphed step in fp32 under cuDNN's deterministic algorithms, both
+    timed on the stream and profiled at the default flags, and a Trainer
+    on that mesh for one epoch (--N_epoch 256, graphed, every kernel);
+25. four gloo ranks sharing the card (``maybe_initialize(backend='gloo')``
+    before the CLI) on the 2x2 mesh: ``python -m facegen_torch.train --meshShape 2,2`` at the
+    default flags for one epoch (--N_epoch 256) from a TCP coordinator,
+    its launches per rank; then the step alone (the script re-run with
+    ``--gspmd-gloo-rank``), 3 fp32 steps on the global draws against the
+    single-device step on the card within 1e-3 relative l2, the four
+    gathered states bit-equal, the launches by shape (the forward at
+    N = 8 and 16, dx and dW at N = 16), the bf16 step's time, and the
+    kernels' rows of phases 3-4 at those local shapes;
+26. the c2f, autoencoder and denoiser CLIs at --meshShape 2 (the 2x1
+    mesh) on two gloo ranks sharing the card, one epoch each, and 3 fp32
+    steps of each on that mesh against its single-device step on the card;
+27. ``run_sampling`` at --meshShape 2,2 over ["cuda:0"] * 4 (two replica
+    groups holding the large leaves as shards) against one device: the
+    files, the launches, the images and scores in fp32 and bf16.
 
-Every step profile (phases 5-20) reads the device's events from a trace
+Every step profile (phases 5-24) reads the device's events from a trace
 (facegen_torch.utils.profiling: ``trace`` + ``aggregate_trace``) and the
 host's wall time from as many untraced steps run just before.
 
@@ -185,10 +206,12 @@ WMMA_DW_MS = {(32, 8, 128, 256): 0.0806, (32, 16, 256, 128): 0.2714}
 FWD_TRAIN_SHAPES = [(n, h, cin, cout, 5) for n in (16, 32, 100, 300)
                     for h, cin, cout in ((8, 128, 256), (16, 256, 128))]
 # G32's two layers at the local batch of a 2-rank data-parallel step
-# (global batch 32): the forward at N = 8 in the D phase and 16 in the G
-# phase, dx and dW at N = 16
+# (global batch 32), which is also a rank's on the 2x2 mesh (two data
+# rows): the forward at N = 8 in the D phase and 16 in the G phase, dx and
+# dW at N = 16
 DP_FWD_SHAPES = [(8, 8, 128, 256, 5), (8, 16, 256, 128, 5)]
 DP_BWD_SHAPES = [(16, 8, 128, 256, 5), (16, 16, 256, 128, 5)]
+DP_ROWS = []  # the kernel table's rows at those shapes
 
 FP32_TOL = 1e-4       # fp32 accumulate on both sides; TF32 off
 BF16_ATOL = 2e-2      # plus the bf16 output rounding, half an ulp:
@@ -449,7 +472,10 @@ def phase_kernels():
         row = _row("upsample_conv_fwd", (n, h, cin, cout), t, runs, flop, nbytes,
                    launches_per_g_call=1 if sampler else 0,
                    launches_per_step=0 if sampler or dp else 1,
-                   launches_per_rank_step_2_ranks=1 if dp else 0)
+                   launches_per_rank_step_2_ranks=1 if dp else 0,
+                   launches_per_rank_step_2x2=1 if dp else 0)
+        if dp:
+            DP_ROWS.append(row)
         print(f"time bf16 N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
               f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
               f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
@@ -680,7 +706,10 @@ def phase_bwd_kernels():
             t, runs = _time_turns({"kernel": kern, "plain": plain, "library": library})
             row = _row(f"upsample_conv_{which}", (n, h, cin, cout), t, runs, flop, nbytes,
                        launches_per_g_call=0, launches_per_step=0 if dp else 1,
-                       launches_per_rank_step_2_ranks=1 if dp else 0)
+                       launches_per_rank_step_2_ranks=1 if dp else 0,
+                       launches_per_rank_step_2x2=1 if dp else 0)
+            if dp:
+                DP_ROWS.append(row)
             print(f"time bf16 {which} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
                   f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
                   f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
@@ -1732,9 +1761,10 @@ def _coordinator_env(port: int, world: int, rank: int) -> dict:
             "FACEGEN_PROCESS_ID": str(rank)}
 
 
-def _train_state(cfg, device, seed=5, g_biases=False):
+def _train_state(cfg, device, seed=5, g_biases=False, mesh=None):
     """A GanState of seeded G and D (weights drawn on the CPU from
-    ``seed``); ``g_biases``: G's biases U(-0.1, 0.1) from seed 8."""
+    ``seed``); ``g_biases``: G's biases U(-0.1, 0.1) from seed 8; on a 2-D
+    ``mesh`` with its masters sharded."""
     import torch
 
     from facegen_torch.models import gan
@@ -1748,7 +1778,7 @@ def _train_state(cfg, device, seed=5, g_biases=False):
             for name, p in g.named_parameters():
                 if name.endswith("bias"):
                     p.copy_(torch.rand(p.shape, generator=bias_gen) * 0.2 - 0.1)
-    return init_state(cfg, g, d)
+    return init_state(cfg, g, d, mesh)
 
 
 # the 1-rank NCCL trainer run: python -m facegen_torch.train as a rank of
@@ -1762,6 +1792,14 @@ DP_CLI = (
     "print('launches ' + json.dumps({'upsample_conv_fwd': uc.KERNEL_LAUNCHES, "
     "'upsample_conv_dx': uc.DX_LAUNCHES, 'upsample_conv_dw': uc.DW_LAUNCHES}))\n"
 )
+
+
+# a rank of a gloo group (ranks that share a card: NCCL refuses them) that
+# runs a CLI snippet: the group is up before the CLI's own
+# maybe_initialize, which then finds it and does nothing
+def _on_gloo(snippet: str) -> str:
+    return ("from facegen_torch.parallel import maybe_initialize\n"
+            "maybe_initialize(backend='gloo')\n" + snippet)
 
 
 def phase_dp_nccl(tmp: str, store: str):
@@ -2116,6 +2154,644 @@ def phase_dp_sampler(tmp: str, store: str):
     return launches["2 replicas"]
 
 
+def phase_gspmd_nccl(tmp: str, store: str):
+    """The 2-D step at world 1 under NCCL: ``make_mesh2d(1, 1)`` over a
+    1-rank group, its graphed step against the single-device graphed step
+    (3 fp32 steps, TF32 off, cuDNN deterministic: bit-equal), both timed
+    at the default flags on the stream and profiled (busy share); then a
+    Trainer on that mesh for one epoch at the default flags
+    (--N_epoch 256: 16 steps), its step graphed. Returns the trainer's
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.parallel import make_mesh2d, maybe_initialize
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.loop import Trainer
+    from facegen_torch.train.step import TrainStep, steps_per_epoch
+
+    dev = torch.device("cuda", 0)
+    check(maybe_initialize(_coordinator_env(_free_port(), 1, 0)), "no NCCL group")
+    try:
+        mesh = make_mesh2d(1, 1)
+        check(mesh.backend == "nccl" and mesh.device == dev, f"mesh {mesh}")
+        pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 1000), 32, 3)
+        pool = pool.to(dev)
+
+        def graphed(cfg, two_d):
+            state = _train_state(cfg, dev, mesh=mesh if two_d else None)
+            runner = GraphedStep(TrainStep(cfg, state.g, state.d, mesh if two_d else None),
+                                 state, pool.shape[0])
+            runner.set_pool(pool)
+            return state, runner
+
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            cfg = TrainConfig(compute_dtype="float32").validate()
+            with full_fp32():
+                (plain, r_plain), (two, r_two) = graphed(cfg, False), graphed(cfg, True)
+                r_plain.run(torch.Generator(dev).manual_seed(7), 3)
+                r_two.run(torch.Generator(dev).manual_seed(7), 3)
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        errs, (worst, leaf) = _state_diffs(two, plain)
+        same = all(torch.equal(getattr(two, k), getattr(plain, k)) for k in (
+            "accs", "accs_n", "confusion", "trained_d", "not_trained_d"))
+        print(f"gspmd nccl parity fp32 (TF32 off, cuDNN deterministic), 3 graphed steps on "
+              f"make_mesh2d(1, 1) of a 1-rank NCCL group vs the single-device graphed step, "
+              f"relative l2: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; worst leaf {leaf} {worst:.3e}; counters {'equal' if same else 'DIFFER'}; "
+              f"{r_two.route}")
+        check(r_two.graph is not None and "all-gathers over the 1x1 mesh" in r_two.route,
+              f"the 2-D step was not captured: {r_two.route}")
+        check(worst == 0.0 and same, "the 1x1 graphed step is not bit-equal to the single-device one")
+
+        cfg = TrainConfig().validate()  # the default flags: bf16
+        (_, r_plain), (_, r_two) = graphed(cfg, False), graphed(cfg, True)
+        gens = {"single": torch.Generator(dev).manual_seed(11),
+                "2-D 1x1": torch.Generator(dev).manual_seed(11)}
+        runs = {"single": lambda n: r_plain.run(gens["single"], n),
+                "2-D 1x1": lambda n: r_two.run(gens["2-D 1x1"], n)}
+        times = {"single": [], "2-D 1x1": []}
+        for route in ("single", "2-D 1x1", "2-D 1x1", "single"):
+            times[route].append(_step_ms(runs[route]))
+        for route, ts in times.items():
+            print(f"gspmd nccl path ({route}): {statistics.mean(ts):.4f} ms per graphed step on "
+                  f"the stream (CUDA events over 30 steps, mean of 2 turns: "
+                  f"{', '.join(f'{t:.4f}' for t in ts)}; default flags, batch 32, bf16)")
+        _profile_train_steps(runs["single"], label="gspmd nccl path (single-device graphed step)")
+        _profile_train_steps(runs["2-D 1x1"], label="gspmd nccl path (1x1 graphed step)")
+
+        save = os.path.join(tmp, "gspmd_nccl_logs")
+        tcfg = TrainConfig(dataset_dir=store, save=save, n_epoch=256, epochs=1).validate()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainer = Trainer(tcfg, mesh=mesh, verbose=False)
+        stats = list(trainer.run())
+        torch.cuda.synchronize()
+        run_s, launches = time.perf_counter() - t0, _launches()
+    finally:
+        dist.destroy_process_group()
+    steps = steps_per_epoch(tcfg)
+    want = {"upsample_conv_fwd": 4 * steps + 4, "upsample_conv_dx": 2 * steps,
+            "upsample_conv_dw": 2 * steps}
+    print(f"gspmd nccl path: Trainer on make_mesh2d(1, 1), 1 epoch of {steps} steps at the "
+          f"default flags in {run_s:.3f} s (with the capture and the grids): loss_d "
+          f"{stats[0]['loss_d_mean']:.4f} loss_g {stats[0]['loss_g_mean']:.4f}; "
+          f"{trainer.graphed.route}; launches {launches}")
+    check(trainer.graphed.graph is not None, "the 1x1 trainer did not capture its step")
+    check(launches == want, f"launches {launches}, want {want}")
+    _check_files(os.path.join(save, "adversarial", "arrays.npz"))
+    return launches
+
+
+# the 2-D programs of ranks sharing the card over gloo: a rank of a gloo
+# group of ``world`` on ``device``; "gan" (4 ranks, the 2x2 mesh): 3 fp32
+# GAN steps at the default flags on the global draws from numpy, the
+# gathered state, the launches by shape and the step's time (bf16);
+# "family" (2 ranks, the 2x1 mesh): 3 fp32 steps each of the c2f, the
+# autoencoder and the denoiser
+GSPMD_WORKER_FLAG = "--gspmd-gloo-rank"
+GSPMD_TOL = 1e-3  # as DP_TOL: the parameters' change and the moments, relative l2
+# the c2f at its default SGD lr (0.02, momentum 0.9): after one step the
+# 2x1 mesh's traces are 7e-7 from one device's (CPU), after three 6.5e-4,
+# and 8.6e-5 at a tenth of the lr: the step moves the nets far enough for
+# their ReLUs' fp32 kinks to amplify the first step's rounding, as
+# tests/test_torch_port_parallel.py's G16 + D16_d case does (5e-3 there)
+C2F_GSPMD_TOL = 5e-3
+
+
+def _gan_global_draws(step, cfg, dev, rs, pool_n):
+    """One step's global draws from numpy ``rs`` (the same on every rank and
+    on one device)."""
+    import numpy as np
+    import torch
+
+    from facegen_torch.train.step import DDraws, GDraws, StepDraws
+
+    def masks():
+        return {k: torch.from_numpy(rs.rand(*shape) < 1.0 - rate).to(dev)
+                for k, (shape, rate) in step.mask_specs.items()}
+
+    bs, nd = cfg.batch_size, cfg.noise_dim
+    d = DDraws(torch.from_numpy(rs.randint(0, pool_n, bs // 2)).to(dev),
+               torch.from_numpy(rs.uniform(-1, 1, (bs // 2, nd)).astype(np.float32)).to(dev),
+               masks())
+    g = GDraws(torch.from_numpy(rs.uniform(-1, 1, (bs, nd)).astype(np.float32)).to(dev), masks())
+    return StepDraws((d,), (g,))
+
+
+def gspmd_gan_steps(dev, mesh=None):
+    """3 fp32 GAN steps at the default flags (G32 + D32b, batch 32) from a
+    seeded state on the global draws; the gathered state's leaves."""
+    import numpy as np
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.train.step import TrainStep
+    from facegen_torch.utils import checkpoint as ckpt
+
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
+    pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32, 3).to(dev)
+    state = _train_state(cfg, dev, g_biases=True, mesh=mesh)
+    step = TrainStep(cfg, state.g, state.d, mesh)
+    rs = np.random.RandomState(100)
+    for _ in range(3):
+        step(state, pool, _gan_global_draws(step, cfg, dev, rs, pool.shape[0]))
+    return ckpt.train_state_arrays(state)
+
+
+def _mask_draws(rs, specs, dev):
+    import torch
+
+    return {k: torch.from_numpy(rs.rand(*shape) < 1.0 - rate).to(dev)
+            for k, (shape, rate) in specs.items()}
+
+
+def gspmd_family_steps(dev, mesh=None, steps=3):
+    """``steps`` fp32 steps each of the c2f (its default flags but SGD with
+    momentum 0.9), the autoencoder (scale 32, gray, noiseDim 256) and the
+    denoiser (scale 16, colour, --coefL1 1e-4) at batch 32 from seeded nets
+    on global draws from numpy; each one's gathered leaves and losses.
+    The c2f runs SGD because Adam's first steps move an entry by about lr
+    x the sign of its gradient, and at full width thousands of the c2f
+    nets' gradient entries are as small as their rounding noise (the 2x1
+    mesh against one device on the CPU: 0.3 % of G's entries moved by up
+    to 2.2e-3 against each other, 1.2e-2 relative l2); SGD's step is
+    linear in the gradient, and its momentum trace is sharded state as
+    Adam's moments are."""
+    import numpy as np
+    import torch
+
+    from facegen_torch.config import C2FConfig, TrainConfig
+    from facegen_torch.data.c2f import make_triples
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.models import ae, c2f
+    from facegen_torch.nn.init import gaussian_overwrite
+    from facegen_torch.parallel.gspmd import set_batch_norm_mesh, shard_params
+    from facegen_torch.train.ae_loop import (
+        AEDraws,
+        AEStep,
+        DenoiserDraws,
+        DenoiserState,
+        DenoiserStep,
+    )
+    from facegen_torch.train.c2f import (
+        C2FDDraws,
+        C2FGDraws,
+        C2FStep,
+        C2FStepDraws,
+        init_c2f_state,
+    )
+    from facegen_torch.train.optim import adam
+    from facegen_torch.utils import checkpoint as ckpt
+
+    faces = draw_synthetic_faces(torch.Generator().manual_seed(6), 256)
+    out, rs = {}, np.random.RandomState(200)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    # c2f at its default flags in fp32, SGD with momentum
+    cfg = C2FConfig(compute_dtype="float32", d_optmethod="sgd", g_optmethod="sgd",
+                    d_sgd_momentum=0.9, g_sgd_momentum=0.9).validate()
+    g, d = c2f.init_c2f(torch.Generator().manual_seed(3), cfg.fine_size, cfg.channels, device=dev)
+    state, step = init_c2f_state(cfg, g, d, mesh), C2FStep(cfg, g, d, mesh)
+    pool = make_triples(prepare_pool(faces, 32, 3).to(dev), cfg.coarse_size)
+    bs, fs, losses = cfg.batch_size, cfg.fine_size, []
+    for _ in range(steps):
+        noise = [t(rs.uniform(-1, 1, (n, fs, fs, 1)).astype(np.float32)) for n in (bs // 2, bs)]
+        draws = C2FStepDraws(
+            (C2FDDraws(t(rs.randint(0, 256, bs // 2)), t(rs.randint(0, 256, bs // 2)), noise[0],
+                       _mask_draws(rs, step.mask_specs, dev)),),
+            (C2FGDraws(t(rs.randint(0, 256, bs)), noise[1], _mask_draws(rs, step.mask_specs, dev)),))
+        losses.append([float(v) for v in step(state, pool, draws)])
+    out["c2f"] = (ckpt.train_state_arrays(state), losses)
+    # the autoencoder
+    cfg = TrainConfig(scale=32, grayscale=True, noise_dim=256).validate()
+    gen = torch.Generator().manual_seed(4)
+    model = ae.create_autoencoder(32, 1, 256, generator=gen, device=dev)
+    gaussian_overwrite(model, gen)
+    shards = shard_params({"m": model}, mesh)["m"] if mesh is not None else None
+    opt = adam(1e-3).init(shards.masters if shards else list(model.parameters()))
+    step, pool = AEStep(cfg, model, mesh, shards), prepare_pool(faces, 32, 1).to(dev)
+    losses = [float(step(model, opt, pool, AEDraws(t(rs.permutation(256)[:32]),
+                                                   _mask_draws(rs, step.mask_specs, dev))))
+              for _ in range(steps)]
+    opt = shards.full_opt(opt) if shards else opt
+    out["autoencoder"] = (ckpt.autoencoder_arrays(model, opt), losses)
+    # the denoiser
+    cfg = TrainConfig(scale=16, coef_l1=1e-4).validate()
+    enc, dec1, dec2 = ae.init_denoiser(torch.Generator().manual_seed(5), 16, 3, device=dev)
+    shards = shard_params({"dec1": dec1, "dec2": dec2}, mesh) if mesh is not None else None
+    tx = adam(1e-3)
+    st = DenoiserState(enc, dec1, dec2, *(tx.init(shards[k].masters if shards else
+                                                  list(m.parameters()))
+                                          for k, m in (("dec1", dec1), ("dec2", dec2))), shards)
+    step, pool = DenoiserStep(cfg, dec1, mesh), prepare_pool(faces, 16, 3).to(dev)
+    set_batch_norm_mesh(dec1, mesh)
+    set_batch_norm_mesh(dec2, mesh)
+    losses = []
+    for _ in range(steps):
+        def normal():
+            return t(rs.standard_normal((32, 16, 16, 3)).astype(np.float32))
+
+        draws = DenoiserDraws(t(rs.permutation(256)[:32]), normal(),
+                              _mask_draws(rs, step.mask_specs, dev), normal(),
+                              _mask_draws(rs, step.mask_specs, dev),
+                              _mask_draws(rs, step.mask_specs, dev))
+        losses.append(step(st, pool, draws).tolist())
+    arrays = ckpt.denoiser_arrays(dec1, dec2)
+    for key, k, dec, o in (("AE1_DECODER", "dec1", dec1, st.opt1),
+                           ("AE2_DECODER", "dec2", dec2, st.opt2)):
+        arrays.update(ckpt.module_arrays(dec, f"{key}/p", f"{key}/s",
+                                         shards[k].full_opt(o) if shards else o, f"{key}/opt"))
+    out["denoiser"] = (arrays, losses)
+    return out
+
+
+def gspmd_gloo_rank(kind: str, rank: int, world: int, port: int, device: str, out: str) -> None:
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    from facegen_torch.ops import upsample_conv as uc
+    from facegen_torch.parallel import make_mesh2d, maybe_initialize
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.utils import checkpoint as ckpt
+
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    maybe_initialize(_coordinator_env(port, world, rank), device_type=dev.type, backend="gloo")
+    try:
+        mesh = make_mesh2d(world // 2, 2, device=dev) if kind == "gan" else make_mesh2d(
+            world, 1, device=dev)
+        by_shape = collections.Counter()
+        launch, launch_bwd = uc._launch, uc._launch_bwd
+
+        def counted(x, wc, b):
+            by_shape[f"upsample_conv_fwd N={x.shape[0]}"] += 1
+            return launch(x, wc, b)
+
+        def counted_bwd(which, a, b):
+            by_shape[f"upsample_conv_{which} N={a.shape[0]}"] += 1
+            return launch_bwd(which, a, b)
+
+        uc._launch, uc._launch_bwd = counted, counted_bwd
+        torch.backends.cudnn.deterministic = True
+        with full_fp32():
+            if kind == "gan":
+                results = {"gan": (gspmd_gan_steps(dev, mesh), [])}
+            else:
+                results = gspmd_family_steps(dev, mesh)
+        torch.backends.cudnn.deterministic = False
+        uc._launch, uc._launch_bwd = launch, launch_bwd
+        meta = {"launches": dict(by_shape), "losses": {k: v[1] for k, v in results.items()}}
+        if kind == "gan" and dev.type == "cuda":  # the 2-D gloo step's time, default flags
+            from facegen_torch.config import TrainConfig
+            from facegen_torch.data.pipeline import prepare_pool
+            from facegen_torch.data.synthetic import draw_synthetic_faces
+            from facegen_torch.train.graph import GraphedStep
+            from facegen_torch.train.step import TrainStep
+
+            cfg = TrainConfig().validate()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            state = _train_state(cfg, dev, mesh=mesh)
+            meta["state_bytes"] = torch.cuda.memory_allocated(dev) - before
+            pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32,
+                                3).to(dev)
+            runner = GraphedStep(TrainStep(cfg, state.g, state.d, mesh), state, pool.shape[0])
+            runner.set_pool(pool)
+            gen = torch.Generator(dev).manual_seed(11)
+            runner.run(gen, 3)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            runner.run(gen, 10)
+            end.record()
+            torch.cuda.synchronize()
+            meta.update(stream_ms=start.elapsed_time(end) / 10,
+                        host_ms=(time.perf_counter() - t0) * 1e3 / 10, route=runner.route)
+        for name, (arrays, _) in results.items():
+            ckpt.save(out, f"{name}_rank{rank}", arrays, meta)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(argv_of, world: int, timeout: int = 900, env=None):
+    """``world`` processes, rank r running ``argv_of(r)``, all at once; their
+    outputs, after all have ended (each must exit 0)."""
+    procs = [subprocess.Popen(argv_of(r), cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=None if env is None else env(r))
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"a rank failed: {log[-3000:]}")
+    return logs
+
+
+def _leaf_group(key: str) -> str:
+    """A leaf's group: its root (``params_g``, ``opt_d``, ``params``), or a
+    denoiser decoder's root and kind (``AE1_DECODER/opt``)."""
+    parts = key.split("/")
+    return "/".join(parts[:2]) if parts[0].endswith("_DECODER") else parts[0]
+
+
+def _gspmd_compare(ranks_arrays, ref, start):
+    """The ranks' gathered states bit-equal, and rank 0's against the
+    single-device ``ref``, per group of leaves: relative l2 of the
+    parameters' change from ``start`` and of the other floating leaves
+    (moments, batch-norm statistics); the counters equal."""
+    import numpy as np
+
+    a0 = ranks_arrays[0]
+    equal = all(sorted(a) == sorted(a0) and all(np.array_equal(a[k], a0[k]) for k in a0)
+                for a in ranks_arrays[1:])
+    errs = {}
+    for group in sorted({_leaf_group(k) for k in ref if "/" in k}):
+        keys = [k for k in ref if _leaf_group(k) == group and ref[k].dtype.kind == "f"]
+        if not keys:
+            continue
+        if group.split("/")[-1] in ("params", "p", "params_g", "params_d"):
+            errs[group] = _np_rel_l2([a0[k] - start[k] for k in keys],
+                                     [ref[k] - start[k] for k in keys])
+        else:
+            errs[group] = _np_rel_l2([a0[k] for k in keys], [ref[k] for k in keys])
+    exact = [k for k in ref if "/" not in k or k.endswith("/count")]
+    counters = all(np.array_equal(a0[k], ref[k]) for k in exact)
+    return equal, errs, counters
+
+
+def phase_gspmd_gloo(tmp: str, store: str):
+    """Four gloo ranks sharing cuda:0 on the 2x2 mesh: ``python -m
+    facegen_torch.train --meshShape 2,2`` at the default flags for one short
+    epoch (--N_epoch 256: 16 steps) from a TCP coordinator; then the step
+    alone, 3 fp32 steps on the global draws against the single-device step
+    on the card (the four gathered states bit-equal), the launches by shape
+    and the step's time, and the kernels' rows at its local shapes.
+    Returns the CLI's launches (all four ranks)."""
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.parallel.gspmd import torch_shard_dim
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.step import steps_per_epoch
+    from facegen_torch.utils import checkpoint as ckpt
+
+    port, world = _free_port(), 4
+    saves = [os.path.join(tmp, "gspmd_2x2_cli", f"rank{r}") for r in range(world)]
+
+    def env(r):
+        return dict(os.environ, **_coordinator_env(port, world, r))
+
+    argv = ["--datasetDir", store, "--N_epoch", "256", "--epochs", "1", "--meshShape", "2,2"]
+    t0 = time.perf_counter()
+    logs = _run_ranks(lambda r: [sys.executable, "-c", _on_gloo(DP_CLI), *argv, "--save",
+                                 saves[r]], world, env=env)
+    run_s = time.perf_counter() - t0
+    per_rank = [json.loads(log.rsplit("launches ", 1)[1].splitlines()[0]) for log in logs]
+    route = next((ln for ln in logs[0].splitlines() if "step route:" in ln), "")
+    steps = steps_per_epoch(TrainConfig(n_epoch=256))
+    want = [{"upsample_conv_fwd": 4 * steps + (4 if r == 0 else 0),
+             "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps} for r in range(world)]
+    rows = _metrics_rows(saves[0])
+    print(f"gspmd 2x2 path: python -m facegen_torch.train --meshShape 2,2 as 4 gloo ranks sharing "
+          f"cuda:0 (maybe_initialize(backend='gloo') before the CLI), 1 epoch of {steps} steps "
+          f"at the default flags in "
+          f"{run_s:.3f} s (4 processes, with their start); {route.strip()}; launches per rank "
+          f"{per_rank} (rank 0 also draws the grids); epoch 1: loss_d {rows[0]['loss_d_mean']:.4f}"
+          f" loss_g {rows[0]['loss_g_mean']:.4f} {rows[0]['images_per_sec']:.1f} images/s")
+    check(per_rank == want, f"launches per rank {per_rank}, want {want}")
+    check("gloo over" in route or "gloo all-reduce" in route, f"route: {route!r}")
+    _check_files(os.path.join(saves[0], "adversarial", "arrays.npz"))
+    check(not any(os.path.exists(s) for s in saves[1:]), "a rank other than 0 wrote")
+
+    here = os.path.abspath(__file__)
+    out = os.path.join(tmp, "gspmd_2x2_steps")
+    port = _free_port()
+    t0 = time.perf_counter()
+    _run_ranks(lambda r: [sys.executable, here, GSPMD_WORKER_FLAG, "gan", str(r), str(world),
+                          str(port), "cuda:0", out], world)
+    steps_s = time.perf_counter() - t0
+    loaded = [ckpt.load(out, f"gan_rank{r}") for r in range(world)]
+    torch.backends.cudnn.deterministic = True
+    with full_fp32():
+        ref = gspmd_gan_steps(torch.device("cuda", 0))
+    torch.backends.cudnn.deterministic = False
+    start = ckpt.train_state_arrays(_train_state(
+        TrainConfig(compute_dtype="float32", reference_init=False).validate(), "cpu",
+        g_biases=True))
+    equal, errs, counters = _gspmd_compare([a for a, _ in loaded], ref, start)
+    ok = equal and counters and all(v <= GSPMD_TOL for v in errs.values())
+    print(f"gspmd 2x2 parity: 3 fp32 steps at the default flags (global batch 32, local 16) on "
+          f"4 gloo ranks sharing cuda:0 vs the single-device step on the card, the same global "
+          f"draws (TF32 off, cuDNN deterministic), in {steps_s:.3f} s (4 processes): ranks' "
+          f"gathered states bit-equal: {equal}; relative l2 " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + f" (tolerance {GSPMD_TOL}); counters and "
+          f"confusion {'equal' if counters else 'DIFFER'}; {'ok' if ok else 'FAIL'}")
+    for r, (_, m) in enumerate(loaded):
+        print(f"gspmd 2x2 path (rank {r}): launches by shape over the 3 steps "
+              f"{json.dumps(dict(sorted(m['launches'].items())))}; the bf16 step at the default "
+              f"flags: {m['stream_ms']:.4f} ms per step on the stream, {m['host_ms']:.3f} ms of "
+              f"host clock (CUDA events over 10 steps after 3; {m['route']})")
+    for row in DP_ROWS:
+        print(f"gspmd 2x2 path: kernel at its local shape {json.dumps(row)}")
+    # the state's memory: one device's nets and Adam moments against a 2x2
+    # rank's work weights, masters and moments (torch.cuda.memory_allocated
+    # around building the state at the default flags, in each process)
+    cfg = TrainConfig().validate()
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    one = _train_state(cfg, dev)
+    one_bytes = torch.cuda.memory_allocated(dev) - before
+    params = [p for net in (one.g, one.d) for p in net.parameters()]
+    total = sum(p.numel() for p in params)
+    sharded = sum(p.numel() for p in params if torch_shard_dim(p.shape, 2) is not None)
+    del one, params
+    want = 4 * (total + 3 * sharded // 2 + 2 * (total - sharded))  # P + 3S/mp + 2(P - S)
+    rank_bytes = [m["state_bytes"] for _, m in loaded]
+    print(f"gspmd 2x2 path: the state's memory at the default flags (G32 + D32b, Adam), "
+          f"torch.cuda.memory_allocated around building it: one device {one_bytes} bytes, a "
+          f"rank of the 2x2 mesh {rank_bytes} bytes (mp = 2: {sharded} of {total} parameters "
+          f"sharded; the work weights whole, the masters and moments halved: {want} bytes "
+          f"counted, {min(rank_bytes) / one_bytes:.4f} of one device)")
+    check(ok, "the 2x2 step on the card disagrees with the single-device step")
+    check(all(b < one_bytes for b in rank_bytes),
+          f"a 2x2 rank's state ({rank_bytes} bytes) is not below one device's ({one_bytes})")
+    want = {"upsample_conv_fwd N=8": 2 * 3, "upsample_conv_fwd N=16": 2 * 3,
+            "upsample_conv_dx N=16": 2 * 3, "upsample_conv_dw N=16": 2 * 3}
+    for r, (_, m) in enumerate(loaded):
+        check(m["launches"] == want, f"rank {r} launches by shape {m['launches']}, want {want}")
+    return {name: sum(lr[name] for lr in per_rank) for name in KERNELS}
+
+
+GSPMD_FAMILY_CLI = (
+    "import json, sys, time\n"
+    "from facegen_torch import train_autoencoder, train_c2f, train_denoiser\n"
+    "from facegen_torch.ops import upsample_conv as uc\n"
+    "uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0\n"
+    "store, save = sys.argv[1], sys.argv[2]\n"
+    "common = ['--datasetDir', store, '--N_epoch', '256', '--epochs', '1', '--meshShape', '2']\n"
+    "walls = {}\n"
+    "for name, main in (('c2f', train_c2f.main), ('autoencoder', train_autoencoder.main), "
+    "('denoiser', train_denoiser.main)):\n"
+    "    t0 = time.perf_counter()\n"
+    "    tr = main(common + ['--save', save + '/' + name])\n"
+    "    walls[name] = time.perf_counter() - t0\n"
+    "    assert tr.mesh is not None and (tr.mesh.dp, tr.mesh.mp) == (2, 1), tr.mesh\n"
+    "print('family ' + json.dumps({'walls': walls, 'launches': [uc.KERNEL_LAUNCHES, "
+    "uc.DX_LAUNCHES, uc.DW_LAUNCHES]}))\n"
+)
+
+
+def phase_gspmd_family(tmp: str, store: str):
+    """The c2f, autoencoder and denoiser CLIs at --meshShape 2 (the 2x1
+    mesh) on two gloo ranks sharing cuda:0, one short epoch each
+    (--N_epoch 256); then 3 fp32 steps of each on the 2x1 mesh against its
+    single-device step on the card. Returns their launches (none: these
+    nets have no upsample-conv)."""
+    import numpy as np
+    import torch
+
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.utils import checkpoint as ckpt
+
+    port, world = _free_port(), 2
+    saves = [os.path.join(tmp, "gspmd_family_cli", f"rank{r}") for r in range(world)]
+
+    def env(r):
+        return dict(os.environ, **_coordinator_env(port, world, r))
+
+    t0 = time.perf_counter()
+    logs = _run_ranks(lambda r: [sys.executable, "-c", _on_gloo(GSPMD_FAMILY_CLI), store,
+                                 saves[r]], world, env=env)
+    run_s = time.perf_counter() - t0
+    res = [json.loads(log.rsplit("family ", 1)[1].splitlines()[0]) for log in logs]
+    _check_files(*(os.path.join(saves[0], sub, "arrays.npz") for sub in (
+        "c2f/adversarial_c2f_16_to_32", "c2f/adversarial_c2f_16_to_32_best",
+        "autoencoder/autoencoder", "denoiser/denoiser_3x16x16")))
+    check(not os.path.exists(saves[1]), "rank 1 wrote")
+    print(f"gspmd family path: the c2f, autoencoder and denoiser CLIs at --meshShape 2 on 2 gloo "
+          f"ranks sharing cuda:0, one epoch each (--N_epoch 256) in {run_s:.3f} s (2 processes, "
+          f"with their start); wall s per CLI on rank 0 {res[0]['walls']}; launches "
+          f"(fwd, dx, dW) per rank {[r['launches'] for r in res]}")
+    check(all(r["launches"] == [0, 0, 0] for r in res), "a kernel of the port launched")
+
+    here = os.path.abspath(__file__)
+    out = os.path.join(tmp, "gspmd_family_steps")
+    port = _free_port()
+    _run_ranks(lambda r: [sys.executable, here, GSPMD_WORKER_FLAG, "family", str(r), str(world),
+                          str(port), "cuda:0", out], world)
+    torch.backends.cudnn.deterministic = True
+    with full_fp32():
+        ref = gspmd_family_steps(torch.device("cuda", 0))
+        start = gspmd_family_steps(torch.device("cuda", 0), steps=0)
+    torch.backends.cudnn.deterministic = False
+    ok_all = True
+    for name, (ref_arrays, ref_losses) in ref.items():
+        loaded = [ckpt.load(out, f"{name}_rank{r}") for r in range(world)]
+        equal, errs, _ = _gspmd_compare([a for a, _ in loaded], ref_arrays, start[name][0])
+        losses = loaded[0][1]["losses"][name]
+        loss_err = float(np.max(np.abs(np.asarray(losses) - np.asarray(ref_losses))
+                                / np.maximum(np.abs(np.asarray(ref_losses)), 1e-12)))
+        tol = C2F_GSPMD_TOL if name == "c2f" else GSPMD_TOL
+        ok = equal and loss_err <= tol and all(v <= tol for v in errs.values())
+        ok_all &= ok
+        print(f"gspmd family parity ({name}): 3 fp32 steps on the 2x1 mesh (2 gloo ranks sharing "
+              f"cuda:0) vs one device on the card, the same global draws: ranks bit-equal "
+              f"{equal}; losses' relative error {loss_err:.3e}; relative l2 (parameters: "
+              f"their change) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tolerance {tol}); {'ok' if ok else 'FAIL'}")
+    check(ok_all, "a 2x1 family step disagrees with its single-device step")
+    return {name: 0 for name in KERNELS}
+
+
+def phase_gspmd_sampler(tmp: str, store: str):
+    """``run_sampling`` at --meshShape 2,2 over ["cuda:0"] * 4 (2 replica
+    groups of 2, the large leaves as shards) against one device from the
+    same seed (--runs 2 --neighbours), and GanInference on that grid
+    against one device in fp32 (TF32 off) and bf16. Returns its launches."""
+    import contextlib
+
+    import torch
+
+    from facegen_torch import sample
+    from facegen_torch.config import SampleConfig
+    from facegen_torch.models import gan
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.utils.infer import GanInference
+
+    dev = torch.device("cuda", 0)
+    save_dir = os.path.join(tmp, "logs")  # phase 5's checkpoint
+    walls, launches, scores = {}, {}, {}
+    for label, shape, devices in (("one device", (), None), ("2x2", (2, 2), [dev] * 4)):
+        cfg = SampleConfig(save=save_dir, runs=2, neighbours=True, dataset_dir=store,
+                           mesh_shape=shape, writeto=os.path.join(tmp, f"gspmd_samples_{label}"))
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        paths = sample.run_sampling(cfg, device=dev, devices=devices, verbose=False)
+        torch.cuda.synchronize()
+        walls[label], launches[label] = time.perf_counter() - t0, _launches()
+        check(len(paths) == 12, f"{label}: {len(paths)} files")
+        _check_files(*paths)
+    print(f"gspmd sampler path: run_sampling --meshShape 2,2 --runs 2 --neighbours over "
+          f"['cuda:0'] * 4 took {walls['2x2']:.3f} s against {walls['one device']:.3f} s on one "
+          f"device (host clock, with checkpoint load, store preparation, NN search and PNGs); "
+          f"launches {launches['2x2']} against {launches['one device']}")
+    check(launches["2x2"]["upsample_conv_fwd"] == 2 * 2 * 2,
+          f"2 groups x 2 layers x 2 runs forward launches, got {launches['2x2']}")
+    g, d, _ = gan.restore_gan("adversarial", default_dir=save_dir, device=dev)
+    noise = GanInference(g, d, 100).noise(sample.run_generator(1, 1), sample.N_SAMPLES)
+    lines, ok = [], True
+    for dtype, ctx in ((torch.float32, full_fp32), (torch.bfloat16, contextlib.nullcontext)):
+        with ctx():
+            one = GanInference(g, d, 100, dtype)
+            grid = GanInference(g, d, 100, dtype, devices=[dev] * 4, mp=2)
+            imgs, imgs2 = one.generate(noise), grid.generate(noise)
+            s1, s2 = one.score(imgs), grid.score(imgs)
+            torch.cuda.synchronize()
+        e_img, e_score = float((imgs2 - imgs).abs().max()), float((s2 - s1).abs().max())
+        if dtype == torch.float32:
+            good = e_img <= DP_SERVE_FP32_TOL and e_score <= DP_SERVE_FP32_TOL
+        else:
+            good = (bool(((imgs2 - imgs).abs() <= BF16_ATOL + BF16_RTOL * imgs.abs()).all())
+                    and bool(((s2 - s1).abs() <= BF16_ATOL + BF16_RTOL * s1.abs()).all()))
+        ok &= good
+        lines.append(f"{'fp32 (TF32 off)' if dtype == torch.float32 else 'bf16 (served)'}: "
+                     f"images {e_img:.3e}, scores {e_score:.3e}")
+    held = [tuple(s.shape) for _, _, shards in grid.g_replicas[0].leaves for s in shards[:1]]
+    print(f"gspmd sampler path: the 2x2 grid vs one device on run 1's noise (1024): "
+          f"{'; '.join(lines)} (tolerances {DP_SERVE_FP32_TOL} fp32, {BF16_ATOL} + "
+          f"{BF16_RTOL:.4f} x |ref| bf16); G's sharded leaves per card {held}; "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the 2x2 sampler disagrees with one device")
+    return launches["2x2"]
+
+
 # facegen's report keys (facegen/eval/parity.py:325-345, 388-451, 479-484),
 # None for a leaf
 PARITY_KEYS = {
@@ -2406,6 +3082,10 @@ def main() -> int:
             by_path["training_dp_nccl_1_rank"] = phase_dp_nccl(tmp, store)
             by_path["training_dp_gloo_2_ranks_one_card"] = phase_dp_gloo(tmp)
             by_path["sampler_dp_2_replicas"] = phase_dp_sampler(tmp, store)
+            by_path["training_gspmd_nccl_1x1"] = phase_gspmd_nccl(tmp, store)
+            by_path["training_gspmd_gloo_2x2_one_card"] = phase_gspmd_gloo(tmp, store)
+            by_path["c2f_ae_denoiser_gspmd_2x1_one_card"] = phase_gspmd_family(tmp, store)
+            by_path["sampler_gspmd_2x2"] = phase_gspmd_sampler(tmp, store)
             by_path["quality_report"] = phase_quality_report(tmp, store)
             phase_export(tmp)
             by_path["training_traced"] = phase_trace_and_debug(tmp, store, graphed_ms)
@@ -2434,5 +3114,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [DP_WORKER_FLAG]:  # a rank of phase 19
         dp_gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == [GSPMD_WORKER_FLAG]:  # a rank of phase 25 or 26
+        gspmd_gloo_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
+                        sys.argv[6], sys.argv[7])
         sys.exit(0)
     sys.exit(main())

@@ -15,19 +15,19 @@ import math
 from typing import Optional, Sequence, Tuple
 
 
-def data_axis(mesh_shape: Sequence[int]) -> int:
-    """The data axis of ``--meshShape`` 'DP' or 'DP,1': DP, or -1 for
-    every device. Raises ValueError for the 2-D mesh ('DP,MP' with
-    MP > 1) and for a size that is neither positive nor -1."""
+def mesh_axes(mesh_shape: Sequence[int]) -> Tuple[int, int, bool]:
+    """``--meshShape`` 'DP' or 'DP,MP' as (DP, MP, whether it named two
+    axes): DP is positive or -1 (every rank), MP positive; 'DP' is (DP, 1,
+    False). Raises ValueError for any other shape."""
     shape, flag = tuple(mesh_shape), ",".join(str(v) for v in mesh_shape)
-    if len(shape) == 2 and shape[1] == 1:
-        shape = shape[:1]
-    if len(shape) != 1:
-        raise ValueError(f"--meshShape {flag}: the 2-D mesh ('DP,MP' with MP > 1) is not "
-                         f"ported yet")
-    if shape[0] == 0 or shape[0] < -1:
+    if len(shape) not in (1, 2):
+        raise ValueError(f"--meshShape {flag}: 'DP' or 'DP,MP'")
+    dp, mp = shape[0], (shape[1] if len(shape) == 2 else 1)
+    if dp == 0 or dp < -1:
         raise ValueError(f"--meshShape {flag}: a positive size or -1")
-    return shape[0]
+    if mp < 1:
+        raise ValueError(f"--meshShape {flag}: the model axis must be positive")
+    return dp, mp, len(shape) == 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +78,7 @@ class TrainConfig:
     coef_l2: float = 0.0          # --coefL2
     ae_clamp: float = 1.0         # --AE_clamp
     # facegen's additions
-    mesh_shape: Tuple[int, ...] = (1,)    # 'DP' ranks of a process group (parallel/)
+    mesh_shape: Tuple[int, ...] = (1,)    # 'DP' or 'DP,MP' ranks of a process group (parallel/)
     compute_dtype: str = "bfloat16"       # activations dtype; params stay fp32
     reference_init: bool = True           # the reference's gaussian overwrite
     reference_g_penalty_bug: bool = True  # adversarial.lua:223: G_L2 scales both
@@ -131,9 +131,9 @@ class TrainConfig:
         if self.boundary_pad > 0:
             raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
                              "on the TPU); leave it at 0")
-        # 'DP' or 'DP,1'; train/loop.py:main checks it against the
+        # 'DP' or 'DP,MP'; train/loop.py:main checks it against the
         # process group when it makes the mesh
-        data_axis(self.mesh_shape)
+        mesh_axes(self.mesh_shape)
         return self
 
 
@@ -179,7 +179,7 @@ class C2FConfig:
     epochs: int = -1
     val_size: int = 500       # VAL_DATA = loadImages(0, 500) (train_c2f.lua:218)
     parzen_samples: int = 200
-    mesh_shape: Tuple[int, ...] = (1,)  # one device: multi-device is not ported yet
+    mesh_shape: Tuple[int, ...] = (1,)  # 'DP' or 'DP,MP' ranks of a process group
     boundary_pad: int = 0     # must stay 0: not ported
     # the port's own
     gpu: int = 0              # --gpu: CUDA device index
@@ -203,9 +203,7 @@ class C2FConfig:
         if self.boundary_pad > 0:
             raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
                              "on the TPU); leave it at 0")
-        if tuple(self.mesh_shape) not in ((1,), (-1,)):
-            raise ValueError(f"--meshShape {self.mesh_shape}: multi-device training "
-                             f"is not ported yet")
+        mesh_axes(self.mesh_shape)  # checked against the process group by train_c2f.main
         return self
 
 
@@ -234,7 +232,7 @@ class SampleConfig:
     d_c2f_network: Optional[str] = None  # --D_c2f32: c2f D from another checkpoint
     save_c2f: str = ""            # --save_c2f32 (empty = --save_base)
     c2f_tries: int = 10           # candidate diffs per image (sample.lua:177)
-    mesh_shape: Tuple[int, ...] = ()  # 'DP' serving cards; empty = one (sample.py)
+    mesh_shape: Tuple[int, ...] = ()  # 'DP' or 'DP,MP' serving cards; empty = one (sample.py)
 
     @property
     def channels(self) -> int:
@@ -295,9 +293,12 @@ def train_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--meshShape", type=str, default="-1", dest="mesh_shape",
                    help="'N' or '-1': data parallel over the N ranks of a process group, "
                         "one process per device (launch N processes with "
-                        "FACEGEN_COORDINATOR, FACEGEN_NUM_PROCESSES, FACEGEN_PROCESS_ID); "
-                        "'1' or '-1' without one: one device; the 2-D 'DP,MP' is not "
-                        "ported yet")
+                        "FACEGEN_COORDINATOR, FACEGEN_NUM_PROCESSES, FACEGEN_PROCESS_ID), "
+                        "each on its local batch; 'DP,MP': the 2-D data x model mesh over "
+                        "DP*MP ranks, the single-device step on the global batch with the "
+                        "large leaves sharded over MP (the GAN trainer; the c2f, AE and "
+                        "denoiser trainers take any shape this way); '1' or '-1' without "
+                        "a group: one device")
     p.add_argument("--epochs", type=int, default=-1,
                    help="number of epochs to run (-1 = forever)")
     p.add_argument("--epochsPerCompile", type=int, default=0, dest="epochs_per_compile",
@@ -367,7 +368,9 @@ def c2f_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--syntheticData", action="store_true", dest="synthetic_data")
     p.add_argument("--datasetDir", default=None, dest="dataset_dir")
     p.add_argument("--meshShape", type=str, default="-1", dest="mesh_shape",
-                   help="'1' or '-1' (one device); more devices are not ported yet")
+                   help="'N' or 'DP,MP' ranks of a process group (the 2-D data x model "
+                        "mesh, global-batch semantics; 'N' is 'N,1'); '1' or '-1' without "
+                        "one: one device")
     p.add_argument("--boundaryPad", type=int, default=0, dest="boundary_pad",
                    help="not ported: must stay 0")
     return p

@@ -204,13 +204,60 @@ class LeakyReLU(nn.Module):
         return F.leaky_relu(x, self.slope)
 
 
+class SyncBatchNormFunction(torch.autograd.Function):
+    """Training-mode batch norm of fp32 ``x`` (channels last) by the
+    statistics of the global batch over a mesh's data group
+    (parallel/gspmd.py:Mesh2D, whose data rows hold equal shares of the
+    batch), in two passes as the single-device ``var`` is: the channels'
+    fp32 sums are all-reduced for mean = S / n, then their sums of squared
+    deviations from that mean for var = SS / n, with n the global count
+    (one pass, SS / n - mean^2, would lose the variance to cancellation
+    when the mean is large against the spread). The backward all-reduces
+    the two channel sums the input's gradient needs, sum(dy) and
+    sum(dy * xhat), and returns this rank's own as the gradients of the
+    bias and the scale: the train step sums those over the data group
+    with the other gradients. Returns (y, mean, var); mean and var are
+    not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mesh, eps):
+        dims, c = tuple(range(x.dim() - 1)), x.shape[-1]
+        n = x.numel() // c * mesh.dp
+        sums = x.sum(dims)
+        mesh.all_reduce_sum_(sums)
+        mean = sums / n
+        centred = x - mean
+        squares = (centred * centred).sum(dims)
+        mesh.all_reduce_sum_(squares)
+        var = squares / n
+        inv = torch.rsqrt(var + eps)
+        xhat = centred * inv
+        ctx.save_for_backward(xhat, inv, weight)
+        ctx.mesh, ctx.n = mesh, n
+        ctx.mark_non_differentiable(mean, var)
+        return centred * (inv * weight) + bias, mean, var  # as BatchNorm.forward rounds
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        xhat, inv, weight = ctx.saved_tensors
+        dims, c, n = tuple(range(dy.dim() - 1)), dy.shape[-1], ctx.n
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        total = local.clone()
+        ctx.mesh.all_reduce_sum_(total)
+        dx = (weight * inv / n) * (n * dy - total[:c] - xhat * total[c:])
+        return dx, local[c:], local[:c], None, None
+
+
 class BatchNorm(nn.Module):
     """Batch norm over the last (channel) axis, computed in fp32 and cast
     back to the input dtype (facegen/nn/layers.py:169-211), eps 1e-5. In
     train mode it normalises by the batch's statistics and moves the
     running ones: new = (1 - momentum) * old + momentum * batch, with the
     unbiased variance (torch's convention, momentum 0.1); in eval mode it
-    uses the running statistics."""
+    uses the running statistics. With ``mesh`` (a 2-D mesh of more than
+    one data row, parallel/gspmd.py:set_batch_norm_mesh) the batch is the
+    global one: ``SyncBatchNormFunction``, the unbiased factor from the
+    global count."""
 
     MOMENTUM = 0.1
 
@@ -221,19 +268,26 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
+        self.mesh = None
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * (var * (n / max(n - 1, 1))))
 
     def forward(self, x):
         xf = x.float()
+        if self.training and self.mesh is not None:
+            y, mean, var = SyncBatchNormFunction.apply(xf, self.weight, self.bias, self.mesh,
+                                                       self.eps)
+            self._move_running(mean, var, x.numel() // x.shape[-1] * self.mesh.dp)
+            return y.to(x.dtype)
         if self.training:
             dims = tuple(range(x.dim() - 1))
             mean = xf.mean(dims)
             var = xf.var(dims, unbiased=False)
-            n = x.numel() // x.shape[-1]
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * (var * (n / max(n - 1, 1))))
+            self._move_running(mean, var, x.numel() // x.shape[-1])
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight

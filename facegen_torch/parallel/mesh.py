@@ -19,6 +19,13 @@ the mesh is that group:
   ``_multi_epoch``, ``_segment``) are the ``mesh`` argument of
   ``train/step.py:TrainStep``, ``train/graph.py:GraphedStep`` and
   ``train/loop.py:Trainer``.
+
+``training_mesh`` routes ``--meshShape`` as facegen's trainers do
+(facegen/train/loop.py:507-519): in the GAN trainer a bare 'N' is this
+local-batch mesh and any 'DP,MP', 'DP,1' included, the 2-D mesh of
+parallel/gspmd.py with the single-device program's semantics; the c2f,
+autoencoder and denoiser trainers run every shape of more than one rank
+on the 2-D mesh.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from typing import Iterable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from facegen_torch.config import data_axis
+from facegen_torch.config import mesh_axes
+from facegen_torch.parallel.gspmd import mesh2d_from_shape, resolve_axes
 from facegen_torch.parallel.multihost import rank_device
 
 
@@ -50,32 +58,27 @@ class DataMesh:
     def all_reduce_sum_(self, t: torch.Tensor) -> None:
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
 
+    def warmup(self) -> None:
+        """One all-reduce of a single element, waited for: the communicator
+        exists after it (parallel/multihost.py:warmup_collectives)."""
+        t = torch.ones(1, device=self.device)
+        self.all_reduce_sum_(t)
+        if int(t.item()) != self.size:
+            raise RuntimeError(f"warm-up all-reduce gave {t.item()}, want {self.size}")
+
 
 def _fmt(mesh_shape: Sequence[int]) -> str:
     return ",".join(str(v) for v in mesh_shape)
 
 
 def resolve_mesh_shape(mesh_shape: Sequence[int], world_size: Optional[int]) -> int:
-    """The number of data-parallel ranks ``--meshShape`` asks for, given
-    the size of the process group that is up (None: no group): -1 is the
-    group's size, or one device without a group. Raises ValueError as
-    ``data_axis`` does, for a size other than the group's, and for more
-    than one device without a group."""
-    dp = data_axis(mesh_shape)
-    if world_size is None:
-        if dp in (1, -1):
-            return 1
-        raise ValueError(
-            f"--meshShape {dp}: no process group is up. The port trains data parallel with "
-            f"one process per device: launch {dp} processes with FACEGEN_COORDINATOR=host:port, "
-            f"FACEGEN_NUM_PROCESSES={dp} and FACEGEN_PROCESS_ID=0..{dp - 1} (one process over "
-            f"several devices, as facegen's single-process mesh, is not ported yet)")
-    if dp == -1:
-        return world_size
-    if dp != world_size:
-        raise ValueError(f"--meshShape {dp} asks for {dp} ranks, but the process group has "
-                         f"{world_size}")
-    return dp
+    """The number of ranks ``--meshShape`` asks for, given the size of the
+    process group that is up (None: no group): -1 is the group's size, or
+    one device without a group. Raises ValueError as ``mesh_axes`` does,
+    for a size other than the group's, and for more than one device
+    without a group, saying how to launch them (gspmd.resolve_axes)."""
+    dp, mp = resolve_axes(mesh_shape, world_size)
+    return dp * mp
 
 
 def make_mesh(mesh_shape: Sequence[int] = (-1,), device=None) -> DataMesh:
@@ -86,10 +89,31 @@ def make_mesh(mesh_shape: Sequence[int] = (-1,), device=None) -> DataMesh:
     if not (dist.is_available() and dist.is_initialized()):
         raise ValueError(f"make_mesh({_fmt(mesh_shape)}): no process group is up "
                          f"(parallel/multihost.py:maybe_initialize)")
+    if mesh_axes(mesh_shape)[2]:
+        raise ValueError(f"make_mesh({_fmt(mesh_shape)}): a 2-D shape is a mesh of "
+                         f"parallel/gspmd.py (mesh2d_from_shape)")
     size = resolve_mesh_shape(mesh_shape, dist.get_world_size())
     rank = dist.get_rank()
     device = torch.device(device) if device is not None else rank_device(rank)
     return DataMesh(rank, size, device)
+
+
+def training_mesh(mesh_shape: Sequence[int], device=None, exact: bool = False):
+    """The mesh a trainer runs ``--meshShape`` on over the process group
+    that is up: None without a group (a shape of more than one rank raises
+    ValueError, saying how to launch); with one, a two-element shape is the
+    2-D mesh (gspmd.Mesh2D) and a bare 'N' the local-batch ``DataMesh``, or
+    with ``exact`` (the c2f, autoencoder and denoiser trainers) the (N, 1)
+    mesh, and None in a group of one rank."""
+    if not (dist.is_available() and dist.is_initialized()):
+        resolve_axes(mesh_shape, None)
+        return None
+    if mesh_axes(mesh_shape)[2] or (exact and dist.get_world_size() > 1):
+        return mesh2d_from_shape(mesh_shape, device=device)
+    if exact:
+        resolve_axes(mesh_shape, 1)
+        return None
+    return make_mesh(mesh_shape, device=device)
 
 
 @torch.no_grad()

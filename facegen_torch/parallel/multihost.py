@@ -18,6 +18,9 @@ process never spans devices.
 - ``warmup_collectives`` runs a tiny all-reduce before the first step. It
   makes NCCL build its communicator then, and not inside a CUDA-graph
   capture, which cannot create one.
+- ``global_mesh`` is the 1-D data mesh over every rank, and
+  ``hybrid_mesh`` (parallel/gspmd.py) the 2-D mesh with the hosts on the
+  data axis.
 - facegen's ``global_put``, ``global_put_tree`` and ``shard_pool_global``
   (:144-180) assemble one global array from each process's rows. They
   have no counterpart here: each process already owns only its rows and
@@ -122,12 +125,17 @@ def is_multiprocess() -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
+def global_mesh(mesh_shape=(-1,), device=None):
+    """The 1-D data mesh over every rank of the group (facegen's
+    ``global_mesh``, :68-74): parallel/mesh.py's ``make_mesh``."""
+    from facegen_torch.parallel.mesh import make_mesh
+
+    return make_mesh(mesh_shape, device=device)
+
+
 def warmup_collectives(mesh) -> None:
-    """One all-reduce of a single element on ``mesh``'s device (a
-    ``DataMesh``), waited for: the communicator exists after it. Run it
-    before the first step and before any CUDA-graph capture of a
-    collective (train/graph.py)."""
-    t = torch.ones(1, device=mesh.device)
-    mesh.all_reduce_sum_(t)
-    if int(t.item()) != mesh.size:
-        raise RuntimeError(f"warm-up all-reduce gave {t.item()}, want {mesh.size}")
+    """Warm ``mesh``'s collectives (``DataMesh.warmup``: one all-reduce;
+    ``Mesh2D.warmup``: one over each of its two groups), waited for: the
+    communicators exist after it. Run it before the first step and before
+    any CUDA-graph capture of a collective (train/graph.py)."""
+    mesh.warmup()

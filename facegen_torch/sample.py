@@ -22,7 +22,10 @@ from a CPU ``torch.Generator`` seeded from --seed and the run index
 parallel from one process, as facegen's sampler does over its local
 devices (facegen/sample.py:83-94): G and D replicated on cuda:0 ..
 cuda:DP-1, every request split over them and the NN search's rows
-sharded (utils/infer.py); the grids are those of one device.
+sharded (utils/infer.py); the grids are those of one device. 'DP,MP'
+serves on DP x MP cards: DP replica groups of MP cards, each keeping the
+large leaves as MP shards on its cards and gathering them onto its
+first card for a call (facegen's gspmd_infer_jit, parallel/gspmd.py).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from facegen_torch.config import SampleConfig, data_axis
+from facegen_torch.config import SampleConfig, mesh_axes
 from facegen_torch.models import c2f, gan
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.utils import checkpoint as ckpt
@@ -162,13 +165,16 @@ def load_dataset(cfg: SampleConfig, device) -> torch.Tensor:
 
 
 def serving_devices(mesh_shape) -> list:
-    """The cards --meshShape 'DP' or 'DP,1' serves on: cuda:0 .. cuda:DP-1,
-    -1 for every visible card. Raises ValueError for the 2-D mesh and for
-    more cards than are visible."""
-    dp, count = data_axis(mesh_shape), torch.cuda.device_count()
-    if dp > count:
-        raise ValueError(f"--meshShape {dp}: {count} CUDA device(s) visible")
-    return [torch.device("cuda", i) for i in range(count if dp == -1 else dp)]
+    """The cards --meshShape 'DP' or 'DP,MP' serves on: cuda:0 ..
+    cuda:DP*MP-1 (DP = -1: every visible card over MP). Raises ValueError
+    for more cards than are visible."""
+    dp, mp, _ = mesh_axes(mesh_shape)
+    count = torch.cuda.device_count()
+    n = (count // mp) * mp if dp == -1 else dp * mp
+    if n > count or n == 0:
+        flag = ",".join(str(v) for v in mesh_shape)
+        raise ValueError(f"--meshShape {flag}: {count} CUDA device(s) visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
@@ -183,8 +189,9 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
     c2f_noise: optional (runs, 3, 64, c2f_tries, fine, fine, 1) draws used
     in place of the refinement's noise of best, worst and random.
     devices: serve data parallel on these devices (``GanInference``'s),
-    the first in place of ``device``; default those of cfg.mesh_shape
-    (``serving_devices``), none when it is empty.
+    the first in place of ``device``, in replica groups of cfg.mesh_shape's
+    model axis; default those of cfg.mesh_shape (``serving_devices``),
+    none when it is empty.
     """
     if devices is None and cfg.mesh_shape:
         devices = serving_devices(cfg.mesh_shape)
@@ -192,7 +199,8 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
         device = devices[0]
     device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
     g, d, cfg = load_models(cfg, device)
-    inf = GanInference(g, d, cfg.noise_dim, devices=devices)
+    mp = mesh_axes(cfg.mesh_shape)[1] if cfg.mesh_shape else 1  # the cards of a replica group
+    inf = GanInference(g, d, cfg.noise_dim, devices=devices, mp=mp)
     c2f_nets = None
     if cfg.c2f:  # the refinement nets, loaded once (sample.lua:70)
         g_c2f, d_c2f, c2f_res = load_c2f(cfg, device)
@@ -245,7 +253,8 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
                     dataset = load_dataset(cfg, device)
                 elif not torch.is_tensor(dataset):
                     dataset = torch.as_tensor(np.asarray(dataset))
-                nn_dataset = prepare_nn_dataset(dataset, devices or device)
+                # the search's rows over the replica groups' first devices
+                nn_dataset = prepare_nn_dataset(dataset, devices[::mp] if devices else device)
             idx, _ = nearest_neighbours(best[:16], nn_dataset)
             matches = dataset[torch.from_numpy(idx[:, 0]).to(dataset.device)].cpu().float()
             if dataset.dtype == torch.uint8:
@@ -293,15 +302,16 @@ def main(argv=None):
                    help="candidate diffs per image, best D score wins (sample.lua:177)")
     p.add_argument("--meshShape", type=str, default="", dest="mesh_shape",
                    help="serve data parallel on 'DP' cards (or 'DP,1'; -1 = all visible) "
-                        "from this process; empty = --gpu alone; 'DP,MP' is not ported yet")
+                        "from this process, or on DP groups of MP cards that shard the "
+                        "large leaves ('DP,MP'); empty = --gpu alone")
     a = p.parse_args(argv)
     try:
         mesh = tuple(int(v) for v in a.mesh_shape.split(",")) if a.mesh_shape else ()
     except ValueError:
         p.error(f"--meshShape {a.mesh_shape!r}: not a comma-separated list of ints")
     try:
-        if mesh:  # the 2-D mesh exits here, with or without a GPU
-            data_axis(mesh)
+        if mesh:  # a malformed shape exits here, with or without a GPU
+            mesh_axes(mesh)
     except ValueError as e:
         p.error(str(e))
     if not torch.cuda.is_available():

@@ -21,6 +21,17 @@ masks and the white noise. ``ae_epoch_draws`` and
 facegen's. Epoch ``e`` draws from a generator seeded by (seed, 30000 + e)
 for the AE and (seed, 40000 + e) for the denoiser, so a resumed run
 draws fresh batches.
+
+On a 2-D mesh (parallel/gspmd.py; facegen's ``gspmd_jit`` of the epochs,
+ae_loop.py:102-105, 142-167, 285-288, 332-360) both trainers run the
+single-device program on the global batch: every rank draws the epoch's
+draws and computes its data row's rows of each batch (the white noise
+and the masks too), the losses are local means over the data rows, one
+SUM all-reduce per update over the data group makes the gradients and
+the loss global, the denoiser's batch norms take the global batch's
+statistics, and the updates run on this rank's shards of the decoders'
+masters and Adam's moments. The pool is rounded down to a multiple of
+the data rows, as facegen's is. Rank 0 logs, plots and writes.
 """
 
 from __future__ import annotations
@@ -39,6 +50,13 @@ from facegen_torch.data.pipeline import make_source
 from facegen_torch.models import ae
 from facegen_torch.nn import dropout
 from facegen_torch.nn.init import gaussian_overwrite, seeded_generator
+from facegen_torch.parallel.gspmd import (
+    ShardedParams,
+    flat_all_reduce,
+    set_batch_norm_mesh,
+    shard_params,
+)
+from facegen_torch.parallel.mesh import replicate
 from facegen_torch.train import losses
 from facegen_torch.train.optim import adam, gated_update
 from facegen_torch.utils import checkpoint as ckpt
@@ -65,10 +83,13 @@ def bce(y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return -(t * torch.log(y) + (1 - t) * torch.log1p(-y)).mean()
 
 
-def pool_size(cfg: TrainConfig) -> int:
-    """Rows of the run's pool: min(N_epoch, or 10000, 16384). A pool
-    smaller than the batch would give no batch at all."""
+def pool_size(cfg: TrainConfig, mesh=None) -> int:
+    """Rows of the run's pool: min(N_epoch, or 10000, 16384), on a 2-D mesh
+    rounded down to a multiple of its data rows (facegen/train/ae_loop.py:
+    151-154). A pool smaller than the batch would give no batch at all."""
     n_pool = min(cfg.n_epoch if cfg.n_epoch > 0 else 10000, 16384)
+    if mesh is not None:
+        n_pool -= n_pool % mesh.dp
     if n_pool < cfg.batch_size:
         raise ValueError(f"epoch pool of {n_pool} images is smaller than batchSize "
                          f"{cfg.batch_size}; raise --N_epoch or lower --batchSize")
@@ -110,13 +131,52 @@ def denoiser_epoch_draws(generator: torch.Generator, batch: int, img_shape, n_po
             for idx in shuffled_batches(perm, batch)]
 
 
-class AEStep:
+class _MeshStep:
+    """What the AE and denoiser steps share on a 2-D mesh: this data row's
+    rows of a batch-shaped draw, a local mean as its share of the global
+    one, and the flat all-reduce of an update's gradients and loss."""
+
+    def __init__(self, cfg: TrainConfig, mesh):
+        if mesh is not None and cfg.batch_size % mesh.dp:
+            raise ValueError(f"batch {cfg.batch_size} does not split over {mesh.dp} data rows")
+        self.cfg, self.mesh = cfg, mesh
+        self.scale = 1.0 / mesh.dp if mesh is not None and mesh.dp > 1 else None
+        self._flat: Dict[str, torch.Tensor] = {}
+
+    def _rows(self, t):
+        if self.mesh is None:
+            return t
+        if isinstance(t, dict):
+            return {k: self.mesh.rows(v) for k, v in t.items()}
+        return self.mesh.rows(t)
+
+    def _local(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss if self.scale is None else loss * self.scale
+
+    def _grads(self, key: str, loss: torch.Tensor, params) -> tuple:
+        """(the global batch's gradients, its loss): the loss a local share."""
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        if self.mesh is not None:
+            *grads, loss = flat_all_reduce(self.mesh, self._flat, key, [*grads, loss])
+        return list(grads), loss
+
+    def _update(self, shards, grads, opt: dict, params) -> None:
+        if shards is not None:
+            shards.update(self.tx, grads, opt, True)
+        else:
+            gated_update(self.tx, grads, opt, params, True)
+
+
+class AEStep(_MeshStep):
     """``step(model, opt, pool, draws) -> loss`` (with the penalty),
     updating the model and Adam's state in place
-    (facegen/train/ae_loop.py:77-95)."""
+    (facegen/train/ae_loop.py:77-95); on a 2-D ``mesh`` the update runs on
+    ``shards`` (parallel/gspmd.py:ShardedParams), which ``opt`` is made from."""
 
-    def __init__(self, cfg: TrainConfig, model: nn.Module):
-        self.cfg = cfg
+    def __init__(self, cfg: TrainConfig, model: nn.Module, mesh=None, shards=None):
+        super().__init__(cfg, mesh)
+        self.shards = shards
         self.tx = adam(ADAM_LR)
         self.mask_specs = dropout.dropout_mask_specs(model, cfg.batch_size, cfg.img_shape,
                                                      next(model.parameters()).device)
@@ -124,17 +184,16 @@ class AEStep:
     def __call__(self, model: nn.Module, opt: dict, pool: torch.Tensor,
                  draws: AEDraws) -> torch.Tensor:
         cfg = self.cfg
-        x = pool[draws.idx].float() / 255.0
+        x = pool[self._rows(draws.idx)].float() / 255.0
         model.train()
-        dropout.set_dropout_masks(model, draws.masks)
+        dropout.set_dropout_masks(model, self._rows(draws.masks))
         params = list(model.parameters())
-        loss = (model(x) - x).abs().mean()
-        grads = torch.autograd.grad(loss, params)
+        grads, loss = self._grads("ae", self._local((model(x) - x).abs().mean()), params)
         # the L1/L2 penalty on every parameter, biases included, in the loss
         # and the gradients, and no clamp (train_autoencoder.lua:196-204)
-        loss = loss.detach() + losses.penalty_loss(params, cfg.coef_l1, cfg.coef_l2)
+        loss = loss + losses.penalty_loss(params, cfg.coef_l1, cfg.coef_l2)
         grads = losses.add_penalty_grads(grads, params, cfg.coef_l1, cfg.coef_l2)
-        gated_update(self.tx, grads, opt, params, True)
+        self._update(self.shards, grads, opt, params)
         return loss
 
 
@@ -145,46 +204,49 @@ class DenoiserState:
     dec2: nn.Module
     opt1: dict
     opt2: dict
+    shards: Optional[dict] = None  # on a 2-D mesh: "dec1", "dec2" -> ShardedParams
 
 
-class DenoiserStep:
+class DenoiserStep(_MeshStep):
     """``step(state, pool, draws) -> (AE1's BCE, AE2's BCE)``, updating
     ``state`` in place (facegen/train/ae_loop.py:215-278)."""
 
-    def __init__(self, cfg: TrainConfig, dec: nn.Module):
-        self.cfg = cfg
+    def __init__(self, cfg: TrainConfig, dec: nn.Module, mesh=None):
+        super().__init__(cfg, mesh)
         self.tx = adam(ADAM_LR)
         self.mask_specs = dropout.dropout_mask_specs(dec, cfg.batch_size, cfg.img_shape,
                                                      next(dec.parameters()).device)
 
-    def _update(self, loss: torch.Tensor, dec: nn.Module, opt: dict) -> None:
+    def _train(self, st: DenoiserState, key: str, loss: torch.Tensor, dec: nn.Module,
+               opt: dict) -> torch.Tensor:
+        """One decoder's update; returns the global batch's loss."""
         cfg = self.cfg
         params = list(dec.parameters())
-        grads = torch.autograd.grad(loss, params)
+        grads, loss = self._grads(key, self._local(loss), params)
         # the penalty feeds the gradient only: the reported loss stays the
         # bare BCE (train_denoiser.lua:272, 311); then the clamp (:289-291)
         grads = losses.add_penalty_grads(grads, params, cfg.coef_l1, cfg.coef_l2)
         grads = losses.clamp_grads(grads, cfg.ae_clamp)
-        gated_update(self.tx, grads, opt, params, True)
+        self._update(None if st.shards is None else st.shards[key], grads, opt, params)
+        return loss
 
     def __call__(self, st: DenoiserState, pool: torch.Tensor,
                  draws: DenoiserDraws) -> torch.Tensor:
-        x = pool[draws.idx].float() / 255.0
+        rows = self._rows
+        x = pool[rows(draws.idx)].float() / 255.0
         for m in (st.enc, st.dec1, st.dec2):
             m.train()
-        ae.set_white_noise(st.enc, draws.noise)
-        dropout.set_dropout_masks(st.dec1, draws.masks)
-        l1 = bce(st.dec1(st.enc(x)), x)
-        self._update(l1, st.dec1, st.opt1)
+        ae.set_white_noise(st.enc, rows(draws.noise))
+        dropout.set_dropout_masks(st.dec1, rows(draws.masks))
+        l1 = self._train(st, "dec1", bce(st.dec1(st.enc(x)), x), st.dec1, st.opt1)
         # AE1 again after its update (train_denoiser.lua:313-315, 335-336)
         with torch.no_grad():
-            ae.set_white_noise(st.enc, draws.noise_again)
-            dropout.set_dropout_masks(st.dec1, draws.masks_again)
+            ae.set_white_noise(st.enc, rows(draws.noise_again))
+            dropout.set_dropout_masks(st.dec1, rows(draws.masks_again))
             y1 = st.dec1(st.enc(x))
-        dropout.set_dropout_masks(st.dec2, draws.masks2)
-        l2 = bce(st.dec2(y1), x)
-        self._update(l2, st.dec2, st.opt2)
-        return torch.stack([l1.detach(), l2.detach()])
+        dropout.set_dropout_masks(st.dec2, rows(draws.masks2))
+        l2 = self._train(st, "dec2", bce(st.dec2(y1), x), st.dec2, st.opt2)
+        return torch.stack([l1, l2])
 
 
 @torch.no_grad()
@@ -208,7 +270,18 @@ class _Trainer:
     """The epoch loop both trainers share: ``epoch`` counts the epochs
     done and ``history`` holds their stats; a checkpoint every 50 epochs
     and at the end of a run, then the reconstruction grid unless
-    --noplot."""
+    --noplot (rank 0's, on a mesh)."""
+
+    def _place(self, cfg: TrainConfig, device, verbose: bool, mesh) -> None:
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device}, but the mesh's rank runs on {mesh.device}")
+            device = mesh.device
+        self.cfg = cfg
+        self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
+        self.verbose = verbose and self.writes
 
     def run(self, epochs: Optional[int] = None) -> Iterator[dict]:
         """Train ``epochs`` epochs (default --epochs, else 1), yielding
@@ -221,7 +294,7 @@ class _Trainer:
             if self.epoch % 50 == 0 or i + 1 == n:
                 self.save()
             yield stats
-        if not cfg.noplot:
+        if not cfg.noplot and self.writes:
             self.plot()
 
     def _log(self, msg: str):
@@ -232,18 +305,22 @@ class _Trainer:
 class AETrainer(_Trainer):
     """train_autoencoder.lua's loop (facegen/train/ae_loop.py:125-193)."""
 
-    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True):
-        self.cfg = cfg = cfg.validate()
-        self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
-        self.verbose = verbose
-        self.n_pool = pool_size(cfg)
+    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None):
+        self._place(cfg.validate(), device, verbose, mesh)
+        cfg = self.cfg
+        self.n_pool = pool_size(cfg, mesh)
         # weights drawn on the CPU: the same seed gives the same weights on every device
         gen = torch.Generator().manual_seed(cfg.seed)
         self.model = ae.create_autoencoder(cfg.scale, cfg.channels, cfg.noise_dim,
                                            generator=gen, device=self.device)
         gaussian_overwrite(self.model, gen)
-        self.opt = adam(ADAM_LR).init(list(self.model.parameters()))
-        self.step = AEStep(cfg, self.model)
+        self.shards = None
+        if mesh is not None:  # rank 0's weights, then this rank's shards
+            replicate([*self.model.parameters(), *self.model.buffers()], mesh)
+            self.shards = ShardedParams(list(self.model.parameters()), mesh)
+        masters = list(self.model.parameters()) if mesh is None else self.shards.masters
+        self.opt = adam(ADAM_LR).init(masters)
+        self.step = AEStep(cfg, self.model, mesh, self.shards)
         source = make_source(cfg, self.device)
         self.pool = source.epoch_pool(seeded_generator(self.device, cfg.seed, 2), self.n_pool)
         self.epoch, self.history = 0, []
@@ -269,8 +346,10 @@ class AETrainer(_Trainer):
                 "images_per_sec": len(draws) * cfg.batch_size / dt}
 
     def save(self):
-        ckpt.save_autoencoder(self.cfg.save, ae.AE_CKPT_NAME, self.model, self.opt,
-                              meta={"epoch": self.epoch, **ckpt.config_meta(self.cfg)})
+        opt = self.opt if self.shards is None else self.shards.full_opt(self.opt)  # collective
+        if self.writes:
+            ckpt.save_autoencoder(self.cfg.save, ae.AE_CKPT_NAME, self.model, opt,
+                                  meta={"epoch": self.epoch, **ckpt.config_meta(self.cfg)})
 
     def plot(self):
         dump_recon_grid(self.model, self.pool, os.path.join(self.cfg.save, "viz", "ae_recon.png"))
@@ -279,20 +358,28 @@ class AETrainer(_Trainer):
 class DenoiserTrainer(_Trainer):
     """train_denoiser.lua's loop (facegen/train/ae_loop.py:303-392)."""
 
-    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True):
-        self.cfg = cfg = cfg.validate()
-        self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
-        self.verbose = verbose
-        self.n_pool = pool_size(cfg)
+    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None):
+        self._place(cfg.validate(), device, verbose, mesh)
+        cfg = self.cfg
+        self.n_pool = pool_size(cfg, mesh)
         enc, dec1, dec2 = ae.init_denoiser(torch.Generator().manual_seed(cfg.seed), cfg.scale,
                                            cfg.channels, device=self.device)
         self.epoch, self.history = 0, []
-        if cfg.network:
+        if cfg.network:  # every rank loads the whole file
             self.resume(cfg.network, dec1, dec2)
+        elif mesh is not None:  # rank 0's weights, before they are sharded
+            replicate([t for m in (dec1, dec2) for t in (*m.parameters(), *m.buffers())], mesh)
+        shards = None
+        if mesh is not None:
+            shards = shard_params({"dec1": dec1, "dec2": dec2}, mesh)
+            set_batch_norm_mesh(dec1, mesh)
+            set_batch_norm_mesh(dec2, mesh)
+        masters = {k: (shards[k].masters if shards else list(m.parameters()))
+                   for k, m in (("dec1", dec1), ("dec2", dec2))}
         tx = adam(ADAM_LR)  # fresh after a resume, as the reference's OPTSTATE = {}
-        self.state = DenoiserState(enc, dec1, dec2, tx.init(list(dec1.parameters())),
-                                   tx.init(list(dec2.parameters())))
-        self.step = DenoiserStep(cfg, dec1)
+        self.state = DenoiserState(enc, dec1, dec2, tx.init(masters["dec1"]),
+                                   tx.init(masters["dec2"]), shards)
+        self.step = DenoiserStep(cfg, dec1, mesh)
         # the store's first 256 rows are the validation set, kept out of training
         source = make_source(cfg, self.device, holdout=VAL_ROWS)
         self.pool = source.epoch_pool(seeded_generator(self.device, cfg.seed, 2), self.n_pool)
@@ -339,6 +426,8 @@ class DenoiserTrainer(_Trainer):
 
     def save(self):
         cfg = self.cfg
+        if not self.writes:  # the decoders' weights are whole on every rank
+            return
         ckpt.save_denoiser(cfg.save, ae.denoiser_ckpt_name(cfg.scale, cfg.channels),
                            self.state.dec1, self.state.dec2,
                            meta={"epoch": self.epoch, **ckpt.config_meta(cfg)})

@@ -18,6 +18,17 @@ Every draw of a step is an argument (``C2FStepDraws``): per D iteration
 the real rows, the fake conditions' rows, the noise and D's dropout
 masks; per G iteration the conditions' rows, the noise and D's masks.
 ``draw_c2f_step`` makes them on the device; the tests rebuild facegen's.
+
+On a 2-D mesh (parallel/gspmd.py; facegen's ``make_gspmd_c2f_epoch``,
+c2f.py:278-291) the trainer runs the single-device program on the global
+batch, as the GAN's step does there (train/step.py): every rank draws
+the global batch's draws and computes its data row's rows of them, the
+losses and the accuracy are local means over the data rows, one SUM
+all-reduce per iteration over the data group makes the gradients, the
+loss, the accuracy and the confusion counts global, and the update runs
+on this rank's shards (``C2FState.shards``). Rank 0 writes the grids,
+the metrics and the checkpoints; every rank computes approxParzen and
+takes rank 0's mean, so all choose alike whether to save ``_best``.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ from facegen_torch.data.pipeline import make_source
 from facegen_torch.models import c2f as c2f_models
 from facegen_torch.nn import dropout
 from facegen_torch.nn.init import seeded_generator
+from facegen_torch.parallel.gspmd import flat_all_reduce, shard_params
+from facegen_torch.parallel.mesh import replicate
 from facegen_torch.train import losses, metrics as M
 from facegen_torch.train.optim import gated_update, make_c2f_optimizer
 from facegen_torch.train.step import steps_per_epoch
@@ -58,6 +71,7 @@ class C2FState:
     opt_d: dict
     confusion: torch.Tensor  # (2, 2) int32 [target, predicted], reset each epoch
     epoch: int = 1
+    shards: Optional[dict] = None  # on a 2-D mesh (train/step.py:GanState.shards)
 
 
 class C2FDDraws(NamedTuple):
@@ -88,13 +102,16 @@ class C2FStepMetrics(NamedTuple):
     acc_d: torch.Tensor   # the batch's D accuracy
 
 
-def init_c2f_state(cfg: C2FConfig, g: nn.Module, d: nn.Module) -> C2FState:
+def init_c2f_state(cfg: C2FConfig, g: nn.Module, d: nn.Module, mesh=None) -> C2FState:
     device = next(g.parameters()).device
+    shards = shard_params({"g": g, "d": d}, mesh) if mesh is not None else None
+    masters = {k: (shards[k].masters if shards else list(m.parameters()))
+               for k, m in (("g", g), ("d", d))}
     return C2FState(
         g=g, d=d,
-        opt_g=make_c2f_optimizer(cfg.g_optmethod, cfg, "G").init(list(g.parameters())),
-        opt_d=make_c2f_optimizer(cfg.d_optmethod, cfg, "D").init(list(d.parameters())),
-        confusion=M.empty_confusion(device), epoch=1,
+        opt_g=make_c2f_optimizer(cfg.g_optmethod, cfg, "G").init(masters["g"]),
+        opt_d=make_c2f_optimizer(cfg.d_optmethod, cfg, "D").init(masters["d"]),
+        confusion=M.empty_confusion(device), epoch=1, shards=shards,
     )
 
 
@@ -122,61 +139,96 @@ def draw_c2f_step(generator: torch.Generator, cfg: C2FConfig, pool_n: int,
 
 class C2FStep:
     """``step(state, pool, draws) -> C2FStepMetrics``, updating ``state``
-    in place; ``pool`` is the epoch's C2FPool on the nets' device."""
+    in place; ``pool`` is the epoch's C2FPool on the nets' device (the
+    whole pool on a 2-D ``mesh``)."""
 
-    def __init__(self, cfg: C2FConfig, g: nn.Module, d: nn.Module):
-        self.cfg = cfg
+    def __init__(self, cfg: C2FConfig, g: nn.Module, d: nn.Module, mesh=None):
+        if mesh is not None and cfg.batch_size % (2 * mesh.dp):
+            raise ValueError(f"batch {cfg.batch_size} does not split into half real and half "
+                             f"fake images on each of {mesh.dp} data rows")
+        self.cfg, self.mesh = cfg, mesh
+        self.scale = 1.0 / mesh.dp if mesh is not None and mesh.dp > 1 else None
         self.tx_d = make_c2f_optimizer(cfg.d_optmethod, cfg, "D")
         self.tx_g = make_c2f_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
         device = next(d.parameters()).device
         self.mask_specs = dropout.dropout_mask_specs(
             d, cfg.batch_size, (cfg.img_shape, cfg.img_shape), device)
+        self._flat: Dict[str, torch.Tensor] = {}
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.scale is None else t * self.scale
+
+    def _update(self, state: C2FState, net: str, tx, grads, params) -> None:
+        opt = state.opt_g if net == "g" else state.opt_d
+        if state.shards is not None:
+            state.shards[net].update(tx, grads, opt, True)
+        else:
+            gated_update(tx, grads, opt, params, True)  # no gate
 
     def d_iteration(self, state: C2FState, pool: C2FPool, draws: C2FDDraws):
-        cfg, g, d = self.cfg, state.g, state.d
-        half = cfg.batch_size // 2
+        cfg, g, d, mesh = self.cfg, state.g, state.d, self.mesh
         params = list(d.parameters())
-        _, cond_real, diff_real = gather_triple(pool, draws.idx_real, self.dtype)
-        _, cond_fake, _ = gather_triple(pool, draws.idx_fake, self.dtype)
+        idx_real, idx_fake, noise, masks = draws.idx_real, draws.idx_fake, draws.noise, draws.masks
+        if mesh is not None:  # this data row's rows of the global batch
+            idx_real, idx_fake, noise = mesh.rows(idx_real), mesh.rows(idx_fake), mesh.rows(noise)
+            masks = {k: mesh.pair_rows(m) for k, m in masks.items()}
+        half = idx_real.shape[0]
+        _, cond_real, diff_real = gather_triple(pool, idx_real, self.dtype)
+        _, cond_fake, _ = gather_triple(pool, idx_fake, self.dtype)
         g.train()
         with torch.no_grad():  # the fakes are detached
-            diff_fake = g((draws.noise.to(self.dtype), cond_fake))
+            diff_fake = g((noise.to(self.dtype), cond_fake))
         diffs = torch.cat([diff_real, diff_fake])
         conds = torch.cat([cond_real, cond_fake])
         ones = torch.ones(half, device=diffs.device)
         targets = torch.cat([ones, torch.zeros_like(ones)])
         d.train()
-        dropout.set_dropout_masks(d, draws.masks)
+        dropout.set_dropout_masks(d, masks)
         logits = d((diffs, conds))
-        loss = losses.bce_with_logits(logits, targets)
+        loss = self._local(losses.bce_with_logits(logits, targets))
         grads = torch.autograd.grad(loss, params)
+        logits = logits.detach()
+        acc = self._local(losses.batch_accuracy(logits, targets))
+        counts = M.update_confusion(M.empty_confusion(logits.device), logits, targets)
+        loss = loss.detach()
+        if mesh is not None:
+            *grads, loss, acc, counts = flat_all_reduce(mesh, self._flat, "d",
+                                                        [*grads, loss, acc, counts])
+            acc, counts = acc.clone(), counts.to(torch.int32)
         # penalties on the pre-update parameters, then the clamp
-        loss = loss.detach() + losses.penalty_loss(params, cfg.d_l1, cfg.d_l2)
+        loss = loss + losses.penalty_loss(params, cfg.d_l1, cfg.d_l2)
         grads = losses.add_penalty_grads(grads, params, cfg.d_l1, cfg.d_l2)
         grads = losses.clamp_grads(grads, cfg.d_clamp)
-        gated_update(self.tx_d, grads, state.opt_d, params, True)  # no gate
-        logits = logits.detach()
-        state.confusion.copy_(M.update_confusion(state.confusion, logits, targets))
-        return loss, losses.batch_accuracy(logits, targets)
+        self._update(state, "d", self.tx_d, grads, params)
+        state.confusion += counts
+        return loss, acc
 
     def g_iteration(self, state: C2FState, pool: C2FPool, draws: C2FGDraws):
-        cfg, g, d = self.cfg, state.g, state.d
+        cfg, g, d, mesh = self.cfg, state.g, state.d, self.mesh
         params = list(g.parameters())
-        _, conds, _ = gather_triple(pool, draws.idx, self.dtype)
+        idx, noise, masks = draws.idx, draws.noise, draws.masks
+        if mesh is not None:
+            idx, noise = mesh.rows(idx), mesh.rows(noise)
+            masks = {k: mesh.rows(m) for k, m in masks.items()}
+        _, conds, _ = gather_triple(pool, idx, self.dtype)
         g.train()
         d.train()
-        dropout.set_dropout_masks(d, draws.masks)
-        diff = g((draws.noise.to(self.dtype), conds))
+        dropout.set_dropout_masks(d, masks)
+        diff = g((noise.to(self.dtype), conds))
         logits = d((diff, conds))  # D's parameters as the D phase left them
         loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device))
+        loss = self._local(loss)
         grads = torch.autograd.grad(loss, params)
-        loss = loss.detach() + losses.penalty_loss(params, cfg.g_l1, cfg.g_l2)
+        loss = loss.detach()
+        if mesh is not None:
+            *grads, loss = flat_all_reduce(mesh, self._flat, "g", [*grads, loss])
+        loss = loss + losses.penalty_loss(params, cfg.g_l1, cfg.g_l2)
         # the reference's bug (adversarial.lua:223): G_L2 scales the sign term too
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
         grads = losses.add_penalty_grads(grads, params, sign_coef, cfg.g_l2)
         grads = losses.clamp_grads(grads, cfg.g_clamp)
-        gated_update(self.tx_g, grads, state.opt_g, params, True)
+        self._update(state, "g", self.tx_g, grads, params)
         return loss
 
     def __call__(self, state: C2FState, pool: C2FPool, draws: C2FStepDraws) -> C2FStepMetrics:
@@ -231,10 +283,17 @@ class C2FTrainer:
     rotation. Random streams: epoch ``i`` draws from generators seeded by
     (seed, 20000 + i, k), so a resumed run draws fresh pools."""
 
-    def __init__(self, cfg: C2FConfig, device=None, source=None, verbose: bool = True):
+    def __init__(self, cfg: C2FConfig, device=None, source=None, verbose: bool = True,
+                 mesh=None):
         self.cfg = cfg.validate()
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device}, but the mesh's rank runs on {mesh.device}")
+            device = mesh.device
         self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
-        self.verbose = verbose
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0  # logs, metrics, checkpoints, grids
+        self.verbose = verbose and self.writes
         if source is None:
             # the fine-size source; its first val_size rows are the validation set
             tcfg = TrainConfig(scale=cfg.fine_size, grayscale=cfg.grayscale,
@@ -245,19 +304,23 @@ class C2FTrainer:
         # weights drawn on the CPU: the same seed gives the same weights on every device
         g, d = c2f_models.init_c2f(torch.Generator().manual_seed(cfg.seed), cfg.fine_size,
                                    cfg.channels, device=self.device)
-        self.state = init_c2f_state(cfg, g, d)
-        self.step = C2FStep(cfg, g, d)
+        if mesh is not None and not cfg.network:  # rank 0's weights, before they are sharded
+            replicate([*g.parameters(), *g.buffers(), *d.parameters(), *d.buffers()], mesh)
+        self.state = init_c2f_state(cfg, g, d, mesh)
+        self.step = C2FStep(cfg, g, d, mesh)
         self.pool_n = cfg.n_epoch if cfg.n_epoch > 0 else source.size
         self.best_dist = math.inf
         # VAL_DATA = the first val_size images (train_c2f.lua:218)
         self.val_pool = make_triples(source.range_pool(0, cfg.val_size), cfg.coarse_size)
-        self.metrics_log = MetricsLogger(cfg.save, "metrics_c2f.jsonl")
+        self.metrics_log = MetricsLogger(cfg.save, "metrics_c2f.jsonl") if self.writes else None
         if cfg.network:
             self.resume(cfg.network)
 
     def save(self, best: bool = False, **meta):
+        """Rank 0 writes; on a 2-D mesh every rank gathers the moments."""
         meta = {**ckpt.config_meta(self.cfg), "epoch": self.state.epoch, **meta}
-        path = ckpt.save_train_state(self.cfg.save, ckpt_name(self.cfg, best), self.state, meta)
+        path = ckpt.save_train_state(self.cfg.save, ckpt_name(self.cfg, best), self.state, meta,
+                                     write=self.writes)
         self._log(f"<trainer> saved {'best network' if best else 'checkpoint'} to {path}")
 
     def resume(self, network: str):
@@ -310,7 +373,7 @@ class C2FTrainer:
 
         self._log("Loading new training data...")
         pool = make_triples(self.source.epoch_pool(gen(0), self.pool_n), cfg.coarse_size)
-        if not cfg.noplot:
+        if not cfg.noplot and self.writes:
             save_png(os.path.join(cfg.save, "viz", "c2f_samples.png"),
                      self.get_samples_grid(gen(3), 20))
 
@@ -328,6 +391,10 @@ class C2FTrainer:
 
         t1 = time.perf_counter()
         mean_dist = float(self.parzen(gen(2)).mean())
+        if self.mesh is not None:  # rank 0's value: every rank saves _best or none does
+            shared = torch.tensor([mean_dist], dtype=torch.float64, device=dev)
+            torch.distributed.broadcast(shared, src=self.mesh.ranks[0])
+            mean_dist = float(shared)
         parzen_s = time.perf_counter() - t1
         self._log(f"average || x_{cfg.fine_size} - G(x_{cfg.coarse_size}) || = {mean_dist:.5f}")
         if mean_dist < self.best_dist:
@@ -345,7 +412,8 @@ class C2FTrainer:
             "parzen_ms": 1e3 * parzen_s,
         }
         self.state.confusion.zero_()
-        self.metrics_log.log(stats)
+        if self.writes:
+            self.metrics_log.log(stats)
         if (self.state.epoch - 1) % cfg.save_freq == 0:
             self.save()
         return stats

@@ -47,7 +47,11 @@ the capture stream inside the graph and replays with it. Its flat
 buffer is allocated in the eager warm-up, and ``warmup_collectives``
 runs when the object is built, so the communicator exists before the
 capture. A gloo all-reduce of a CUDA tensor waits on the host and
-cannot be captured: under gloo every step runs eagerly.
+cannot be captured: under gloo every step runs eagerly. On a 2-D mesh
+(parallel/gspmd.py) the same holds for the step's all-gathers of the
+shards over the model group and for its batch norms' all-reduces; the
+draws are the global batch's (``TrainStep.draw_batch``) and ``pool_n``
+is the whole pool's size.
 
 The route is chosen from the device and the backend when the object is
 built (``route``, which the trainer logs): on the CPU (the tests), under
@@ -90,11 +94,14 @@ class GraphedStep:
         self.device = state.accs.device
         self.log = log or (lambda msg: None)
         self.pool: Optional[torch.Tensor] = None
-        self.draws = empty_draws(step.cfg, step.mask_specs, self.device, step.batch)
+        self.draws = empty_draws(step.cfg, step.mask_specs, self.device, step.draw_batch)
         mesh = step.mesh
         self.captures = capture and self.device.type == "cuda" and (
             mesh is None or mesh.backend == "nccl")
-        if self.captures:
+        if self.captures and step.exact:
+            self.route = (f"one CUDA graph replay a step, NCCL's all-reduces and all-gathers "
+                          f"over the {mesh.dp}x{mesh.mp} mesh inside it")
+        elif self.captures:
             self.route = "one CUDA graph replay a step" + (
                 "" if mesh is None else f", NCCL's all-reduces over {mesh.size} ranks inside it")
         elif self.device.type == "cuda" and not capture:

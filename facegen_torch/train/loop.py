@@ -45,6 +45,16 @@ when the group has more than one, so a 1-rank group draws what a single
 device draws. Rank 0 alone logs and writes metrics.jsonl, the
 checkpoints, the progress grids (from the whole pool, as facegen's read
 the global pool) and the activation dumps.
+
+On a 2-D mesh (parallel/gspmd.py, facegen's GSPMD mode: loop.py:80-87,
+114-117, 197-200, 411-416) the trainer runs facegen's single-device
+program on the global batch: every rank keeps the whole pool and draws
+the global batch's draws from the unfolded generator, so any mesh trains
+what one device trains; the masters of the large leaves and their
+moments are sharded over the model axis. --epochsPerCompile > 1 runs
+per epoch, as facegen's does there. A checkpoint's moments are gathered
+from the shards by every rank and written by rank 0; each rank loads the
+full checkpoint and keeps its shards.
 """
 
 from __future__ import annotations
@@ -80,11 +90,11 @@ from facegen_torch.utils.viz import visualize_progress
 CKPT_NAME = "adversarial"  # logs/adversarial.net in the reference
 
 
-def resolve_epochs_per_compile(cfg: TrainConfig, log) -> int:
+def resolve_epochs_per_compile(cfg: TrainConfig, log, two_d: bool = False) -> int:
     """Epochs per chunk (facegen/train/loop.py:102-118): --epochsPerCompile
     <= 0 is 8 under --noplot without --weightsVisFreq and without a
-    trace_dir, else 1; the segmented epoch of --weightsVisFreq and the
-    traced epoch take one epoch at a time."""
+    trace_dir, else 1; the segmented epoch of --weightsVisFreq, the
+    traced epoch and the 2-D mesh (``two_d``) take one epoch at a time."""
     epc = cfg.epochs_per_compile
     if epc <= 0:
         epc = 8 if (cfg.noplot and cfg.weights_vis_freq == 0 and not cfg.trace_dir) else 1
@@ -95,13 +105,18 @@ def resolve_epochs_per_compile(cfg: TrainConfig, log) -> int:
     if epc > 1 and cfg.trace_dir:
         log("<trainer> epochsPerCompile ignored: --traceDir captures the per-epoch program")
         epc = 1
+    if epc > 1 and two_d:
+        log("<trainer> epochsPerCompile > 1 not supported on the 2-D GSPMD mesh; running "
+            "per-epoch")
+        epc = 1
     return epc
 
 
 class Trainer:
     """Owns the models, the training state, the data source and the step;
     with ``mesh``, this rank's share of data-parallel training on the
-    mesh's device."""
+    mesh's device: a 1-D ``DataMesh`` (local batches) or a 2-D ``Mesh2D``
+    (the global batch)."""
 
     def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None):
         self.cfg = cfg.validate()
@@ -120,19 +135,22 @@ class Trainer:
         g, d = gan.init_gan(torch.Generator().manual_seed(cfg.seed), cfg.scale, cfg.channels,
                             cfg.noise_dim, reference_init=cfg.reference_init,
                             noise_view=cfg.noise_view, device=self.device)
-        self.state = init_state(cfg, g, d)
         self.step = TrainStep(cfg, g, d, mesh)
+        self.two_d = self.step.exact  # a 2-D mesh: the global batch
+        if self.two_d and not cfg.network:  # rank 0's weights, before they are sharded
+            replicate([*g.parameters(), *g.buffers(), *d.parameters(), *d.buffers()], mesh)
+        self.state = init_state(cfg, g, d, mesh)
         self.inf = GanInference(g, d, cfg.noise_dim, getattr(torch, cfg.compute_dtype))
         self.pool_n = cfg.n_epoch if cfg.n_epoch > 0 else self.source.size
         if cfg.debug_nans:
             enable_nan_debugging(True)
-        # the steps draw from this rank's rows of the pool; debug_nans's
-        # checks wait for the device, which no CUDA-graph capture allows,
-        # so its steps run eagerly
-        self.graphed = GraphedStep(self.step, self.state,
-                                   self.pool_n // (1 if mesh is None else mesh.size),
+        # the steps draw from this rank's rows of the pool (the whole pool
+        # on a 2-D mesh); debug_nans's checks wait for the device, which no
+        # CUDA-graph capture allows, so its steps run eagerly
+        local_ranks = 1 if mesh is None or self.two_d else mesh.size
+        self.graphed = GraphedStep(self.step, self.state, self.pool_n // local_ranks,
                                    log=self._log, capture=not cfg.debug_nans)
-        self.epochs_per_compile = resolve_epochs_per_compile(cfg, self._log)
+        self.epochs_per_compile = resolve_epochs_per_compile(cfg, self._log, self.two_d)
         self.readbacks = 0  # device-to-host reads of epoch results, one per chunk
         # fixed noise for comparable per-epoch samples (train.lua:195)
         self.fixed_noise = self.inf.noise(seeded_generator("cpu", cfg.seed, 999), 100)
@@ -140,15 +158,17 @@ class Trainer:
         self.denoiser = ae.load_denoiser_fn(cfg, self.device) if cfg.denoise else None
         if cfg.network:
             self.resume(cfg.network)
-        elif mesh is not None:
+        elif mesh is not None and not self.two_d:
             replicate(state_tensors(self.state), mesh)
 
     # -- checkpoints -------------------------------------------------------
     def save(self):
-        if not self.writes:
+        """Rank 0 writes; on a 2-D mesh every rank gathers the moments."""
+        if not (self.writes or self.two_d):
             return
         meta = {**ckpt.config_meta(self.cfg), "epoch": self.state.epoch}
-        path = ckpt.save_train_state(self.cfg.save, CKPT_NAME, self.state, meta)
+        path = ckpt.save_train_state(self.cfg.save, CKPT_NAME, self.state, meta,
+                                     write=self.writes)
         self._log(f"<trainer> saved checkpoint to {path}")
 
     def resume(self, network: str):
@@ -161,8 +181,8 @@ class Trainer:
         if ck_view is not None and ck_view != self.cfg.noise_view:
             raise ValueError(f"checkpoint {network!r} was trained with noise_view={ck_view!r} "
                              f"but this run uses noise_view={self.cfg.noise_view!r}")
-        ckpt.load_train_state(directory, name, self.state)
-        if self.mesh is not None:
+        ckpt.load_train_state(directory, name, self.state)  # every rank loads the whole file
+        if self.mesh is not None and not self.two_d:
             replicate(state_tensors(self.state), self.mesh)
         self._log(f"<trainer> reloaded previously trained network: {network} "
                   f"(epoch {self.state.epoch})")
@@ -177,17 +197,17 @@ class Trainer:
 
     def _epoch_generators(self, epoch_idx: int) -> List[torch.Generator]:
         """The epoch's (pool, steps, grids) generators, the same in a chunk
-        and alone; on a mesh of several ranks the steps' folds in the rank
-        (facegen/parallel/mesh.py:113-115)."""
+        and alone; on a 1-D mesh of several ranks the steps' folds in the
+        rank (facegen/parallel/mesh.py:113-115), on a 2-D mesh it does not."""
         words = [(k,) for k in range(3)]
-        if self.mesh is not None and self.mesh.size > 1:
+        if self.mesh is not None and not self.two_d and self.mesh.size > 1:
             words[1] = (1, self.mesh.rank)
         return [seeded_generator(self.device, self.cfg.seed, 10_000 + epoch_idx, *w)
                 for w in words]
 
     def _rows(self, pool: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of an epoch pool."""
-        return pool if self.mesh is None else shard_pool(pool, self.mesh)
+        """This rank's rows of an epoch pool: all of them on a 2-D mesh."""
+        return pool if self.mesh is None or self.two_d else shard_pool(pool, self.mesh)
 
     def _epoch_steps(self, pool: torch.Tensor, generator: torch.Generator,
                      n_steps: int) -> StepMetrics:
@@ -338,23 +358,20 @@ def main(argv=None, device=None) -> Trainer:
     epoch) on ``cuda:{--gpu}``, every step after the first few through a
     CUDA graph; it exits with an error without a GPU. Launched as N
     processes (parallel/multihost.py: FACEGEN_COORDINATOR,
-    FACEGEN_NUM_PROCESSES, FACEGEN_PROCESS_ID) it trains data parallel
-    over them with --meshShape N or -1, rank r on ``cuda:(r %
-    device_count)``. Flags of paths that are not ported exit with a
-    message that says so: the 2-D --meshShape 'DP,MP', --boundaryPad > 0.
+    FACEGEN_NUM_PROCESSES, FACEGEN_PROCESS_ID) it trains over them, rank
+    r on ``cuda:(r % device_count)``: --meshShape N (or -1) data parallel
+    on local batches, 'DP,MP' (or 'DP,1') on the 2-D mesh with the
+    single-device program's results, as facegen routes them
+    (facegen/train/loop.py:507-519). --boundaryPad > 0 is refused.
     ``device`` lets the tests run it on the CPU (gloo between ranks); the
     command line has no such flag."""
     from facegen_torch.config import cli_device, train_arg_parser, train_config_from_args
-    from facegen_torch.parallel import make_mesh, maybe_initialize, resolve_mesh_shape
+    from facegen_torch.parallel import maybe_initialize, training_mesh
 
     maybe_initialize(device_type="cuda" if device is None else torch.device(device).type)
     cfg = train_config_from_args(argv)
-    mesh = None
     try:  # --meshShape against the process group that is up, if any
-        if torch.distributed.is_initialized():
-            mesh = make_mesh(cfg.mesh_shape, device=device)
-        else:
-            resolve_mesh_shape(cfg.mesh_shape, None)
+        mesh = training_mesh(cfg.mesh_shape, device=device)
     except ValueError as e:
         train_arg_parser().error(str(e))
     if mesh is None and device is None:

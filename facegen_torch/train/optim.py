@@ -7,6 +7,8 @@ optax transformation: ``init(params) -> state`` and
 dict of tensors (``count``, ``mu``, ``nu`` for Adam; ``sum_of_squares``
 for Adagrad; ``trace`` for SGD with momentum), lists in parameter order.
 The checkpoint writes them under optax's leaf names (utils/checkpoint.py).
+On a 2-D mesh ``init`` gets a rank's masters (parallel/gspmd.py:
+ShardedParams), so the moments have the shards' shapes.
 
 ``gated_update`` applies an update only where the gate is open and
 leaves parameters, moments and Adam's step count untouched otherwise,

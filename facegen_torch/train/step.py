@@ -34,6 +34,18 @@ and issues one SUM all-reduce (gloo has no average; one collective
 beats one per tensor), then divides the averaged part by the number of
 ranks. Every rank then holds the same values and takes the same branch
 of the gate, so the replicas stay bit-equal.
+
+On a 2-D mesh (parallel/gspmd.py:Mesh2D) the step is facegen's
+single-device step on the global batch (facegen/parallel/gspmd.py:
+make_gspmd_step): the draws are the global batch's, drawn alike on every
+rank (``draw_batch``), and data row i computes its rows of them
+(``Mesh2D.rows``, ``pair_rows``); G's batch norms take the global batch's
+statistics; the losses and the accuracy are local means over the number
+of data rows, and one SUM all-reduce over the data group per iteration
+makes the gradients, the loss, the accuracy and the confusion counts the
+global batch's. The penalty and the clamp follow, once, as on one device,
+and the update runs on this rank's shards of the state (``GanState.shards``),
+which are then gathered into the nets' weights.
 """
 
 from __future__ import annotations
@@ -47,6 +59,8 @@ from torch import nn
 
 from facegen_torch.config import TrainConfig
 from facegen_torch.nn import dropout
+from facegen_torch.parallel.gspmd import (
+    Mesh2D, flat_all_reduce, set_batch_norm_mesh, shard_params)
 from facegen_torch.train import losses, metrics
 from facegen_torch.train.optim import _state_tensors, gated_update, make_optimizer
 
@@ -69,6 +83,9 @@ class GanState:
     trained_d: torch.Tensor      # int32: D updates taken this epoch
     not_trained_d: torch.Tensor  # int32: D updates skipped by the gate
     epoch: int = 1
+    # on a 2-D mesh: "g" and "d" -> the masters of their parameters
+    # (parallel/gspmd.py:ShardedParams), from which opt_g and opt_d are made
+    shards: Optional[dict] = None
 
 
 class DDraws(NamedTuple):
@@ -98,16 +115,22 @@ class StepMetrics(NamedTuple):
     gate_open: torch.Tensor  # fp32 0/1: whether D trained
 
 
-def init_state(cfg: TrainConfig, g: nn.Module, d: nn.Module) -> GanState:
+def init_state(cfg: TrainConfig, g: nn.Module, d: nn.Module, mesh=None) -> GanState:
+    """The state of fresh training of ``g`` and ``d``; on a 2-D ``mesh``
+    with the masters of their parameters and optimizer moments sharded
+    (parallel/gspmd.py:shard_params)."""
     device = next(g.parameters()).device
     zero = torch.zeros((), dtype=torch.int32, device=device)
+    shards = shard_params({"g": g, "d": d}, mesh) if isinstance(mesh, Mesh2D) else None
+    masters = {k: (shards[k].masters if shards else list(m.parameters()))
+               for k, m in (("g", g), ("d", d))}
     return GanState(
         g=g, d=d,
-        opt_g=make_optimizer(cfg.g_optmethod, cfg, "G").init(list(g.parameters())),
-        opt_d=make_optimizer(cfg.d_optmethod, cfg, "D").init(list(d.parameters())),
+        opt_g=make_optimizer(cfg.g_optmethod, cfg, "G").init(masters["g"]),
+        opt_d=make_optimizer(cfg.d_optmethod, cfg, "D").init(masters["d"]),
         accs=torch.zeros((cfg.accs_interval,), dtype=torch.float32, device=device),
         accs_n=zero.clone(), confusion=metrics.empty_confusion(device),
-        trained_d=zero.clone(), not_trained_d=zero.clone(), epoch=1,
+        trained_d=zero.clone(), not_trained_d=zero.clone(), epoch=1, shards=shards,
     )
 
 
@@ -214,61 +237,79 @@ def summaries_to_host(summaries) -> list:
 class TrainStep:
     """``step(state, pool, draws) -> StepMetrics``, updating ``state`` in
     place. ``pool`` is the epoch's (P, H, W, C) uint8 images on the
-    networks' device: this rank's rows on a ``mesh``."""
+    networks' device: this rank's rows on a 1-D ``mesh``, the whole pool
+    on a 2-D one."""
 
     def __init__(self, cfg: TrainConfig, g: nn.Module, d: nn.Module, mesh=None):
-        n = 1 if mesh is None else mesh.size
+        self.exact = isinstance(mesh, Mesh2D)  # the global batch, else local batches
+        n = 1 if mesh is None else (mesh.dp if self.exact else mesh.size)
         if cfg.batch_size % (2 * n):  # facegen/train/step.py:235-237
             raise ValueError(f"batch {cfg.batch_size} does not split into half real and half "
                              f"fake images on each of {n} ranks")
         self.cfg, self.mesh = cfg, mesh
-        self.batch = cfg.batch_size // n  # this rank's batch
+        self.batch = cfg.batch_size // n  # the batch this rank computes
+        self.draw_batch = cfg.batch_size if self.exact else self.batch  # the draws' batch
+        self.scale = 1.0 / n if self.exact and n > 1 else None  # local mean -> global
         self.tx_d = make_optimizer(cfg.d_optmethod, cfg, "D")
         self.tx_g = make_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
         device = next(d.parameters()).device
-        self.mask_specs = dropout.dropout_mask_specs(d, self.batch, cfg.img_shape, device)
+        self.mask_specs = dropout.dropout_mask_specs(d, self.draw_batch, cfg.img_shape, device)
+        if self.exact:
+            set_batch_norm_mesh(g, mesh)
+            set_batch_norm_mesh(d, mesh)
         self._flat: Dict[str, torch.Tensor] = {}  # the iterations' reduction buffers
 
     def _reduce(self, key: str, state: GanState, means: List[torch.Tensor],
                 sums: Tuple[torch.Tensor, ...] = ()) -> List[torch.Tensor]:
         """Average both nets' batch-norm statistics (in place) and ``means``
         over the mesh, and sum ``sums``, in one SUM all-reduce of the
-        iteration's flat fp32 buffer (allocated at the first call, so a
-        CUDA graph's capture finds it in place). Returns the reduced
-        ``means`` and ``sums``, fp32 views of the buffer."""
-        stats = [b for net in (state.g, state.d) for b in net.buffers()]
-        parts = stats + means + list(sums)
-        sizes = [t.numel() for t in parts]
-        flat = self._flat.get(key)
-        if flat is None:
-            flat = self._flat[key] = torch.empty(sum(sizes), device=parts[0].device)
-        torch.cat([t.reshape(-1).float() for t in parts], out=flat)
-        self.mesh.all_reduce_sum_(flat)
-        flat[:sum(sizes[:len(stats) + len(means)])].div_(self.mesh.size)  # pmean = psum / n
-        out = [p.view(t.shape) for p, t in zip(flat.split(sizes), parts)]
-        for b, r in zip(stats, out):
-            b.copy_(r)
+        iteration's flat fp32 buffer. Returns the reduced ``means`` and
+        ``sums``, fp32 views of the buffer. On a 2-D mesh the statistics
+        are already the global batch's and ``means`` come scaled by
+        ``self.scale``: all is summed over the data group."""
+        stats = [] if self.exact else [b for net in (state.g, state.d) for b in net.buffers()]
+        out = flat_all_reduce(self.mesh, self._flat, key, stats + means + list(sums))
+        if not self.exact:
+            flat = self._flat[key]
+            flat[:sum(t.numel() for t in stats + means)].div_(self.mesh.size)  # pmean
+            for b, r in zip(stats, out):
+                b.copy_(r)
         return out[len(stats):]
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """A local mean as its share of the global batch's mean."""
+        return t if self.scale is None else t * self.scale
+
+    def _update(self, state: GanState, net: str, tx, grads, params, do_update) -> None:
+        opt = state.opt_g if net == "g" else state.opt_d
+        if state.shards is not None:
+            state.shards[net].update(tx, grads, opt, do_update)
+        else:
+            gated_update(tx, grads, opt, params, do_update)
 
     def d_iteration(self, state: GanState, pool: torch.Tensor, draws: DDraws):
         cfg, g, d = self.cfg, state.g, state.d
         half = self.batch // 2
         params = list(d.parameters())
-        real = pool[draws.idx].to(self.dtype) / 255.0
+        idx, noise, masks = draws.idx, draws.noise, draws.masks
+        if self.exact:  # this data row's rows of the global batch
+            rows, pair = self.mesh.rows, self.mesh.pair_rows
+            idx, noise, masks = rows(idx), rows(noise), {k: pair(m) for k, m in masks.items()}
+        real = pool[idx].to(self.dtype) / 255.0
         g.train()
         with torch.no_grad():  # BN statistics move (adversarial.lua:252); fakes detached
-            fake = g(draws.noise.to(self.dtype))
+            fake = g(noise.to(self.dtype))
         inputs = torch.cat([real, fake])
         ones = torch.ones(half, device=real.device)
         targets = torch.cat([ones, torch.zeros_like(ones)])
         d.train()
-        dropout.set_dropout_masks(d, draws.masks)
+        dropout.set_dropout_masks(d, masks)
         logits = d(inputs)
-        loss = losses.bce_with_logits(logits, targets)
+        loss = self._local(losses.bce_with_logits(logits, targets))
         grads = torch.autograd.grad(loss, params)
         loss, logits = loss.detach(), logits.detach()
-        acc = losses.batch_accuracy(logits, targets)
+        acc = self._local(losses.batch_accuracy(logits, targets))
         counts = metrics.update_confusion(metrics.empty_confusion(logits.device), logits, targets)
         if self.mesh is not None:  # facegen/train/step.py:296-310
             *grads, loss, acc, counts = self._reduce("d", state, [*grads, loss, acc], (counts,))
@@ -284,7 +325,7 @@ class TrainStep:
         state.accs_n += 1
         acc_avg = state.accs.sum() / torch.clamp(state.accs_n, max=k_ring).float()
         do_train = acc_avg < cfg.d_max_acc
-        gated_update(self.tx_d, grads, state.opt_d, params, do_train)
+        self._update(state, "d", self.tx_d, grads, params, do_train)
         state.confusion += counts
         state.trained_d += do_train.int()
         state.not_trained_d += (~do_train).int()
@@ -293,12 +334,16 @@ class TrainStep:
     def g_iteration(self, state: GanState, draws: GDraws):
         cfg, g, d = self.cfg, state.g, state.d
         params = list(g.parameters())
+        noise, masks = draws.noise, draws.masks
+        if self.exact:
+            noise, masks = self.mesh.rows(noise), {k: self.mesh.rows(m) for k, m in masks.items()}
         g.train()
         d.train()
-        dropout.set_dropout_masks(d, draws.masks)
-        imgs = g(draws.noise.to(self.dtype))
+        dropout.set_dropout_masks(d, masks)
+        imgs = g(noise.to(self.dtype))
         logits = d(imgs)  # D's parameters as the D phase left them
         loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device))
+        loss = self._local(loss)
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if self.mesh is not None:  # facegen/train/step.py:358-361
@@ -308,7 +353,7 @@ class TrainStep:
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
         grads = losses.add_penalty_grads(grads, params, sign_coef, cfg.g_l2)
         grads = losses.clamp_grads(grads, cfg.g_clamp)
-        gated_update(self.tx_g, grads, state.opt_g, params, True)
+        self._update(state, "g", self.tx_g, grads, params, True)
         return loss
 
     def __call__(self, state: GanState, pool: torch.Tensor, draws: StepDraws) -> StepMetrics:
@@ -324,7 +369,8 @@ class TrainStep:
 
 def state_tensors(state: GanState) -> List[torch.Tensor]:
     """Every tensor of ``state``: both nets' parameters and statistics,
-    the optimizer states, the ring, the confusion matrix and the counters."""
+    the optimizer states, the ring, the confusion matrix and the counters
+    (on a 2-D mesh the optimizer states are this rank's shards)."""
     return [*state.g.parameters(), *state.g.buffers(), *state.d.parameters(),
             *state.d.buffers(), *_state_tensors(state.opt_g), *_state_tensors(state.opt_d),
             state.accs, state.accs_n, state.confusion, state.trained_d, state.not_trained_d]

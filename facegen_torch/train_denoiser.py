@@ -7,36 +7,39 @@ unless --grayscale, batch 32, Adam 1e-3, BCE, --AE_clamp 1, fp32, on
 ``cuda:{--gpu}``; it exits with an error without a GPU. It writes
 ``denoiser_{c}x{h}x{w}`` under --save, which the GAN trainer's --denoise
 reads at the same scale and channels; --network resumes it. Any scale
-above 4 runs. --meshShape other than one device exits with a message
-that it is not ported. ``main(argv, device="cpu")`` is the tests' path;
-the command line has no such flag.
+above 4 runs. Launched as processes of a group (parallel/multihost.py)
+it trains on the 2-D mesh of --meshShape 'N' (N x 1) or 'DP,MP': the
+single-device program on the global batch, the batch norms' statistics
+the global batch's (facegen/train/ae_loop.py:332-360). ``main(argv,
+device="cpu")`` is the tests' path; the command line has no such flag.
 """
 
 from __future__ import annotations
 
 import sys
 
-from facegen_torch.config import (
-    cli_device,
-    data_axis,
-    train_arg_parser,
-    train_config_from_args,
-)
+import torch
+
+from facegen_torch.config import cli_device, train_arg_parser, train_config_from_args
 from facegen_torch.train.ae_loop import DenoiserTrainer
 
 
 def main(argv=None, device=None) -> DenoiserTrainer:
+    from facegen_torch.parallel import maybe_initialize, training_mesh
+
+    maybe_initialize(device_type="cuda" if device is None else torch.device(device).type)
     argv = list(sys.argv[1:] if argv is None else argv)
     # the reference denoiser's default scale (train_denoiser.lua:34)
     if not any(a.startswith("--scale") for a in argv):
         argv += ["--scale", "16"]
     cfg = train_config_from_args(argv)
-    if data_axis(cfg.mesh_shape) not in (1, -1):
-        train_arg_parser().error(f"--meshShape {cfg.mesh_shape}: the denoiser trainer's "
-                                 f"multi-device training is not ported yet")
-    if device is None:
+    try:  # --meshShape against the process group that is up, if any
+        mesh = training_mesh(cfg.mesh_shape, device=device, exact=True)
+    except ValueError as e:
+        train_arg_parser().error(str(e))
+    if mesh is None and device is None:
         device = cli_device(cfg.gpu, "denoiser trainer")
-    trainer = DenoiserTrainer(cfg, device=device)
+    trainer = DenoiserTrainer(cfg, device=device, mesh=mesh)
     for _ in trainer.run():
         pass
     return trainer

@@ -25,6 +25,14 @@ and its nets' leaves sit under ``head``/``body`` (``params_g/body/00_conv1/w``).
 A facegen trainer checkpoint of either kind resumes in the port and the
 reverse.
 
+On a 2-D mesh (parallel/gspmd.py) a state's optimizer moments are this
+rank's shards (``state.shards``): ``train_state_arrays`` gathers them into
+full tensors over the model group, a collective that every rank of the
+mesh makes, and ``load_train_state`` reads the full leaves and keeps this
+rank's shards. The nets' parameters are full on every rank (the gathered
+work weights). A checkpoint is thus facegen's layout whatever the mesh
+it was saved on, and resumes on one device or on any mesh.
+
 The autoencoder family's checkpoints (facegen/train/ae_loop.py) use the
 same leaf mapping under other roots: ``autoencoder`` holds ``params/…``,
 ``state/…`` (none: the flat AE has no batch norm) and Adam's
@@ -45,6 +53,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from facegen_torch.parallel.gspmd import gather_params
 
 FORMAT_VERSION = 1
 
@@ -250,19 +260,24 @@ def _counters(state):
 
 def train_state_arrays(state) -> Dict[str, np.ndarray]:
     """Every leaf of a training state (a GanState or a C2FState) under
-    facegen's path of that leaf."""
+    facegen's path of that leaf. On a 2-D mesh every rank calls it (the
+    moments' shards are gathered)."""
     arrays = {}
-    for net, module, opt in (("g", state.g, state.opt_g), ("d", state.d, state.opt_d)):
-        arrays.update(module_arrays(module, *_NETS[net], opt, f"opt_{net}"))
+    opts = gather_params(getattr(state, "shards", None), {"g": state.opt_g, "d": state.opt_d})
+    for net, module in (("g", state.g), ("d", state.d)):
+        arrays.update(module_arrays(module, *_NETS[net], opts[net], f"opt_{net}"))
     for key in _counters(state):
         arrays[key] = getattr(state, key).cpu().numpy()
     arrays["epoch"] = np.asarray(state.epoch, np.int32)
     return arrays
 
 
-def save_train_state(directory: str, name: str, state, meta: Optional[dict] = None) -> str:
-    """Write a whole training state, with ``.old`` rotation."""
-    return save(directory, name, train_state_arrays(state), meta)
+def save_train_state(directory: str, name: str, state, meta: Optional[dict] = None,
+                     write: bool = True) -> Optional[str]:
+    """Write a whole training state, with ``.old`` rotation. On a 2-D mesh
+    every rank calls it and the one with ``write`` writes."""
+    arrays = train_state_arrays(state)
+    return save(directory, name, arrays, meta) if write else None
 
 
 @torch.no_grad()
@@ -270,13 +285,25 @@ def load_train_state(directory: str, name: str, state) -> dict:
     """Load a checkpoint into ``state`` in place (parameters, statistics,
     optimizer state, counters, epoch). Strict: every leaf the state has
     must be there with its shape; leaves of other trees are ignored, as
-    facegen's ckpt.load does. Returns the checkpoint's meta."""
-    arrays, meta = _load_checked(directory, name, train_state_arrays(state))
-    for net, module, opt in (("g", state.g, state.opt_g), ("d", state.d, state.opt_d)):
+    facegen's ckpt.load does. On a 2-D mesh the full leaves are read and
+    this rank keeps its shards. Returns the checkpoint's meta."""
+    shards = getattr(state, "shards", None)
+    full = state
+    if shards is not None:  # full moments to read into, shards taken after
+        full = dataclasses.replace(state, shards=None, **{
+            f"opt_{k}": {kind: [torch.zeros_like(p) for p in shards[k].params]
+                         if isinstance(v, list) else v.clone() for kind, v in opt.items()}
+            for k, opt in (("g", state.opt_g), ("d", state.opt_d))})
+    arrays, meta = _load_checked(directory, name, train_state_arrays(full))
+    for net, module, opt in (("g", full.g, full.opt_g), ("d", full.d, full.opt_d)):
         load_module_arrays(arrays, module, *_NETS[net], opt, f"opt_{net}")
     for key in _counters(state):
         getattr(state, key).copy_(torch.as_tensor(arrays[key]))
     state.epoch = int(arrays["epoch"])
+    if shards is not None:
+        for k, opt, opt_full in (("g", state.opt_g, full.opt_g), ("d", state.opt_d, full.opt_d)):
+            shards[k].pull_()
+            shards[k].load_opt_(opt, opt_full)
     return meta
 
 

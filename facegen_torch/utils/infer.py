@@ -10,6 +10,13 @@ gathers the results in order on the first device; the noise is drawn
 once for the whole request. ``prepare_nn_dataset`` shards the dataset's
 rows over the devices, padded with sentinel rows that never win, and
 ``nearest_neighbours`` merges each shard's top-k.
+
+With ``mp`` > 1 (--meshShape 'DP,MP') the devices are DP replica groups of
+MP devices each, ``devices[g * mp:(g + 1) * mp]``: group g keeps each
+leaf that facegen's rule shards (parallel/gspmd.py:leaf_spec) as MP
+shards, one on each of its devices, and gathers them onto its first for
+every call (``gspmd.ShardedReplica``); requests split over the DP groups
+and the search's rows shard over their first devices.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from facegen_torch.parallel.gspmd import ShardedReplica
+
 
 class GanInference:
     """Eval-mode G/D execution (dropout off, batch norm from running
@@ -29,19 +38,30 @@ class GanInference:
     cast at use; D's sigmoid runs on fp32 logits."""
 
     def __init__(self, g: nn.Module, d: nn.Module, noise_dim: int,
-                 compute_dtype: torch.dtype = torch.bfloat16, devices: Optional[Sequence] = None):
+                 compute_dtype: torch.dtype = torch.bfloat16, devices: Optional[Sequence] = None,
+                 mp: int = 1):
         self.g = g.eval()
         self.d = d.eval()
         self.noise_dim = noise_dim
         self.dtype = compute_dtype
         self.device = next(g.parameters()).device
-        # a replica of G and of D per device of a data-parallel request
+        # a replica of G and of D per device, or per group of mp devices,
+        # of a data-parallel request
         self.g_replicas, self.d_replicas = [self.g], [self.d]
         if devices is not None:
             devices = [torch.device(dev) for dev in devices]
-            self.g_replicas = [copy.deepcopy(g).to(dev).eval() for dev in devices]
-            self.d_replicas = [copy.deepcopy(d).to(dev).eval() for dev in devices]
+            if len(devices) % mp:
+                raise ValueError(f"{len(devices)} devices are not groups of {mp}")
+            if mp > 1:
+                groups = [devices[k:k + mp] for k in range(0, len(devices), mp)]
+                self.g_replicas = [ShardedReplica(g, grp) for grp in groups]
+                self.d_replicas = [ShardedReplica(d, grp) for grp in groups]
+            else:
+                self.g_replicas = [copy.deepcopy(g).to(dev).eval() for dev in devices]
+                self.d_replicas = [copy.deepcopy(d).to(dev).eval() for dev in devices]
             self.device = devices[0]  # where the results gather
+        self.request_devices = [next(net.parameters()).device if isinstance(net, nn.Module)
+                                else net.device for net in self.g_replicas]
 
     def _split(self, nets: List[nn.Module], x: torch.Tensor) -> torch.Tensor:
         """``nets[i]`` on the i-th of ``len(nets)`` equal parts of ``x``,
@@ -52,8 +72,8 @@ class GanInference:
         n, k = x.shape[0], len(nets)
         total = n + (-n % k)
         padded = x.repeat((-(-total // n),) + (1,) * (x.dim() - 1))[:total]
-        parts = [net(part.to(next(net.parameters()).device, self.dtype))
-                 for net, part in zip(nets, padded.chunk(k))]
+        parts = [net(part.to(dev, self.dtype))
+                 for net, part, dev in zip(nets, padded.chunk(k), self.request_devices)]
         return torch.cat([p.float().to(self.device) for p in parts])[:n]
 
     def noise(self, generator: torch.Generator, n: int) -> torch.Tensor:

@@ -500,7 +500,7 @@ def test_cli_configs_parse_like_jax(name, argv, monkeypatch):
     seen = {}
 
     class Trainer:  # stands in for the CLI's trainer: records its config
-        def __init__(self, cfg, device):
+        def __init__(self, cfg, device, mesh=None):
             seen["cfg"] = cfg
 
         def run(self):
@@ -517,9 +517,11 @@ def test_cli_configs_parse_like_jax(name, argv, monkeypatch):
 
 @pytest.mark.parametrize("name", ["autoencoder", "denoiser"])
 def test_cli_refuses_several_devices_and_needs_a_gpu(name, monkeypatch, capsys):
+    # several devices run on the 2-D mesh (tests/test_torch_port_gspmd.py):
+    # without a process group the CLI says how to launch them
     with pytest.raises(SystemExit) as e:
         _cli(name).main(["--meshShape", "2"], device="cpu")
-    assert e.value.code != 0 and "not ported yet" in capsys.readouterr().err
+    assert e.value.code != 0 and "launch 2 processes" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         _cli(name).main(["--syntheticData"])

@@ -224,8 +224,10 @@ def test_c2f_cli_parses_like_jax(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--meshShape", "2"], "not ported yet"), (["--boundaryPad", "1"], "not ported"),
-])
+    # the 2-D mesh is ported (tests/test_torch_port_gspmd.py): without a
+    # process group the CLI says how to launch its ranks
+    (["--meshShape", "2"], "launch 2 processes"), (["--boundaryPad", "1"], "not ported"),
+], ids=["argv0-not ported yet", "argv1-not ported"])  # the ids from when the first was refused
 def test_c2f_cli_refuses_what_is_not_ported(argv, message, capsys):
     with pytest.raises(SystemExit) as e:
         train_c2f.main(argv, device="cpu")

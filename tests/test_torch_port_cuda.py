@@ -430,7 +430,7 @@ def test_load_denoiser_fn_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     torch.testing.assert_close(ours.cpu(), ref, rtol=1e-5, atol=1e-5)
 
 
-def _gan_step(device, cfg, seed=5):
+def _gan_step(device, cfg, seed=5, mesh=None):
     """A G32 + D32b training state and step, the same on every call. G's
     biases are drawn nonzero: with --G_L2 1e-3 (and the reference's
     sign-term bug) the penalty then sets the gradients of the
@@ -446,7 +446,7 @@ def _gan_step(device, cfg, seed=5):
         for name, p in g.named_parameters():
             if name.endswith("bias"):
                 p.copy_(torch.rand(p.shape, generator=bias_gen) * 0.2 - 0.1)
-    return init_state(cfg, g, d), TrainStep(cfg, g, d)
+    return init_state(cfg, g, d, mesh), TrainStep(cfg, g, d, mesh)
 
 
 def _gan_pool(device, n=256):
@@ -577,6 +577,82 @@ def test_one_rank_nccl_graphed_step_equals_the_single_device_one(cuda_device):
         torch.backends.cudnn.deterministic = saved
         dist.destroy_process_group()
     _assert_states_close(states[1], states[0], 0.0)
+
+
+@pytest.mark.cuda
+def test_2d_step_at_world_one_under_nccl_equals_the_single_device_one(cuda_device):
+    """The 2-D mesh's step on ``make_mesh2d(1, 1)`` of a 1-rank NCCL group,
+    its all-reduces and all-gathers captured in the CUDA graph, against the
+    single-device graphed step: 3 steps from one state on the same draws,
+    fp32 (TF32 off) under cuDNN's deterministic algorithms, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.parallel import make_mesh2d, maybe_initialize
+    from facegen_torch.train.graph import GraphedStep
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert maybe_initialize({"FACEGEN_COORDINATOR": f"127.0.0.1:{port}",
+                             "FACEGEN_NUM_PROCESSES": "1", "FACEGEN_PROCESS_ID": "0"})
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh2d(1, 1)
+        assert (mesh.dp, mesh.mp, mesh.backend, mesh.device) == (1, 1, "nccl", cuda_device)
+        cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
+        pool = _gan_pool(cuda_device)
+        states = []
+        for two_d in (False, True):
+            state, step = _gan_step(cuda_device, cfg, mesh=mesh if two_d else None)
+            runner = GraphedStep(step, state, pool.shape[0])
+            runner.set_pool(pool)
+            runner.run(torch.Generator(cuda_device).manual_seed(7), 3)
+            assert runner.graph is not None
+            assert ("all-gathers over the 1x1 mesh" in runner.route) == two_d, runner.route
+            states.append(state)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        dist.destroy_process_group()
+    _assert_states_close(states[1], states[0], 0.0)
+
+
+@pytest.mark.cuda
+def test_synchronised_batch_norm_on_the_card_matches_the_cpu(cuda_device):
+    """``SyncBatchNormFunction`` over a data group of two rows that hold
+    the same batch (an all-reduce that doubles), fp32: the output, the
+    running statistics and the gradients on the card against the CPU
+    within 1e-5, the statistics' global count in the unbiased factor."""
+    import types
+
+    from facegen_torch.nn.layers import BatchNorm
+
+    two_rows = types.SimpleNamespace(dp=2, all_reduce_sum_=lambda t: t.mul_(2.0))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(6, 4, 4, 16, generator=gen) * 2.0 + 0.5
+    dy = torch.randn(6, 4, 4, 16, generator=gen)
+    results = []
+    for device in ("cpu", cuda_device):
+        bn = BatchNorm(16, device=device)
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(16, generator=torch.Generator().manual_seed(4)) + 0.5)
+        bn.mesh = two_rows
+        xs = x.clone().to(device).requires_grad_()
+        y = bn.train()(xs)
+        y.backward(dy.to(device))
+        results.append([t.detach().cpu() for t in (y, bn.running_mean, bn.running_var, xs.grad,
+                                                   bn.weight.grad, bn.bias.grad)])
+    torch.cuda.synchronize()
+    for ours, ref in zip(results[1], results[0]):
+        torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-5)
+    n = 2 * 6 * 4 * 4  # the global count
+    var = x.reshape(-1, 16).var(0, unbiased=False)
+    torch.testing.assert_close(results[0][2], 0.9 + 0.1 * var * n / (n - 1), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda

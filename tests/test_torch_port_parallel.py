@@ -354,9 +354,12 @@ def test_ranks_sharing_a_card_are_named():
 @pytest.mark.parametrize("argv,message", [
     (["--meshShape", "2"], "launch 2 processes with FACEGEN_COORDINATOR"),
     (["--meshShape", "2,1"], "launch 2 processes with FACEGEN_COORDINATOR"),
-    (["--meshShape", "4,2"], "the 2-D mesh ('DP,MP' with MP > 1) is not ported yet"),
+    (["--meshShape", "4,2"], "launch 8 processes with FACEGEN_COORDINATOR"),
     (["--meshShape", "0"], "a positive size or -1"),
-])
+], ids=[  # the third's id is from when the 2-D mesh was refused
+    "argv0-launch 2 processes with FACEGEN_COORDINATOR",
+    "argv1-launch 2 processes with FACEGEN_COORDINATOR",
+    "argv2-the 2-D mesh ('DP,MP' with MP > 1) is not ported yet", "argv3-a positive size or -1"])
 def test_mesh_shape_without_a_group_says_how_to_launch(argv, message, capsys):
     with pytest.raises(SystemExit):
         train_main(argv, device="cpu")
@@ -448,10 +451,12 @@ def test_run_sampling_over_two_devices_writes_the_single_device_grids(tmp_path):
 
 
 def test_sampler_mesh_shape(monkeypatch, capsys):
-    """'DP,MP' with MP > 1 exits; 'DP' needs DP visible cards."""
-    with pytest.raises(ValueError, match="not ported yet"):
-        sample.serving_devices((2, 2))
+    """'DP,MP' needs DP x MP visible cards; 'DP' needs DP."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="2 CUDA device"):
+        sample.serving_devices((2, 2))
+    assert sample.serving_devices((1, 2)) == sample.serving_devices((-1, 2)) == [
+        torch.device("cuda", 0), torch.device("cuda", 1)]
     assert sample.serving_devices((-1,)) == sample.serving_devices((2, 1)) == [
         torch.device("cuda", 0), torch.device("cuda", 1)]
     with pytest.raises(ValueError, match="2 CUDA device"):

@@ -145,11 +145,15 @@ def test_cli_parses_like_jax(argv):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--meshShape", "4"], "not ported yet"), (["--meshShape", "2,2"], "not ported yet"),
-    # --denoise is ported (tests/test_torch_port_ae.py); on several devices it is not
-    (["--denoise", "--meshShape", "2"], "not ported yet"),
+    # several devices are ported (tests/test_torch_port_parallel.py,
+    # tests/test_torch_port_gspmd.py): without a process group the CLI
+    # says how to launch them, the 2-D mesh and --denoise included
+    (["--meshShape", "4"], "launch 4 processes"), (["--meshShape", "2,2"], "launch 4 processes"),
+    (["--denoise", "--meshShape", "2"], "launch 2 processes"),
     (["--boundaryPad", "8"], "not ported"), (["--batchSize", "5"], "multiple of 2"),
-])
+], ids=[  # the ids the cases had when the first three asserted a refusal
+    "argv0-not ported yet", "argv1-not ported yet", "argv2-not ported yet", "argv3-not ported",
+    "argv4-multiple of 2"])
 def test_cli_rejects_what_is_not_ported(argv, message, capsys):
     with pytest.raises(SystemExit):
         train.main(argv, device="cpu")

@@ -24,11 +24,14 @@ from facegen_torch.config import TrainConfig
 from facegen_torch.models import gan
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.parallel import (
+    DataMesh,
+    Mesh2D,
     is_multiprocess,
     make_mesh,
     maybe_initialize,
     resolve_mesh_shape,
     shard_pool,
+    training_mesh,
     warmup_collectives,
 )
 from facegen_torch.train import main as train_main
@@ -194,7 +197,11 @@ def env_group(rank: int, work: str):
     mesh = make_mesh((-1,), device="cpu")
     assert (mesh.rank, mesh.size, mesh.backend) == (rank, WORLD, "gloo")
     warmup_collectives(mesh)
-    assert resolve_mesh_shape((2, 1), WORLD) == resolve_mesh_shape((-1,), WORLD) == WORLD
+    assert resolve_mesh_shape((-1,), WORLD) == WORLD
+    # 'DP,1' is the 2-D mesh, as facegen routes it (facegen/train/loop.py:507-519),
+    # not this local-batch mesh, which a bare 'N' is
+    assert isinstance(training_mesh((2, 1), device="cpu"), Mesh2D)
+    assert isinstance(training_mesh((2,), device="cpu"), DataMesh)
     for shape in ((3,), (1,)):
         try:
             make_mesh(shape, device="cpu")
