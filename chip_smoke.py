@@ -146,7 +146,23 @@ Phases, each printing its own lines; any failure exits non-zero:
     steps of each on that mesh against its single-device step on the card;
 27. ``run_sampling`` at --meshShape 2,2 over ["cuda:0"] * 4 (two replica
     groups holding the large leaves as shards) against one device: the
-    files, the launches, the images and scores in fp32 and bf16.
+    files, the launches, the images and scores in fp32 and bf16;
+28. the uneven (3, 1) mesh, three gloo ranks sharing the card: ``python -m
+    facegen_torch.train --meshShape 3,1`` at the default flags and the c2f,
+    autoencoder and denoiser CLIs at --meshShape 3 for one epoch each
+    (--N_epoch 256), the launches per rank; 3 fp32 GAN steps at batch 32
+    (local batches 6, 6, 4 in the D phase, 11, 11, 10 in the G phase) and at
+    batch 4 (rank 2 holds no rows and launches nothing) and 3 of each of
+    the family, against the single-device steps on the card; the kernels'
+    rows of phases 3-4 at those local shapes (phase 4 also checks the
+    wrappers at N = 0);
+29. ``--boundaryPad 8``: the trainer CLI at the default flags for one
+    epoch, graphed, with the unpadded launches (4, 2, 2 a replay); its step
+    and the unpadded one timed on the stream in turns and profiled; 3
+    graphed fp32 steps against the unpadded ones; 3 fp32 c2f steps against
+    the unpadded ones, and the c2f CLI with --boundaryPad 8 for one epoch;
+30. ``guard_nonfinite`` in the graphed step with every D weight NaN: no
+    update lands and not_trained_d counts every step.
 
 Every step profile (phases 5-24) reads the device's events from a trace
 (facegen_torch.utils.profiling: ``trace`` + ``aggregate_trace``) and the
@@ -212,6 +228,14 @@ FWD_TRAIN_SHAPES = [(n, h, cin, cout, 5) for n in (16, 32, 100, 300)
 DP_FWD_SHAPES = [(8, 8, 128, 256, 5), (8, 16, 256, 128, 5)]
 DP_BWD_SHAPES = [(16, 8, 128, 256, 5), (16, 16, 256, 128, 5)]
 DP_ROWS = []  # the kernel table's rows at those shapes
+# G32's two layers at the local batches of the (3, 1) mesh at batch 32
+# (parallel/gspmd.py:row_block): the forward at N = 6 and 4 in the D phase
+# (each half's 16 rows split 6, 6, 4), dx and dW at N = 11 and 10 in the G
+# phase (32 rows split 11, 11, 10), where the forward runs at those N too
+G32_LAYERS = ((8, 128, 256), (16, 256, 128))
+UNEVEN_FWD_SHAPES = [(n, h, cin, cout, 5) for n in (6, 4) for h, cin, cout in G32_LAYERS]
+UNEVEN_BWD_SHAPES = [(n, h, cin, cout, 5) for n in (11, 10) for h, cin, cout in G32_LAYERS]
+UNEVEN_ROWS = []  # the kernel table's rows at those shapes
 
 FP32_TOL = 1e-4       # fp32 accumulate on both sides; TF32 off
 BF16_ATOL = 2e-2      # plus the bf16 output rounding, half an ulp:
@@ -419,7 +443,8 @@ def phase_kernels():
 
     max_err = {"train": 0.0, "sampler": 0.0, "c2f": 0.0}  # bf16, at the paths' shapes
     for si, (n, h, cin, cout, k) in enumerate(G_SHAPES + FWD_TRAIN_SHAPES + G16_SHAPES
-                                              + ODD_SHAPES + DP_FWD_SHAPES):
+                                              + ODD_SHAPES + DP_FWD_SHAPES + UNEVEN_FWD_SHAPES
+                                              + UNEVEN_BWD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, b = _inputs(n, h, cin, cout, k, dtype, seed=si)
             wc = uc.collapse_weights(w)
@@ -450,7 +475,7 @@ def phase_kernels():
     # pre-made weight: no depth-to-space, no bias), in alternating turns
     rows = {"train": [], "sampler": [], "c2f": []}
     for n, h, cin, cout, k in (G_SHAPES + G16_SAMPLER_SHAPES + TRAIN_SHAPES + FWD_TRAIN_SHAPES[:2]
-                               + DP_FWD_SHAPES):
+                               + DP_FWD_SHAPES + UNEVEN_FWD_SHAPES):
         x, w, b = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         wc = uc.collapse_weights(w)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
@@ -469,13 +494,17 @@ def phase_kernels():
         nbytes = 2 * (x.numel() + wc.numel() + cout + 4 * n * h * h * cout)
         sampler = (n, h, cin, cout, k) in G_SHAPES + G16_SAMPLER_SHAPES
         dp = (n, h, cin, cout, k) in DP_FWD_SHAPES
+        uneven = (n, h, cin, cout, k) in UNEVEN_FWD_SHAPES
         row = _row("upsample_conv_fwd", (n, h, cin, cout), t, runs, flop, nbytes,
                    launches_per_g_call=1 if sampler else 0,
-                   launches_per_step=0 if sampler or dp else 1,
+                   launches_per_step=0 if sampler or dp or uneven else 1,
                    launches_per_rank_step_2_ranks=1 if dp else 0,
-                   launches_per_rank_step_2x2=1 if dp else 0)
+                   launches_per_rank_step_2x2=1 if dp else 0,
+                   launches_per_rank_step_3x1=1 if uneven else 0)
         if dp:
             DP_ROWS.append(row)
+        if uneven:
+            UNEVEN_ROWS.append(row)
         print(f"time bf16 N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
               f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
               f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
@@ -650,7 +679,8 @@ def phase_bwd_kernels():
 
     err = {"dx": 0.0, "dw": 0.0}
     for si, (n, h, cin, cout, k) in enumerate(TRAIN_SHAPES + G16_SHAPES[:2] + ODD_SHAPES
-                                              + DW_TMA_SHAPES + DP_BWD_SHAPES):
+                                              + DW_TMA_SHAPES + DP_BWD_SHAPES
+                                              + UNEVEN_BWD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x, w, _ = _inputs(n, h, cin, cout, k, dtype, seed=100 + si)
             dy = torch.randn(n, 2 * h, 2 * h, cout, generator=torch.Generator().manual_seed(si))
@@ -678,14 +708,16 @@ def phase_bwd_kernels():
                 err["dx"] = max(err["dx"], float(e_dx.max()))
                 err["dw"] = max(err["dw"], float(e_dw.max()))
     _check_dw_repeats()
+    _check_empty_batches()
 
     # kernel, plain version and one library call, in alternating turns:
     # dx, cuDNN's conv of a pre-made S2D(dy) with the pre-made flipped and
     # transposed phase weight; dW, torch.nn.grad.conv2d_weight of the
     # phase conv (bf16, as the kernel's inputs)
     rows = {"dx": [], "dw": []}
-    for n, h, cin, cout, k in TRAIN_SHAPES + DP_BWD_SHAPES:
+    for n, h, cin, cout, k in TRAIN_SHAPES + DP_BWD_SHAPES + UNEVEN_BWD_SHAPES:
         dp = (n, h, cin, cout, k) in DP_BWD_SHAPES
+        uneven = (n, h, cin, cout, k) in UNEVEN_BWD_SHAPES
         x, w, _ = _inputs(n, h, cin, cout, k, torch.bfloat16, seed=7)
         dy = torch.randn(n, 2 * h, 2 * h, cout, device="cuda", dtype=torch.bfloat16)
         wc = uc.collapse_weights(w)
@@ -705,11 +737,14 @@ def phase_bwd_kernels():
                  2 * (x.numel() + dy.numel()) + 4 * wc.numel())):
             t, runs = _time_turns({"kernel": kern, "plain": plain, "library": library})
             row = _row(f"upsample_conv_{which}", (n, h, cin, cout), t, runs, flop, nbytes,
-                       launches_per_g_call=0, launches_per_step=0 if dp else 1,
+                       launches_per_g_call=0, launches_per_step=0 if dp or uneven else 1,
                        launches_per_rank_step_2_ranks=1 if dp else 0,
-                       launches_per_rank_step_2x2=1 if dp else 0)
+                       launches_per_rank_step_2x2=1 if dp else 0,
+                       launches_per_rank_step_3x1=1 if uneven else 0)
             if dp:
                 DP_ROWS.append(row)
+            if uneven:
+                UNEVEN_ROWS.append(row)
             print(f"time bf16 {which} N={n} {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
                   f"kernel {t['kernel']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
                   f"{100 * row['share_of_bound']:.1f} % of its {row['bound_ms']:.4f} ms bound), "
@@ -717,8 +752,8 @@ def phase_bwd_kernels():
                   + (f"; note: the WMMA kernel it replaced took "
                      f"{WMMA_DW_MS[(n, h, cin, cout)]:.4f} ms (not timed in this run: "
                      f"tools/compare_upconv_kernels.py against the parent tree)"
-                     if which == "dw" and not dp else ""))
-            if not dp:  # the kernels line: the single-device step's shapes
+                     if which == "dw" and not (dp or uneven) else ""))
+            if not (dp or uneven):  # the kernels line: the single-device step's shapes
                 rows[which].append(row)
         del x, w, dy, wc, dyc, x_cl, w_dx
 
@@ -768,6 +803,38 @@ def _check_dw_repeats():
               f"2 CUDA-graph replays bit-identical: {'ok' if same else 'FAIL'}")
         check(same, f"the bf16 dW is not deterministic ({n, h, cin, cout})")
         del graph
+
+
+def _check_empty_batches():
+    """The wrappers at N = 0 (a data row of the (3, 1) mesh that holds no
+    rows of a batch), at G32's two layers in both types: the forward and
+    dx return empty tensors and dW zeros, as the plain versions on the CPU
+    do, and nothing is launched or counted."""
+    import torch
+
+    from facegen_torch.ops import upsample_conv as uc
+
+    for h, cin, cout in G32_LAYERS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.empty(0, h, h, cin, device="cuda", dtype=dtype)
+            dy = torch.empty(0, 2 * h, 2 * h, cout, device="cuda", dtype=dtype)
+            w = torch.randn(cout, cin, 5, 5, device="cuda").to(dtype)
+            wc, b = uc.collapse_weights(w), torch.zeros(cout, device="cuda", dtype=dtype)
+            before = _launches()
+            y, dx = uc.upsample_conv(x, wc, b), uc.upsample_conv_dx(dy, wc)
+            dw = uc.upsample_conv_dw(x, dy)
+            torch.cuda.synchronize()
+            ref = (uc.upsample_conv_reference(x.cpu().float(), wc.cpu().float(), b.cpu().float()),
+                   uc.upsample_conv_dx_reference(dy.cpu().float(), wc.cpu().float()),
+                   uc.upsample_conv_dw_reference(x.cpu().float(), dy.cpu().float()))
+            ok = (_launches() == before
+                  and [tuple(t.shape) for t in (y, dx, dw)] == [tuple(t.shape) for t in ref]
+                  and not bool(dw.abs().max()) and not bool(ref[2].abs().max()))
+            print(f"empty batch {str(dtype)[6:]} N=0 {h}x{h}x{cin}->{2 * h}x{2 * h}x{cout}: "
+                  f"forward {tuple(y.shape)}, dx {tuple(dx.shape)}, dW {tuple(dw.shape)} of "
+                  f"zeros, as the plain versions; launches unchanged: {_launches() == before} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"the wrappers at N = 0 ({h}, {cin}, {cout}, {dtype})")
 
 
 def write_store(tmp: str) -> str:
@@ -2288,9 +2355,9 @@ def _gan_global_draws(step, cfg, dev, rs, pool_n):
     return StepDraws((d,), (g,))
 
 
-def gspmd_gan_steps(dev, mesh=None):
-    """3 fp32 GAN steps at the default flags (G32 + D32b, batch 32) from a
-    seeded state on the global draws; the gathered state's leaves."""
+def gspmd_gan_steps(dev, mesh=None, batch=32):
+    """3 fp32 GAN steps at the default flags (G32 + D32b, at ``batch``) from
+    a seeded state on the global draws; the gathered state's leaves."""
     import numpy as np
     import torch
 
@@ -2300,7 +2367,8 @@ def gspmd_gan_steps(dev, mesh=None):
     from facegen_torch.train.step import TrainStep
     from facegen_torch.utils import checkpoint as ckpt
 
-    cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3,
+                      batch_size=batch).validate()
     pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32, 3).to(dev)
     state = _train_state(cfg, dev, g_biases=True, mesh=mesh)
     step = TrainStep(cfg, state.g, state.d, mesh)
@@ -2555,7 +2623,6 @@ def phase_gspmd_gloo(tmp: str, store: str):
 
     from facegen_torch.config import TrainConfig
     from facegen_torch.parallel.gspmd import torch_shard_dim
-    from facegen_torch.sample import full_fp32
     from facegen_torch.train.step import steps_per_epoch
     from facegen_torch.utils import checkpoint as ckpt
 
@@ -2595,10 +2662,7 @@ def phase_gspmd_gloo(tmp: str, store: str):
                           str(port), "cuda:0", out], world)
     steps_s = time.perf_counter() - t0
     loaded = [ckpt.load(out, f"gan_rank{r}") for r in range(world)]
-    torch.backends.cudnn.deterministic = True
-    with full_fp32():
-        ref = gspmd_gan_steps(torch.device("cuda", 0))
-    torch.backends.cudnn.deterministic = False
+    ref = _single_device_refs()["gan32"]
     start = ckpt.train_state_arrays(_train_state(
         TrainConfig(compute_dtype="float32", reference_init=False).validate(), "cpu",
         g_biases=True))
@@ -2673,9 +2737,7 @@ def phase_gspmd_family(tmp: str, store: str):
     single-device step on the card. Returns their launches (none: these
     nets have no upsample-conv)."""
     import numpy as np
-    import torch
 
-    from facegen_torch.sample import full_fp32
     from facegen_torch.utils import checkpoint as ckpt
 
     port, world = _free_port(), 2
@@ -2704,11 +2766,8 @@ def phase_gspmd_family(tmp: str, store: str):
     port = _free_port()
     _run_ranks(lambda r: [sys.executable, here, GSPMD_WORKER_FLAG, "family", str(r), str(world),
                           str(port), "cuda:0", out], world)
-    torch.backends.cudnn.deterministic = True
-    with full_fp32():
-        ref = gspmd_family_steps(torch.device("cuda", 0))
-        start = gspmd_family_steps(torch.device("cuda", 0), steps=0)
-    torch.backends.cudnn.deterministic = False
+    refs = _single_device_refs()
+    ref, start = refs["family"], refs["family_start"]
     ok_all = True
     for name, (ref_arrays, ref_losses) in ref.items():
         loaded = [ckpt.load(out, f"{name}_rank{r}") for r in range(world)]
@@ -2727,6 +2786,392 @@ def phase_gspmd_family(tmp: str, store: str):
               + f" (tolerance {tol}); {'ok' if ok else 'FAIL'}")
     check(ok_all, "a 2x1 family step disagrees with its single-device step")
     return {name: 0 for name in KERNELS}
+
+
+# the uneven (3, 1) mesh: three gloo ranks sharing the card, each of
+# which runs the trainer CLIs on one group of three and then the steps
+UNEVEN_WORKER_FLAG = "--uneven-gloo-rank"
+
+
+def uneven_gloo_rank(rank: int, world: int, port: int, store: str, out: str) -> None:
+    """A rank of the (3, 1) mesh, on cuda:0 in a gloo group of ``world``:
+    ``python -m facegen_torch.train --meshShape 3,1`` at the default flags
+    for one epoch (--N_epoch 256) and the c2f, autoencoder and denoiser
+    CLIs at --meshShape 3, each with the wrappers' counts set to 0 before
+    it and read after; then 3 fp32 GAN steps at batch 32 and at batch 4
+    (this mesh's rank 2 then holds no rows) and 3 of each of the family on
+    the global draws, with the launches by shape, saved under ``out``."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    from facegen_torch import train, train_autoencoder, train_c2f, train_denoiser
+    from facegen_torch.ops import upsample_conv as uc
+    from facegen_torch.parallel import make_mesh2d, maybe_initialize
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.utils import checkpoint as ckpt
+
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0)
+    maybe_initialize(_coordinator_env(port, world, rank), device_type="cuda", backend="gloo")
+    try:
+        meta, common = {"cli": {}}, ["--datasetDir", store, "--N_epoch", "256", "--epochs", "1"]
+        for name, main, shape in (("gan", train.main, "3,1"), ("c2f", train_c2f.main, "3"),
+                                  ("autoencoder", train_autoencoder.main, "3"),
+                                  ("denoiser", train_denoiser.main, "3")):
+            _reset_launches()
+            t0 = time.perf_counter()
+            tr = main(common + ["--meshShape", shape, "--save",
+                                os.path.join(out, f"{name}_cli", f"rank{rank}")])
+            torch.cuda.synchronize()
+            check((tr.mesh.dp, tr.mesh.mp) == (3, 1), f"{name}: mesh {tr.mesh}")
+            meta["cli"][name] = {"s": time.perf_counter() - t0, "launches": _launches()}
+            if name == "gan":
+                meta["cli"][name]["route"] = tr.graphed.route
+        mesh = make_mesh2d(world, 1, device=dev)
+        by_shape = collections.Counter()
+        launch, launch_bwd = uc._launch, uc._launch_bwd
+
+        def counted(fn, key, n, *args):  # by shape, where the wrapper counted a launch
+            before = _launches()
+            out = fn(*args)
+            if _launches() != before:
+                by_shape[f"{key} N={n}"] += 1
+            return out
+
+        uc._launch = lambda x, wc, b: counted(launch, "upsample_conv_fwd", x.shape[0], x, wc, b)
+        uc._launch_bwd = lambda which, a, b: counted(launch_bwd, f"upsample_conv_{which}",
+                                                     a.shape[0], which, a, b)
+        torch.backends.cudnn.deterministic = True
+        with full_fp32():
+            results = {"gan32": (gspmd_gan_steps(dev, mesh), []),
+                       "gan4": (gspmd_gan_steps(dev, mesh, batch=4), []),
+                       **gspmd_family_steps(dev, mesh)}
+        torch.backends.cudnn.deterministic = False
+        uc._launch, uc._launch_bwd = launch, launch_bwd
+        meta.update(launches=dict(by_shape), losses={k: v[1] for k, v in results.items()})
+        for name, (arrays, _) in results.items():
+            ckpt.save(out, f"{name}_rank{rank}", arrays, meta)
+    finally:
+        dist.destroy_process_group()
+
+
+_REFS = {}  # the single-device references phases 25, 26 and 28 share
+
+
+def _single_device_refs():
+    """The GAN steps at batch 32 and 4 and the family's steps on one
+    device (fp32, TF32 off, cuDNN deterministic), and the family's start."""
+    import torch
+
+    if not _REFS:
+        from facegen_torch.sample import full_fp32
+
+        dev = torch.device("cuda", 0)
+        torch.backends.cudnn.deterministic = True
+        with full_fp32():
+            _REFS.update(gan32=gspmd_gan_steps(dev), gan4=gspmd_gan_steps(dev, batch=4),
+                         family=gspmd_family_steps(dev),
+                         family_start=gspmd_family_steps(dev, steps=0))
+        torch.backends.cudnn.deterministic = False
+    return _REFS
+
+
+def phase_uneven_mesh(tmp: str, store: str):
+    """Three gloo ranks sharing cuda:0 on the (3, 1) mesh, whose data rows
+    hold unequal blocks of a batch: the GAN CLI at --meshShape 3,1 and the
+    c2f, autoencoder and denoiser CLIs at --meshShape 3 for one epoch each
+    (the launches per rank: the forward at N = 6, 6, 4 in the D phase and
+    11, 11, 10 in the G phase, with dx and dW); then 3 fp32 GAN steps at
+    batch 32 and at batch 4 (rank 2 holds no rows and launches nothing)
+    and 3 of each of the family, against the single-device steps on the
+    card; and the kernels' rows of phases 3-4 at the mesh's local shapes.
+    Returns the GAN CLI's launches (all three ranks)."""
+    import numpy as np
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.step import steps_per_epoch
+    from facegen_torch.utils import checkpoint as ckpt
+
+    port, world = _free_port(), 3
+    out = os.path.join(tmp, "uneven_3x1")
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    _run_ranks(lambda r: [sys.executable, here, UNEVEN_WORKER_FLAG, str(r), str(world), str(port),
+                          store, out], world)
+    run_s = time.perf_counter() - t0
+    loaded = {name: [ckpt.load(out, f"{name}_rank{r}") for r in range(world)]
+              for name in ("gan32", "gan4", "c2f", "autoencoder", "denoiser")}
+    metas = [m for _, m in loaded["gan32"]]
+    steps = steps_per_epoch(TrainConfig(n_epoch=256))
+    want = [{"upsample_conv_fwd": 4 * steps + (4 if r == 0 else 0),
+             "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps} for r in range(world)]
+    cli = [m["cli"] for m in metas]
+    print(f"uneven 3x1 path: 3 gloo ranks sharing cuda:0 in {run_s:.3f} s (3 processes, with "
+          f"their start, the CLIs and the steps); python -m facegen_torch.train --meshShape 3,1 "
+          f"at the default flags, 1 epoch of {steps} steps: {cli[0]['gan']['s']:.3f} s on rank "
+          f"0, launches per rank {[c['gan']['launches'] for c in cli]} (rank 0 also draws the "
+          f"grids); step route: {cli[0]['gan']['route']}; the c2f, autoencoder and denoiser "
+          f"CLIs at --meshShape 3, 1 epoch each: " + ", ".join(
+              f"{k} {cli[0][k]['s']:.3f} s" for k in ("c2f", "autoencoder", "denoiser")))
+    check([c["gan"]["launches"] for c in cli] == want,
+          f"3x1 CLI launches {[c['gan']['launches'] for c in cli]}, want {want}")
+    check(all(c[k]["launches"] == {n: 0 for n in KERNELS} for c in cli
+              for k in ("c2f", "autoencoder", "denoiser")), "a family CLI launched a kernel")
+    saves = [os.path.join(out, "gan_cli", f"rank{r}") for r in range(world)]
+    rows = _metrics_rows(saves[0])
+    print(f"uneven 3x1 path: epoch 1 loss_d {rows[0]['loss_d_mean']:.4f} loss_g "
+          f"{rows[0]['loss_g_mean']:.4f} {rows[0]['images_per_sec']:.1f} images/s")
+    _check_files(os.path.join(saves[0], "adversarial", "arrays.npz"),
+                 *(os.path.join(out, f"{k}_cli", "rank0", sub, "arrays.npz") for k, sub in (
+                     ("c2f", "adversarial_c2f_16_to_32"), ("autoencoder", "autoencoder"),
+                     ("denoiser", "denoiser_3x16x16"))))
+    check(not any(os.path.exists(s) for s in saves[1:]), "a rank other than 0 wrote")
+
+    refs = _single_device_refs()
+    start = ckpt.train_state_arrays(_train_state(
+        TrainConfig(compute_dtype="float32", reference_init=False).validate(), "cpu",
+        g_biases=True))
+    ok_all = True
+    for name, batch in (("gan32", 32), ("gan4", 4)):
+        equal, errs, counters = _gspmd_compare([a for a, _ in loaded[name]], refs[name], start)
+        finite = all(np.isfinite(v).all() for a, _ in loaded[name] for v in a.values()
+                     if v.dtype.kind == "f")
+        ok = equal and counters and finite and all(v <= GSPMD_TOL for v in errs.values())
+        ok_all &= ok
+        a0, ref = loaded[name][0][0], refs[name]
+        worst = max((_np_rel_l2([a0[k] - start[k]], [ref[k] - start[k]]), k) for k in ref
+                    if k.startswith("params_") and ref[k].dtype.kind == "f")
+        print(f"uneven 3x1 parity (GAN, batch {batch}): 3 fp32 steps at the default flags on 3 "
+              f"gloo ranks sharing cuda:0 vs the single-device step on the card, the same "
+              f"global draws (TF32 off, cuDNN deterministic): ranks' gathered states bit-equal: "
+              f"{equal}; every leaf finite: {finite}; relative l2 " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs.items()) + f" (tolerance {GSPMD_TOL}); "
+              f"the parameter whose change differs most {worst[1]} {worst[0]:.3e}; "
+              f"counters and confusion {'equal' if counters else 'DIFFER'}; "
+              f"{'ok' if ok else 'FAIL'}")
+    for name, (ref_arrays, ref_losses) in refs["family"].items():
+        equal, errs, _ = _gspmd_compare([a for a, _ in loaded[name]], ref_arrays,
+                                        refs["family_start"][name][0])
+        losses = loaded[name][0][1]["losses"][name]
+        loss_err = float(np.max(np.abs(np.asarray(losses) - np.asarray(ref_losses))
+                                / np.maximum(np.abs(np.asarray(ref_losses)), 1e-12)))
+        tol = C2F_GSPMD_TOL if name == "c2f" else GSPMD_TOL
+        ok = equal and loss_err <= tol and all(v <= tol for v in errs.values())
+        ok_all &= ok
+        print(f"uneven 3x1 parity ({name}): 3 fp32 steps on the 3x1 mesh vs one device on the "
+              f"card: ranks bit-equal {equal}; losses' relative error {loss_err:.3e}; relative "
+              f"l2 " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tolerance {tol}); {'ok' if ok else 'FAIL'}")
+    # the 3 GAN steps at batch 32 and at batch 4: per step the forward at
+    # the D phase's and the G phase's rows, dx and dW at the G phase's
+    rows32, rows4 = (6, 6, 4), (1, 1, 0)
+    g32, g4 = (11, 11, 10), (2, 2, 0)
+    for r, (_, m) in enumerate(loaded["gan32"]):
+        want = _sum_counts(
+            {f"upsample_conv_fwd N={rows32[r]}": 6, f"upsample_conv_fwd N={g32[r]}": 6,
+             f"upsample_conv_dx N={g32[r]}": 6, f"upsample_conv_dw N={g32[r]}": 6},
+            {f"upsample_conv_fwd N={rows4[r]}": 6, f"upsample_conv_fwd N={g4[r]}": 6,
+             f"upsample_conv_dx N={g4[r]}": 6, f"upsample_conv_dw N={g4[r]}": 6})
+        want = {k: v for k, v in want.items() if not k.endswith(" N=0")}
+        print(f"uneven 3x1 path (rank {r}): launches by shape over the GAN's 3 steps at batch "
+              f"32 and 3 at batch 4 {json.dumps(dict(sorted(m['launches'].items())))}")
+        check(m["launches"] == want, f"rank {r} launches by shape {m['launches']}, want {want}")
+    for row in UNEVEN_ROWS:
+        print(f"uneven 3x1 path: kernel at its local shape {json.dumps(row)}")
+    check(ok_all, "a 3x1 step disagrees with its single-device step")
+    return {name: sum(c["gan"]["launches"][name] for c in cli) for name in KERNELS}
+
+
+def _sum_counts(*counts):
+    """The key-wise sum of dicts of counts."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+# --boundaryPad 8 against the unpadded step, 3 graphed fp32 steps (TF32
+# off, cuDNN deterministic) from one state on one set of draws, relative
+# l2 of the parameters and Adam's moments per network, as the card-against-
+# CPU step check holds its gradients (STEP_GRAD_TOL): the padded convs are
+# other cuDNN calls (G's output conv to 8 channels, D's first conv from 8)
+# whose fp32 sums run in another order, and D's PReLU slopes and biases sum
+# up to 2M such terms with cancellation (6.4e-5 read on D's first moment on
+# an H100, a bias's 4.0e-4); a wrong pad (a lane that leaks) is O(1)
+BOUNDARY_PAD_TOL = 1e-3
+
+
+def phase_boundary_pad(tmp: str, store: str):
+    """--boundaryPad 8 (train/step.py:make_boundary_padder): the trainer CLI
+    at the default flags for one epoch, graphed, with 4, 2 and 2 launches a
+    replay as unpadded; its step and the unpadded one timed on the stream
+    in turns and profiled (busy share); 3 graphed fp32 steps padded
+    against unpadded; the c2f CLI with --boundaryPad 8 for one epoch and 3
+    fp32 c2f steps padded against unpadded. Returns the padded CLI's
+    launches."""
+    import torch
+
+    from facegen_torch import train, train_c2f
+    from facegen_torch.config import C2FConfig, TrainConfig
+    from facegen_torch.data.c2f import make_triples
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.models import c2f
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.c2f import C2FStep, draw_c2f_step, init_c2f_state
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import TrainStep, steps_per_epoch
+
+    trainers, launches = {}, None
+    for pad in (8, 0):
+        save = os.path.join(tmp, f"boundary_pad_{pad}")
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainers[pad] = train.main(["--datasetDir", store, "--save", save, "--epochs", "1",
+                                    "--boundaryPad", str(pad)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        if pad:
+            launches = _launches()
+            tr = trainers[pad]
+            steps = steps_per_epoch(tr.cfg)
+            print(f"boundary pad path: train.main --boundaryPad 8 --epochs 1 took {run_s:.3f} s "
+                  f"for {steps} steps; padder {tr.step.pad.pad} channels on G's "
+                  f"{tr.step.pad.g_convs} and D's {tr.step.pad.d_convs}; launches {launches}; "
+                  f"per replay {tr.graphed.launches_per_replay}; epoch 1 "
+                  f"{_metrics_rows(save)[0]['images_per_sec']:.1f} images/s")
+            check(tr.step.pad.active and tr.step.pad.pad == 5, "the padder is not on")
+            check(launches == {"upsample_conv_fwd": 4 * steps + 4,
+                               "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps},
+                  f"padded launches {launches}")
+            check(tr.graphed.launches_per_replay == {"KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2,
+                                                     "DW_LAUNCHES": 2},
+                  f"padded launches per replay {tr.graphed.launches_per_replay}")
+            _check_files(os.path.join(save, "adversarial", "arrays.npz"))
+            stored = tr.state.g.get_parameter("09_conv_out.weight").shape
+            check(tuple(stored) == (3, 128, 3, 3), f"G's stored output conv is {tuple(stored)}")
+    runs = {}
+    for pad, tr in trainers.items():
+        gen = torch.Generator(device=tr.device).manual_seed(11)
+        pool = tr.source.epoch_pool(gen, tr.pool_n)
+        runs[pad] = (lambda t, p, g: (lambda n: t.run_steps(p, g, n)))(tr, pool, gen)
+    times = {8: [], 0: []}
+    for pad in (8, 0, 0, 8):  # in turns
+        times[pad].append(_step_ms(runs[pad]))
+    for pad, ts in times.items():
+        print(f"boundary pad path (--boundaryPad {pad}, graphed): {statistics.mean(ts):.4f} ms per "
+              f"step on the stream (CUDA events over 30 steps, mean of 2 turns: "
+              f"{', '.join(f'{t:.4f}' for t in ts)}; batch 32, bf16)")
+    for pad in (8, 0):
+        _profile_train_steps(runs[pad], label=f"boundary pad path (--boundaryPad {pad}, graphed)",
+                             top=4)
+
+    dev = torch.device("cuda", 0)
+    pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32, 3).to(dev)
+    states = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with full_fp32():
+            for pad in (8, 0):
+                cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3,
+                                  boundary_pad=pad).validate()
+                state = _train_state(cfg, dev, g_biases=True)
+                runner = GraphedStep(TrainStep(cfg, state.g, state.d), state, pool.shape[0])
+                runner.set_pool(pool)
+                runner.run(torch.Generator(dev).manual_seed(7), 3)
+                states[pad] = state
+            torch.cuda.synchronize()
+            errs, (worst, leaf) = _state_diffs(states[8], states[0])
+            same = all(torch.equal(getattr(states[8], k), getattr(states[0], k))
+                       for k in ("accs_n", "confusion", "trained_d", "not_trained_d"))
+            ok = same and all(v <= BOUNDARY_PAD_TOL for v in errs.values())
+            print(f"boundary pad parity fp32 (TF32 off, cuDNN deterministic), 3 graphed steps "
+                  f"--boundaryPad 8 vs 0 from one state on the same draws, relative l2: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f"; worst leaf {leaf} {worst:.3e} (tolerance {BOUNDARY_PAD_TOL}); counters "
+                  f"{'equal' if same else 'DIFFER'}; {'ok' if ok else 'FAIL'}")
+            check(ok, "the padded GAN step disagrees with the unpadded one")
+
+            faces = draw_synthetic_faces(torch.Generator().manual_seed(6), 256)
+            cpool = make_triples(prepare_pool(faces, 32, 3).to(dev), 16)
+            arrays = {}
+            for pad in (8, 0):  # SGD with momentum, as phase 26 and for its reason
+                ccfg = C2FConfig(compute_dtype="float32", d_optmethod="sgd", g_optmethod="sgd",
+                                 d_sgd_momentum=0.9, g_sgd_momentum=0.9,
+                                 boundary_pad=pad).validate()
+                g, d = c2f.init_c2f(torch.Generator().manual_seed(3), 32, 3, device=dev)
+                cstate, cstep = init_c2f_state(ccfg, g, d), C2FStep(ccfg, g, d)
+                gen = torch.Generator(dev).manual_seed(9)
+                for _ in range(3):
+                    cstep(cstate, cpool, draw_c2f_step(gen, ccfg, 256, cstep.mask_specs))
+                arrays[pad] = [*g.parameters(), *d.parameters(), *cstate.opt_g["trace"],
+                               *cstate.opt_d["trace"]]
+            torch.cuda.synchronize()
+            cerr = _rel_l2(arrays[8], [t.cpu() for t in arrays[0]])
+            print(f"boundary pad parity c2f fp32 (TF32 off, cuDNN deterministic), 3 steps "
+                  f"--boundaryPad 8 vs 0 (SGD, momentum 0.9), relative l2 of the parameters and "
+                  f"the momentum traces {cerr:.3e} (tolerance {BOUNDARY_PAD_TOL}); "
+                  f"{'ok' if cerr <= BOUNDARY_PAD_TOL else 'FAIL'}")
+            check(cerr <= BOUNDARY_PAD_TOL, "the padded c2f step disagrees with the unpadded one")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+    save = os.path.join(tmp, "boundary_pad_c2f")
+    t0 = time.perf_counter()
+    tr = train_c2f.main(["--datasetDir", store, "--save", save, "--epochs", "1",
+                         "--boundaryPad", "8"])
+    torch.cuda.synchronize()
+    check(tr.step.pad.active, "the c2f padder is not on")
+    _check_files(os.path.join(save, "adversarial_c2f_16_to_32", "arrays.npz"))
+    print(f"boundary pad path: train_c2f.main --boundaryPad 8 --epochs 1 took "
+          f"{time.perf_counter() - t0:.3f} s; padder on G's {tr.step.pad.g_convs} and D's "
+          f"{tr.step.pad.d_convs}")
+    return launches
+
+
+def phase_guard_nonfinite():
+    """guard_nonfinite in the graphed GAN step (fp32, TF32 off): every D
+    weight NaN, 3 steps (one eager, the capture, replays): no update lands
+    (D's gate closes and G's update is skipped, on the device), and
+    not_trained_d counts the 3 steps."""
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.data.pipeline import prepare_pool
+    from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.sample import full_fp32
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.train.step import TrainStep
+
+    dev = torch.device("cuda", 0)
+    pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32, 3).to(dev)
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False,
+                      guard_nonfinite=True).validate()
+    with full_fp32():
+        state = _train_state(cfg, dev)
+        with torch.no_grad():
+            for p in state.d.parameters():
+                p.fill_(float("nan"))
+        before = [t.detach().clone() for t in (*state.g.parameters(), *state.opt_g["mu"])]
+        runner = GraphedStep(TrainStep(cfg, state.g, state.d), state, pool.shape[0])
+        runner.set_pool(pool)
+        ms = runner.run(torch.Generator(dev).manual_seed(7), 3)
+        torch.cuda.synchronize()
+    after = [*state.g.parameters(), *state.opt_g["mu"]]
+    unchanged = all(torch.equal(a, b) for a, b in zip(after, before))
+    counts = (int(state.trained_d), int(state.not_trained_d),
+              int(state.opt_g["count"]), int(state.opt_d["count"]))
+    ok = runner.graph is not None and unchanged and counts == (0, 3, 0, 0)
+    print(f"guard_nonfinite path: 3 graphed fp32 steps with every D weight NaN: trained D "
+          f"{counts[0]}, not trained {counts[1]}; Adam's counts (G, D) {counts[2:]}; G's "
+          f"parameters and moments unchanged: {unchanged}; gate {ms.gate_open.tolist()}; "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "guard_nonfinite let a non-finite update land")
 
 
 def phase_gspmd_sampler(tmp: str, store: str):
@@ -3086,6 +3531,8 @@ def main() -> int:
             by_path["training_gspmd_gloo_2x2_one_card"] = phase_gspmd_gloo(tmp, store)
             by_path["c2f_ae_denoiser_gspmd_2x1_one_card"] = phase_gspmd_family(tmp, store)
             by_path["sampler_gspmd_2x2"] = phase_gspmd_sampler(tmp, store)
+            by_path["training_gspmd_gloo_3x1_one_card"] = phase_uneven_mesh(tmp, store)
+            by_path["training_boundary_pad"] = phase_boundary_pad(tmp, store)
             by_path["quality_report"] = phase_quality_report(tmp, store)
             phase_export(tmp)
             by_path["training_traced"] = phase_trace_and_debug(tmp, store, graphed_ms)
@@ -3094,6 +3541,7 @@ def main() -> int:
             phase_c2f_step_parity()
             phase_ae_step_parity()
         phase_graph_parity()
+        phase_guard_nonfinite()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3114,6 +3562,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [DP_WORKER_FLAG]:  # a rank of phase 19
         dp_gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == [UNEVEN_WORKER_FLAG]:  # a rank of phase 28
+        uneven_gloo_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                         sys.argv[6])
         sys.exit(0)
     if sys.argv[1:2] == [GSPMD_WORKER_FLAG]:  # a rank of phase 25 or 26
         gspmd_gloo_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),

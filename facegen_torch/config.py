@@ -33,14 +33,11 @@ def mesh_axes(mesh_shape: Sequence[int]) -> Tuple[int, int, bool]:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Flags of ``th train.lua`` (train.lua:16-50) and facegen's
-    additions. ``trace_dir`` and ``debug_nans`` are config fields with no
-    flag, as in facegen (train/loop.py reads them). Not carried:
-    guard_nonfinite and g_train_in_d_phase, ablations no flag sets (the
-    port always trains G's statistics in the D phase and never skips a
-    non-finite update, as facegen's defaults do).
-    ``validate`` rejects the paths that are not ported. The autoencoder
-    and denoiser trainers read the same flags (their own: coef_l1,
-    coef_l2, ae_clamp)."""
+    additions. ``trace_dir``, ``debug_nans``, ``guard_nonfinite`` and
+    ``g_train_in_d_phase`` are config fields with no flag, as in facegen
+    (train/loop.py and train/step.py read them). The autoencoder and
+    denoiser trainers read the same flags (their own: coef_l1, coef_l2,
+    ae_clamp)."""
 
     batch_size: int = 32          # --batchSize (even, >= 4; train.lua:56-60)
     save: str = "logs"            # --save
@@ -92,7 +89,13 @@ class TrainConfig:
     trace_dir: Optional[str] = None       # torch.profiler trace of epoch 1 (no flag)
     debug_nans: bool = False              # NaN debug mode, eager steps (no flag)
     noise_view: str = "nhwc"              # G's fc -> planes wiring ("nhwc"/"nchw")
-    boundary_pad: int = 0                 # must stay 0: not ported
+    guard_nonfinite: bool = False         # skip any update whose gradients are not
+                                          # finite (no flag)
+    g_train_in_d_phase: bool = True       # G in train mode while it makes D's fakes;
+                                          # False: eval mode (no flag)
+    boundary_pad: int = 0                 # --boundaryPad: widen the G->D image
+                                          # interface to P channels inside the step
+                                          # (train/step.py:make_boundary_padder; 0 = off)
     # the port's own
     gpu: int = 0                          # --gpu: CUDA device index
 
@@ -128,9 +131,6 @@ class TrainConfig:
             raise ValueError(f"compute dtype {self.compute_dtype!r}: bfloat16 or float32")
         if self.noise_view not in ("nhwc", "nchw"):
             raise ValueError(f"unknown noise_view {self.noise_view!r}")
-        if self.boundary_pad > 0:
-            raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
-                             "on the TPU); leave it at 0")
         # 'DP' or 'DP,MP'; train/loop.py:main checks it against the
         # process group when it makes the mesh
         mesh_axes(self.mesh_shape)
@@ -180,7 +180,8 @@ class C2FConfig:
     val_size: int = 500       # VAL_DATA = loadImages(0, 500) (train_c2f.lua:218)
     parzen_samples: int = 200
     mesh_shape: Tuple[int, ...] = (1,)  # 'DP' or 'DP,MP' ranks of a process group
-    boundary_pad: int = 0     # must stay 0: not ported
+    boundary_pad: int = 0     # --boundaryPad: widen the diff/coarse interface inside
+                              # the step (train/c2f.py; 0 = off)
     # the port's own
     gpu: int = 0              # --gpu: CUDA device index
 
@@ -200,9 +201,6 @@ class C2FConfig:
                 raise ValueError(f"unknown {which} optimizer {method!r}")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute dtype {self.compute_dtype!r}: bfloat16 or float32")
-        if self.boundary_pad > 0:
-            raise ValueError("--boundaryPad > 0 is not ported (a no-win experiment "
-                             "on the TPU); leave it at 0")
         mesh_axes(self.mesh_shape)  # checked against the process group by train_c2f.main
         return self
 
@@ -305,7 +303,8 @@ def train_arg_parser() -> argparse.ArgumentParser:
                    help="train N epochs per chunk with one read-back of their results "
                         "(0 = auto: 8 under --noplot, else 1)")
     p.add_argument("--boundaryPad", type=int, default=0, dest="boundary_pad",
-                   help="not ported: must stay 0")
+                   help="widen the G->D image interface to this many channels inside the "
+                        "train step (an exact zero-weight reparameterisation; 0 = off)")
     _add_bool(p, "--modernInit", "disable the reference's gaussian-overwrite init")
     _add_bool(p, "--syntheticData", "use procedural faces (no LFW needed)")
     p.add_argument("--datasetDir", type=str, default=None, dest="dataset_dir")
@@ -313,8 +312,8 @@ def train_arg_parser() -> argparse.ArgumentParser:
 
 
 def train_config_from_args(argv=None) -> TrainConfig:
-    """Parse and validate; flags of paths that are not ported exit with
-    a parser error that says so."""
+    """Parse and validate; a flag value the config refuses exits with a
+    parser error that says why."""
     p = train_arg_parser()
     a = p.parse_args(argv)
     try:
@@ -372,13 +371,14 @@ def c2f_arg_parser() -> argparse.ArgumentParser:
                         "mesh, global-batch semantics; 'N' is 'N,1'); '1' or '-1' without "
                         "one: one device")
     p.add_argument("--boundaryPad", type=int, default=0, dest="boundary_pad",
-                   help="not ported: must stay 0")
+                   help="widen the diff/coarse image interface to this many channels inside "
+                        "the train step (an exact zero-weight reparameterisation; 0 = off)")
     return p
 
 
 def c2f_config_from_args(argv=None) -> C2FConfig:
-    """Parse and validate; flags of paths that are not ported exit with
-    a parser error that says so."""
+    """Parse and validate; a flag value the config refuses exits with a
+    parser error that says why."""
     p = c2f_arg_parser()
     a = p.parse_args(argv)
     try:

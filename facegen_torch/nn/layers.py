@@ -207,40 +207,41 @@ class LeakyReLU(nn.Module):
 class SyncBatchNormFunction(torch.autograd.Function):
     """Training-mode batch norm of fp32 ``x`` (channels last) by the
     statistics of the global batch over a mesh's data group
-    (parallel/gspmd.py:Mesh2D, whose data rows hold equal shares of the
-    batch), in two passes as the single-device ``var`` is: the channels'
-    fp32 sums are all-reduced for mean = S / n, then their sums of squared
-    deviations from that mean for var = SS / n, with n the global count
-    (one pass, SS / n - mean^2, would lose the variance to cancellation
-    when the mean is large against the spread). The backward all-reduces
-    the two channel sums the input's gradient needs, sum(dy) and
-    sum(dy * xhat), and returns this rank's own as the gradients of the
-    bias and the scale: the train step sums those over the data group
-    with the other gradients. Returns (y, mean, var); mean and var are
-    not differentiable."""
+    (parallel/gspmd.py:Mesh2D, whose data rows may hold unequal shares of
+    the batch, or none), in two passes as the single-device ``var`` is:
+    the channels' fp32 sums and this rank's count are all-reduced for mean
+    = S / n, with n the global count, then their sums of squared
+    deviations from that mean for var = SS / n (one pass, SS / n - mean^2,
+    would lose the variance to cancellation when the mean is large against
+    the spread). The backward all-reduces the two channel sums the input's
+    gradient needs, sum(dy) and sum(dy * xhat), and returns this rank's own
+    as the gradients of the bias and the scale: the train step sums those
+    over the data group with the other gradients. An empty local batch
+    adds zeros everywhere. Returns (y, mean, var, n); mean, var and the
+    global count n (a 0-d fp32 tensor) are not differentiable."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, mesh, eps):
         dims, c = tuple(range(x.dim() - 1)), x.shape[-1]
-        n = x.numel() // c * mesh.dp
-        sums = x.sum(dims)
+        sums = torch.cat([x.sum(dims), x.new_full((1,), x.numel() // c)])
         mesh.all_reduce_sum_(sums)
-        mean = sums / n
+        n = sums[c]
+        mean = sums[:c] / n
         centred = x - mean
         squares = (centred * centred).sum(dims)
         mesh.all_reduce_sum_(squares)
         var = squares / n
         inv = torch.rsqrt(var + eps)
         xhat = centred * inv
-        ctx.save_for_backward(xhat, inv, weight)
-        ctx.mesh, ctx.n = mesh, n
-        ctx.mark_non_differentiable(mean, var)
-        return centred * (inv * weight) + bias, mean, var  # as BatchNorm.forward rounds
+        ctx.save_for_backward(xhat, inv, weight, n)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var, n)
+        return centred * (inv * weight) + bias, mean, var, n  # as BatchNorm.forward rounds
 
     @staticmethod
-    def backward(ctx, dy, _mean, _var):
-        xhat, inv, weight = ctx.saved_tensors
-        dims, c, n = tuple(range(dy.dim() - 1)), dy.shape[-1], ctx.n
+    def backward(ctx, dy, _mean, _var, _n):
+        xhat, inv, weight, n = ctx.saved_tensors
+        dims, c = tuple(range(dy.dim() - 1)), dy.shape[-1]
         local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
         total = local.clone()
         ctx.mesh.all_reduce_sum_(total)
@@ -270,18 +271,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, device=device))
         self.mesh = None
 
-    def _move_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor, n) -> None:
+        """``n``: the batch's count, an int or a 0-d tensor (the global
+        count of ``SyncBatchNormFunction``, whose factor n / (n - 1) is
+        formed in fp64 and rounded once, as the int's is)."""
         with torch.no_grad():
             m = self.MOMENTUM
+            if isinstance(n, torch.Tensor):
+                n = n.double()
+                unbiased = (n / (n - 1).clamp(min=1)).float()
+            else:
+                unbiased = n / max(n - 1, 1)
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * (var * (n / max(n - 1, 1))))
+            self.running_var.copy_((1 - m) * self.running_var + m * (var * unbiased))
 
     def forward(self, x):
         xf = x.float()
         if self.training and self.mesh is not None:
-            y, mean, var = SyncBatchNormFunction.apply(xf, self.weight, self.bias, self.mesh,
-                                                       self.eps)
-            self._move_running(mean, var, x.numel() // x.shape[-1] * self.mesh.dp)
+            y, mean, var, n = SyncBatchNormFunction.apply(xf, self.weight, self.bias,
+                                                          self.mesh, self.eps)
+            self._move_running(mean, var, n)
             return y.to(x.dtype)
         if self.training:
             dims = tuple(range(x.dim() - 1))
@@ -386,10 +395,11 @@ class MaxPool(nn.Module):
 
 
 class Flatten(nn.Module):
-    """(N, H, W, C) -> (N, H*W*C) in NHWC order, as facegen flattens."""
+    """(N, H, W, C) -> (N, H*W*C) in NHWC order, as facegen flattens (N may
+    be 0: a data row of a 2-D mesh that holds none of a batch's rows)."""
 
     def forward(self, x):
-        return x.reshape(x.shape[0], -1)
+        return x.reshape(x.shape[0], math.prod(x.shape[1:]))
 
 
 class Reshape(nn.Module):

@@ -164,7 +164,7 @@ def upsample_conv_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tenso
     """
     n, h, w, cin = x.shape
     acc = _acc_dtype(x.dtype)
-    dyc = space_to_depth(dy).reshape(n * h * w, -1).to(acc)
+    dyc = space_to_depth(dy).reshape(n * h * w, 4 * dy.shape[-1]).to(acc)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1)).to(acc)
     taps = [xp[:, u:u + h, v:v + w, :].reshape(n * h * w, cin).T @ dyc
             for u in range(3) for v in range(3)]

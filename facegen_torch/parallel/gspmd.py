@@ -16,12 +16,15 @@ and writes the collectives itself:
   shards of one leaf.
 - **The step** (train/step.py, train/c2f.py, train/ae_loop.py): every rank
   draws the global batch's draws from the one epoch generator, with no
-  rank folded in, and data row i takes rows ``[i B/dp, (i+1) B/dp)`` of
-  every batch-shaped draw (``Mesh2D.rows``; a D batch of real and fake
-  halves takes those rows of each half, ``Mesh2D.pair_rows``). The loss
-  is the local mean over dp, so the data group's SUM of the gradients is
-  the global batch's; batch norm in training mode normalises by the
-  statistics of the global batch (``nn/layers.py:SyncBatchNormFunction``).
+  rank folded in, and data row i takes rows ``[i c, min((i+1) c, B))``,
+  c = ceil(B / dp), of every batch-shaped draw, as GSPMD pads an uneven
+  sharding (``row_block``, ``Mesh2D.rows``; a D batch of real and fake
+  halves takes those rows of each half, ``Mesh2D.pair_rows``). The last
+  rows may be short or empty. A rank's share of a batch mean is the sum
+  over its rows over B (zero on an empty row), so the data group's SUM of
+  the gradients is the global batch's; batch norm in training mode
+  normalises by the statistics of the global batch, over the global count
+  (``nn/layers.py:SyncBatchNormFunction``).
   Each rank keeps the whole epoch pool, so the batch indices range over
   the true pool size, as facegen's ``draw_n`` does.
 - **The state**: a leaf the rule shards (``leaf_spec``) is held by each
@@ -55,6 +58,23 @@ from facegen_torch.config import mesh_axes
 from facegen_torch.parallel.multihost import rank_device
 
 MIN_SHARD = 64  # facegen's min_shard: smaller dims stay replicated
+
+
+def row_block(n: int, dp: int, i: int) -> Tuple[int, int]:
+    """(start, stop) of data row i's rows of a batch of ``n`` over ``dp``
+    data rows: blocks of c = ceil(n / dp) rows in order, as GSPMD pads an
+    uneven sharding, so the last blocks may be short or empty."""
+    c = -(-n // dp)
+    start = min(i * c, n)
+    return start, min(start + c, n)
+
+
+def global_rows(mesh, batch: int) -> Optional[int]:
+    """The count a step divides its loss sums by on ``mesh``: on a 2-D
+    mesh of several data rows ``batch``, so that a rank's loss is its
+    rows' share of the global batch's mean and the data group's SUM is
+    that mean; None (a plain mean) on one data row or none."""
+    return batch if isinstance(mesh, Mesh2D) and mesh.dp > 1 else None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -101,12 +121,17 @@ class Mesh2D:
         column order."""
         dist.all_gather(list(out.chunk(self.mp)), t, group=self.model_group)
 
+    def row_count(self, n: int) -> int:
+        """How many of a batch's ``n`` rows this data row holds."""
+        start, stop = row_block(n, self.dp, self.i)
+        return stop - start
+
     def rows(self, t: torch.Tensor) -> torch.Tensor:
-        """This data row's block of a batch-shaped tensor's rows."""
+        """This data row's block of a batch-shaped tensor's rows (``row_block``)."""
         if self.dp == 1:
             return t
-        n = t.shape[0] // self.dp
-        return t[self.i * n:(self.i + 1) * n]
+        start, stop = row_block(t.shape[0], self.dp, self.i)
+        return t[start:stop]
 
     def pair_rows(self, t: torch.Tensor) -> torch.Tensor:
         """This data row's rows of a batch that is two halves (D's real and

@@ -25,8 +25,9 @@ draws fresh batches.
 On a 2-D mesh (parallel/gspmd.py; facegen's ``gspmd_jit`` of the epochs,
 ae_loop.py:102-105, 142-167, 285-288, 332-360) both trainers run the
 single-device program on the global batch: every rank draws the epoch's
-draws and computes its data row's rows of each batch (the white noise
-and the masks too), the losses are local means over the data rows, one
+draws and computes its data row's block of each batch (the white noise
+and the masks too; the last blocks short or empty, as GSPMD pads), a
+rank's loss is the sum over its rows over the global batch's count, one
 SUM all-reduce per update over the data group makes the gradients and
 the loss global, the denoiser's batch norms take the global batch's
 statistics, and the updates run on this rank's shards of the decoders'
@@ -53,6 +54,7 @@ from facegen_torch.nn.init import gaussian_overwrite, seeded_generator
 from facegen_torch.parallel.gspmd import (
     ShardedParams,
     flat_all_reduce,
+    global_rows,
     set_batch_norm_mesh,
     shard_params,
 )
@@ -73,14 +75,15 @@ def shuffled_batches(perm: torch.Tensor, batch: int) -> torch.Tensor:
     return perm[: n * batch].reshape(n, batch)
 
 
-def bce(y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def bce(y: torch.Tensor, t: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     """Mean BCE of probabilities in fp32, ``y`` clipped to [1e-7, 1 - 1e-7]
     (facegen/train/ae_loop.py:201-205; not F.binary_cross_entropy, which
-    clamps its logs at -100 instead)."""
+    clamps its logs at -100 instead); with ``rows``, as
+    ``losses.batch_mean``."""
     eps = 1e-7
     y = y.float().clamp(eps, 1 - eps)
     t = t.float()
-    return -(t * torch.log(y) + (1 - t) * torch.log1p(-y)).mean()
+    return losses.batch_mean(-(t * torch.log(y) + (1 - t) * torch.log1p(-y)), rows)
 
 
 def pool_size(cfg: TrainConfig, mesh=None) -> int:
@@ -133,14 +136,13 @@ def denoiser_epoch_draws(generator: torch.Generator, batch: int, img_shape, n_po
 
 class _MeshStep:
     """What the AE and denoiser steps share on a 2-D mesh: this data row's
-    rows of a batch-shaped draw, a local mean as its share of the global
-    one, and the flat all-reduce of an update's gradients and loss."""
+    rows of a batch-shaped draw, the global batch's count that makes a sum
+    over them its share of the global mean (``global_rows``), and the flat
+    all-reduce of an update's gradients and loss."""
 
     def __init__(self, cfg: TrainConfig, mesh):
-        if mesh is not None and cfg.batch_size % mesh.dp:
-            raise ValueError(f"batch {cfg.batch_size} does not split over {mesh.dp} data rows")
         self.cfg, self.mesh = cfg, mesh
-        self.scale = 1.0 / mesh.dp if mesh is not None and mesh.dp > 1 else None
+        self.global_rows = global_rows(mesh, cfg.batch_size)
         self._flat: Dict[str, torch.Tensor] = {}
 
     def _rows(self, t):
@@ -149,9 +151,6 @@ class _MeshStep:
         if isinstance(t, dict):
             return {k: self.mesh.rows(v) for k, v in t.items()}
         return self.mesh.rows(t)
-
-    def _local(self, loss: torch.Tensor) -> torch.Tensor:
-        return loss if self.scale is None else loss * self.scale
 
     def _grads(self, key: str, loss: torch.Tensor, params) -> tuple:
         """(the global batch's gradients, its loss): the loss a local share."""
@@ -188,7 +187,8 @@ class AEStep(_MeshStep):
         model.train()
         dropout.set_dropout_masks(model, self._rows(draws.masks))
         params = list(model.parameters())
-        grads, loss = self._grads("ae", self._local((model(x) - x).abs().mean()), params)
+        grads, loss = self._grads("ae", losses.batch_mean((model(x) - x).abs(), self.global_rows),
+                                  params)
         # the L1/L2 penalty on every parameter, biases included, in the loss
         # and the gradients, and no clamp (train_autoencoder.lua:196-204)
         loss = loss + losses.penalty_loss(params, cfg.coef_l1, cfg.coef_l2)
@@ -219,10 +219,11 @@ class DenoiserStep(_MeshStep):
 
     def _train(self, st: DenoiserState, key: str, loss: torch.Tensor, dec: nn.Module,
                opt: dict) -> torch.Tensor:
-        """One decoder's update; returns the global batch's loss."""
+        """One decoder's update on ``loss`` (this rank's share on a mesh);
+        returns the global batch's loss."""
         cfg = self.cfg
         params = list(dec.parameters())
-        grads, loss = self._grads(key, self._local(loss), params)
+        grads, loss = self._grads(key, loss, params)
         # the penalty feeds the gradient only: the reported loss stays the
         # bare BCE (train_denoiser.lua:272, 311); then the clamp (:289-291)
         grads = losses.add_penalty_grads(grads, params, cfg.coef_l1, cfg.coef_l2)
@@ -238,14 +239,15 @@ class DenoiserStep(_MeshStep):
             m.train()
         ae.set_white_noise(st.enc, rows(draws.noise))
         dropout.set_dropout_masks(st.dec1, rows(draws.masks))
-        l1 = self._train(st, "dec1", bce(st.dec1(st.enc(x)), x), st.dec1, st.opt1)
+        l1 = self._train(st, "dec1", bce(st.dec1(st.enc(x)), x, self.global_rows), st.dec1,
+                         st.opt1)
         # AE1 again after its update (train_denoiser.lua:313-315, 335-336)
         with torch.no_grad():
             ae.set_white_noise(st.enc, rows(draws.noise_again))
             dropout.set_dropout_masks(st.dec1, rows(draws.masks_again))
             y1 = st.dec1(st.enc(x))
         dropout.set_dropout_masks(st.dec2, rows(draws.masks2))
-        l2 = self._train(st, "dec2", bce(st.dec2(y1), x), st.dec2, st.opt2)
+        l2 = self._train(st, "dec2", bce(st.dec2(y1), x, self.global_rows), st.dec2, st.opt2)
         return torch.stack([l1, l2])
 
 

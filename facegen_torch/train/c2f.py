@@ -22,11 +22,19 @@ masks; per G iteration the conditions' rows, the noise and D's masks.
 On a 2-D mesh (parallel/gspmd.py; facegen's ``make_gspmd_c2f_epoch``,
 c2f.py:278-291) the trainer runs the single-device program on the global
 batch, as the GAN's step does there (train/step.py): every rank draws
-the global batch's draws and computes its data row's rows of them, the
-losses and the accuracy are local means over the data rows, one SUM
-all-reduce per iteration over the data group makes the gradients, the
-loss, the accuracy and the confusion counts global, and the update runs
-on this rank's shards (``C2FState.shards``). Rank 0 writes the grids,
+the global batch's draws and computes its data row's block of them
+(short or empty on the last rows), a rank's losses and accuracy are the
+sums over its rows over the global batch, one SUM all-reduce per
+iteration over the data group makes the gradients, the loss, the
+accuracy and the confusion counts global, and the update runs on this
+rank's shards (``C2FState.shards``).
+
+``--boundaryPad P`` widens the diff/coarse interface to P channels inside
+the step (facegen/train/c2f.py:113-128; train/step.py:BoundaryPadder):
+G_d's 7x7 output conv gains zero output channels (its pad diffs come out
+exactly 0), the real diffs and D's coarse conditions gain zero channels,
+and D_c's first conv zero input channels; G's own (noise, coarse) inputs
+stay unpadded. Rank 0 writes the grids,
 the metrics and the checkpoints; every rank computes approxParzen and
 takes rank 0's mean, so all choose alike whether to save ``_best``.
 """
@@ -49,11 +57,11 @@ from facegen_torch.data.pipeline import make_source
 from facegen_torch.models import c2f as c2f_models
 from facegen_torch.nn import dropout
 from facegen_torch.nn.init import seeded_generator
-from facegen_torch.parallel.gspmd import flat_all_reduce, shard_params
+from facegen_torch.parallel.gspmd import flat_all_reduce, global_rows, shard_params
 from facegen_torch.parallel.mesh import replicate
 from facegen_torch.train import losses, metrics as M
 from facegen_torch.train.optim import gated_update, make_c2f_optimizer
-from facegen_torch.train.step import steps_per_epoch
+from facegen_torch.train.step import make_boundary_padder, steps_per_epoch
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_png, to_grid
 from facegen_torch.utils.profiling import MetricsLogger
@@ -143,11 +151,9 @@ class C2FStep:
     whole pool on a 2-D ``mesh``)."""
 
     def __init__(self, cfg: C2FConfig, g: nn.Module, d: nn.Module, mesh=None):
-        if mesh is not None and cfg.batch_size % (2 * mesh.dp):
-            raise ValueError(f"batch {cfg.batch_size} does not split into half real and half "
-                             f"fake images on each of {mesh.dp} data rows")
         self.cfg, self.mesh = cfg, mesh
-        self.scale = 1.0 / mesh.dp if mesh is not None and mesh.dp > 1 else None
+        self.global_rows = global_rows(mesh, cfg.batch_size)
+        self.pad = make_boundary_padder(cfg, g, d)
         self.tx_d = make_c2f_optimizer(cfg.d_optmethod, cfg, "D")
         self.tx_g = make_c2f_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
@@ -155,9 +161,6 @@ class C2FStep:
         self.mask_specs = dropout.dropout_mask_specs(
             d, cfg.batch_size, (cfg.img_shape, cfg.img_shape), device)
         self._flat: Dict[str, torch.Tensor] = {}
-
-    def _local(self, t: torch.Tensor) -> torch.Tensor:
-        return t if self.scale is None else t * self.scale
 
     def _update(self, state: C2FState, net: str, tx, grads, params) -> None:
         opt = state.opt_g if net == "g" else state.opt_d
@@ -167,7 +170,7 @@ class C2FStep:
             gated_update(tx, grads, opt, params, True)  # no gate
 
     def d_iteration(self, state: C2FState, pool: C2FPool, draws: C2FDDraws):
-        cfg, g, d, mesh = self.cfg, state.g, state.d, self.mesh
+        cfg, g, d, mesh, pad = self.cfg, state.g, state.d, self.mesh, self.pad
         params = list(d.parameters())
         idx_real, idx_fake, noise, masks = draws.idx_real, draws.idx_fake, draws.noise, draws.masks
         if mesh is not None:  # this data row's rows of the global batch
@@ -178,18 +181,18 @@ class C2FStep:
         _, cond_fake, _ = gather_triple(pool, idx_fake, self.dtype)
         g.train()
         with torch.no_grad():  # the fakes are detached
-            diff_fake = g((noise.to(self.dtype), cond_fake))
-        diffs = torch.cat([diff_real, diff_fake])
-        conds = torch.cat([cond_real, cond_fake])
+            diff_fake = pad.g(g, (noise.to(self.dtype), cond_fake))
+        diffs = torch.cat([pad.images(diff_real), diff_fake])
+        conds = pad.images(torch.cat([cond_real, cond_fake]))
         ones = torch.ones(half, device=diffs.device)
         targets = torch.cat([ones, torch.zeros_like(ones)])
         d.train()
         dropout.set_dropout_masks(d, masks)
-        logits = d((diffs, conds))
-        loss = self._local(losses.bce_with_logits(logits, targets))
+        logits = pad.d(d, (diffs, conds))
+        loss = losses.bce_with_logits(logits, targets, self.global_rows)
         grads = torch.autograd.grad(loss, params)
         logits = logits.detach()
-        acc = self._local(losses.batch_accuracy(logits, targets))
+        acc = losses.batch_accuracy(logits, targets, self.global_rows)
         counts = M.update_confusion(M.empty_confusion(logits.device), logits, targets)
         loss = loss.detach()
         if mesh is not None:
@@ -205,7 +208,7 @@ class C2FStep:
         return loss, acc
 
     def g_iteration(self, state: C2FState, pool: C2FPool, draws: C2FGDraws):
-        cfg, g, d, mesh = self.cfg, state.g, state.d, self.mesh
+        cfg, g, d, mesh, pad = self.cfg, state.g, state.d, self.mesh, self.pad
         params = list(g.parameters())
         idx, noise, masks = draws.idx, draws.noise, draws.masks
         if mesh is not None:
@@ -215,10 +218,10 @@ class C2FStep:
         g.train()
         d.train()
         dropout.set_dropout_masks(d, masks)
-        diff = g((noise.to(self.dtype), conds))
-        logits = d((diff, conds))  # D's parameters as the D phase left them
-        loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device))
-        loss = self._local(loss)
+        diff = pad.g(g, (noise.to(self.dtype), conds))
+        logits = pad.d(d, (diff, pad.images(conds)))  # D's parameters as the D phase left them
+        loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device),
+                                      self.global_rows)
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if mesh is not None:

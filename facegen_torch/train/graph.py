@@ -64,6 +64,7 @@ to replay raises: nothing falls back to eager steps.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Optional
 
@@ -171,11 +172,24 @@ class GraphedStep:
     def _capture(self) -> None:
         before = {name: getattr(uc, name) for name in _COUNTERS}
         graph = torch.cuda.CUDAGraph()
+        # A trainer that became garbage holds its graph in a reference cycle
+        # (the trainer, its GraphedStep, the bound log method). A collection
+        # during the capture would destroy that graph there, which CUDA
+        # forbids and which spoils the capture, and torch's capture no longer
+        # collects first: collect here, and hold collections off until the
+        # capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            # read after the context's empty_cache(), before anything is captured
-            reserved = torch.cuda.memory_reserved(self.device)
-            metrics = torch.stack(self.step(self.state, self.pool, self.draws))
+        try:
+            with torch.cuda.graph(graph):
+                # read after the context's empty_cache(), before anything is captured
+                reserved = torch.cuda.memory_reserved(self.device)
+                metrics = torch.stack(self.step(self.state, self.pool, self.draws))
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(self.device)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_mib = (torch.cuda.memory_reserved(self.device) - reserved) / 2**20

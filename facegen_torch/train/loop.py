@@ -362,7 +362,8 @@ def main(argv=None, device=None) -> Trainer:
     r on ``cuda:(r % device_count)``: --meshShape N (or -1) data parallel
     on local batches, 'DP,MP' (or 'DP,1') on the 2-D mesh with the
     single-device program's results, as facegen routes them
-    (facegen/train/loop.py:507-519). --boundaryPad > 0 is refused.
+    (facegen/train/loop.py:507-519). --boundaryPad P widens the G -> D
+    image interface inside the step (train/step.py:make_boundary_padder).
     ``device`` lets the tests run it on the CPU (gloo between ranks); the
     command line has no such flag."""
     from facegen_torch.config import cli_device, train_arg_parser, train_config_from_args

@@ -8,18 +8,31 @@ of tensors in the same order.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import math
+from typing import List, Optional, Sequence
 
 import torch
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def batch_mean(per: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """The mean of a batch's elementwise ``per`` (rows first), or with
+    ``rows`` its sum over the elements of that many rows: on a 2-D mesh
+    (parallel/gspmd.py) a data row's share of the mean over the global
+    batch's ``rows``, 0 for a data row that holds none."""
+    if rows is None:
+        return per.mean()
+    return per.sum() / (rows * math.prod(per.shape[1:]))
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    rows: Optional[int] = None) -> torch.Tensor:
     """Mean binary cross-entropy of sigmoid(logits), in fp32, in the stable
-    form max(l, 0) - l*t + log1p(exp(-|l|))."""
+    form max(l, 0) - l*t + log1p(exp(-|l|)); with ``rows``, as
+    ``batch_mean``."""
     logits = logits.float().reshape(-1)
     targets = targets.float().reshape(-1)
     per = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
-    return per.mean()
+    return batch_mean(per, rows)
 
 
 def penalty_loss(params: Sequence[torch.Tensor], l1: float, l2: float) -> torch.Tensor:
@@ -53,8 +66,17 @@ def clamp_grads(grads: Sequence[torch.Tensor], clamp: float) -> List[torch.Tenso
     return [g.clamp(-clamp, clamp) for g in grads]
 
 
-def batch_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def batch_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                   rows: Optional[int] = None) -> torch.Tensor:
     """Fraction of the batch classified right at sigmoid > 0.5, i.e.
-    logit > 0 (adversarial.lua:126-127); a 0-d fp32 tensor."""
+    logit > 0 (adversarial.lua:126-127); a 0-d fp32 tensor. With
+    ``rows``, as ``batch_mean``."""
     pred = (logits.reshape(-1) > 0).float()
-    return (pred == targets.reshape(-1).float()).float().mean()
+    return batch_mean((pred == targets.reshape(-1).float()).float(), rows)
+
+
+def all_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A 0-d bool tensor: whether every entry of ``grads`` is finite, from
+    one max-abs reduction over all of them on the device (NaN and inf
+    propagate through it; nothing is read back to the host)."""
+    return torch.isfinite(torch.nn.utils.get_total_norm(grads, float("inf")))

@@ -38,29 +38,39 @@ of the gate, so the replicas stay bit-equal.
 On a 2-D mesh (parallel/gspmd.py:Mesh2D) the step is facegen's
 single-device step on the global batch (facegen/parallel/gspmd.py:
 make_gspmd_step): the draws are the global batch's, drawn alike on every
-rank (``draw_batch``), and data row i computes its rows of them
-(``Mesh2D.rows``, ``pair_rows``); G's batch norms take the global batch's
-statistics; the losses and the accuracy are local means over the number
-of data rows, and one SUM all-reduce over the data group per iteration
-makes the gradients, the loss, the accuracy and the confusion counts the
-global batch's. The penalty and the clamp follow, once, as on one device,
-and the update runs on this rank's shards of the state (``GanState.shards``),
-which are then gathered into the nets' weights.
+rank (``draw_batch``), and data row i computes its block of them
+(``Mesh2D.rows``, ``pair_rows``: ceil(B / dp) rows, the last blocks short
+or empty, as GSPMD pads); G's batch norms take the global batch's
+statistics; a rank's losses and accuracy are the sums over its rows over
+the global batch (``global_rows``; zeros on an empty row), and one SUM
+all-reduce over the data group per iteration makes the gradients, the
+loss, the accuracy and the confusion counts the global batch's. The
+penalty and the clamp follow, once, as on one device, and the update runs
+on this rank's shards of the state (``GanState.shards``), which are then
+gathered into the nets' weights.
+
+facegen's options with no flag: ``guard_nonfinite`` closes D's gate, and
+skips G's update, when any gradient of the iteration is not finite
+(``losses.all_finite``, on the device); ``g_train_in_d_phase = False``
+makes D's fakes with G in eval mode, so the D phase moves none of G's
+batch-norm statistics. ``--boundaryPad P`` widens the G -> D image
+interface to P channels inside the step (``make_boundary_padder``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from facegen_torch.config import TrainConfig
 from facegen_torch.nn import dropout
 from facegen_torch.parallel.gspmd import (
-    Mesh2D, flat_all_reduce, set_batch_norm_mesh, shard_params)
+    Mesh2D, flat_all_reduce, global_rows, set_batch_norm_mesh, shard_params)
 from facegen_torch.train import losses, metrics
 from facegen_torch.train.optim import _state_tensors, gated_update, make_optimizer
 
@@ -234,6 +244,89 @@ def summaries_to_host(summaries) -> list:
     return out
 
 
+def _boundary_convs(module: nn.Module, dim: int, channels: int) -> List[str]:
+    """Names of ``module``'s convs whose 4-D weight has ``channels``
+    entries on ``dim`` (0 = output channels, 1 = input channels), in
+    module order: facegen's ``_pad_conv_layers`` (facegen/train/step.py:
+    117-158) on the port's OIHW layout."""
+    weights = ((name, getattr(m, "weight", None)) for name, m in module.named_modules())
+    return [name for name, w in weights
+            if isinstance(w, torch.Tensor) and w.dim() == 4 and w.shape[dim] == channels]
+
+
+class BoundaryPadder:
+    """facegen's boundary widening (``make_boundary_padder``,
+    facegen/train/step.py:161-206): G's output conv gains ``pad`` zero
+    output channels (its bias too), so its pad lanes come out as
+    sigmoid(0) = 0.5 (or exactly 0 for the c2f's diff); real images gain
+    ``pad`` zero channels; D's first conv gains ``pad`` zero input
+    channels. Every logit, loss, gradient and statistic is the unpadded
+    one's: zero weights times anything add nothing.
+
+    The padded weights are views made inside the step from the live
+    parameters (``F.pad``) and fed to the nets through
+    ``torch.func.functional_call``, never cached: autograd slices the
+    pad's gradient away, and the stored parameters, the optimizer's
+    moments, the penalties and the checkpoints stay unpadded. With
+    ``pad`` 0 it is the identity."""
+
+    def __init__(self, pad: int = 0, g_convs: Sequence[str] = (), d_convs: Sequence[str] = ()):
+        self.pad, self.g_convs, self.d_convs = pad, tuple(g_convs), tuple(d_convs)
+
+    @property
+    def active(self) -> bool:
+        return self.pad > 0
+
+    def _weights(self, module: nn.Module, names: Sequence[str], dim: int) -> dict:
+        out = {}
+        for name in names:
+            m = module.get_submodule(name)
+            if dim == 0:
+                out[f"{name}.weight"] = F.pad(m.weight, (0, 0, 0, 0, 0, 0, 0, self.pad))
+                out[f"{name}.bias"] = F.pad(m.bias, (0, self.pad))
+            else:
+                out[f"{name}.weight"] = F.pad(m.weight, (0, 0, 0, 0, 0, self.pad))
+        return out
+
+    def g(self, g: nn.Module, x):
+        """G's forward, with its output conv padded."""
+        if not self.active:
+            return g(x)
+        return torch.func.functional_call(g, self._weights(g, self.g_convs, 0), (x,))
+
+    def d(self, d: nn.Module, x):
+        """D's forward, with its image convs' input channels padded."""
+        if not self.active:
+            return d(x)
+        return torch.func.functional_call(d, self._weights(d, self.d_convs, 1), (x,))
+
+    def images(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images with ``pad`` zero channels appended."""
+        return F.pad(x, (0, self.pad)) if self.active else x
+
+
+def make_boundary_padder(cfg, g: nn.Module, d: nn.Module) -> BoundaryPadder:
+    """The padder of ``cfg.boundary_pad`` = P for the nets ``g`` and ``d``
+    (a TrainConfig, or a C2FConfig, whose images are its fine size). It
+    pads P - C
+    channels when P > C and both nets expose a pure conv image boundary,
+    as facegen's ``_boundary`` decides (facegen/train/step.py:250-267):
+    exactly one G conv with C output channels, at least one D conv with
+    C input channels, and no D dense layer that takes the flattened raw
+    image (D16_d's dense branch). Otherwise it is the identity: the flat
+    G, D16_d and P <= C train as P = 0 does."""
+    channels, scale = cfg.channels, cfg.img_shape[0]
+    pad = cfg.boundary_pad - channels
+    if cfg.boundary_pad <= 0 or pad <= 0:
+        return BoundaryPadder()
+    g_convs, d_convs = _boundary_convs(g, 0, channels), _boundary_convs(d, 1, channels)
+    flat = scale * scale * channels
+    flattens = any(p.dim() == 2 and p.shape[1] == flat for p in d.parameters())
+    if len(g_convs) != 1 or not d_convs or flattens:
+        return BoundaryPadder()
+    return BoundaryPadder(pad, g_convs, d_convs)
+
+
 class TrainStep:
     """``step(state, pool, draws) -> StepMetrics``, updating ``state`` in
     place. ``pool`` is the epoch's (P, H, W, C) uint8 images on the
@@ -242,17 +335,21 @@ class TrainStep:
 
     def __init__(self, cfg: TrainConfig, g: nn.Module, d: nn.Module, mesh=None):
         self.exact = isinstance(mesh, Mesh2D)  # the global batch, else local batches
-        n = 1 if mesh is None else (mesh.dp if self.exact else mesh.size)
-        if cfg.batch_size % (2 * n):  # facegen/train/step.py:235-237
+        if not self.exact and mesh is not None and cfg.batch_size % (2 * mesh.size):
+            # facegen's shard_map path asserts the same (facegen/train/step.py:235-237)
             raise ValueError(f"batch {cfg.batch_size} does not split into half real and half "
-                             f"fake images on each of {n} ranks")
+                             f"fake images on each of {mesh.size} ranks")
         self.cfg, self.mesh = cfg, mesh
-        self.batch = cfg.batch_size // n  # the batch this rank computes
-        self.draw_batch = cfg.batch_size if self.exact else self.batch  # the draws' batch
-        self.scale = 1.0 / n if self.exact and n > 1 else None  # local mean -> global
+        n = mesh.size if mesh is not None and not self.exact else 1
+        self.draw_batch = cfg.batch_size // n  # the draws' batch: the global one on a 2-D mesh
+        # the rows of a G batch this rank computes (its D batch: its rows of each half)
+        self.batch = mesh.row_count(cfg.batch_size) if self.exact else self.draw_batch
+        # D's halves together and G's batch both have cfg.batch_size rows
+        self.global_rows = global_rows(mesh, cfg.batch_size)
         self.tx_d = make_optimizer(cfg.d_optmethod, cfg, "D")
         self.tx_g = make_optimizer(cfg.g_optmethod, cfg, "G")
         self.dtype = getattr(torch, cfg.compute_dtype)
+        self.pad = make_boundary_padder(cfg, g, d)
         device = next(d.parameters()).device
         self.mask_specs = dropout.dropout_mask_specs(d, self.draw_batch, cfg.img_shape, device)
         if self.exact:
@@ -266,8 +363,8 @@ class TrainStep:
         over the mesh, and sum ``sums``, in one SUM all-reduce of the
         iteration's flat fp32 buffer. Returns the reduced ``means`` and
         ``sums``, fp32 views of the buffer. On a 2-D mesh the statistics
-        are already the global batch's and ``means`` come scaled by
-        ``self.scale``: all is summed over the data group."""
+        are already the global batch's and ``means`` come as this rank's
+        shares of the global means: all is summed over the data group."""
         stats = [] if self.exact else [b for net in (state.g, state.d) for b in net.buffers()]
         out = flat_all_reduce(self.mesh, self._flat, key, stats + means + list(sums))
         if not self.exact:
@@ -277,10 +374,6 @@ class TrainStep:
                 b.copy_(r)
         return out[len(stats):]
 
-    def _local(self, t: torch.Tensor) -> torch.Tensor:
-        """A local mean as its share of the global batch's mean."""
-        return t if self.scale is None else t * self.scale
-
     def _update(self, state: GanState, net: str, tx, grads, params, do_update) -> None:
         opt = state.opt_g if net == "g" else state.opt_d
         if state.shards is not None:
@@ -289,27 +382,29 @@ class TrainStep:
             gated_update(tx, grads, opt, params, do_update)
 
     def d_iteration(self, state: GanState, pool: torch.Tensor, draws: DDraws):
-        cfg, g, d = self.cfg, state.g, state.d
-        half = self.batch // 2
+        cfg, g, d, pad = self.cfg, state.g, state.d, self.pad
         params = list(d.parameters())
         idx, noise, masks = draws.idx, draws.noise, draws.masks
         if self.exact:  # this data row's rows of the global batch
             rows, pair = self.mesh.rows, self.mesh.pair_rows
             idx, noise, masks = rows(idx), rows(noise), {k: pair(m) for k, m in masks.items()}
-        real = pool[idx].to(self.dtype) / 255.0
-        g.train()
-        with torch.no_grad():  # BN statistics move (adversarial.lua:252); fakes detached
-            fake = g(noise.to(self.dtype))
+        half = idx.shape[0]
+        real = pad.images(pool[idx].to(self.dtype) / 255.0)
+        # G moves its batch-norm statistics (adversarial.lua:252) unless
+        # g_train_in_d_phase is off; the fakes are detached
+        g.train(cfg.g_train_in_d_phase)
+        with torch.no_grad():
+            fake = pad.g(g, noise.to(self.dtype))
         inputs = torch.cat([real, fake])
         ones = torch.ones(half, device=real.device)
         targets = torch.cat([ones, torch.zeros_like(ones)])
         d.train()
         dropout.set_dropout_masks(d, masks)
-        logits = d(inputs)
-        loss = self._local(losses.bce_with_logits(logits, targets))
+        logits = pad.d(d, inputs)
+        loss = losses.bce_with_logits(logits, targets, self.global_rows)
         grads = torch.autograd.grad(loss, params)
         loss, logits = loss.detach(), logits.detach()
-        acc = self._local(losses.batch_accuracy(logits, targets))
+        acc = losses.batch_accuracy(logits, targets, self.global_rows)
         counts = metrics.update_confusion(metrics.empty_confusion(logits.device), logits, targets)
         if self.mesh is not None:  # facegen/train/step.py:296-310
             *grads, loss, acc, counts = self._reduce("d", state, [*grads, loss, acc], (counts,))
@@ -325,6 +420,8 @@ class TrainStep:
         state.accs_n += 1
         acc_avg = state.accs.sum() / torch.clamp(state.accs_n, max=k_ring).float()
         do_train = acc_avg < cfg.d_max_acc
+        if cfg.guard_nonfinite:  # facegen/train/step.py:319-323
+            do_train = do_train & losses.all_finite(grads)
         self._update(state, "d", self.tx_d, grads, params, do_train)
         state.confusion += counts
         state.trained_d += do_train.int()
@@ -332,7 +429,7 @@ class TrainStep:
         return loss, acc, do_train
 
     def g_iteration(self, state: GanState, draws: GDraws):
-        cfg, g, d = self.cfg, state.g, state.d
+        cfg, g, d, pad = self.cfg, state.g, state.d, self.pad
         params = list(g.parameters())
         noise, masks = draws.noise, draws.masks
         if self.exact:
@@ -340,10 +437,10 @@ class TrainStep:
         g.train()
         d.train()
         dropout.set_dropout_masks(d, masks)
-        imgs = g(noise.to(self.dtype))
-        logits = d(imgs)  # D's parameters as the D phase left them
-        loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device))
-        loss = self._local(loss)
+        imgs = pad.g(g, noise.to(self.dtype))
+        logits = pad.d(d, imgs)  # D's parameters as the D phase left them
+        loss = losses.bce_with_logits(logits, torch.ones(logits.shape[0], device=logits.device),
+                                      self.global_rows)
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if self.mesh is not None:  # facegen/train/step.py:358-361
@@ -353,7 +450,9 @@ class TrainStep:
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
         grads = losses.add_penalty_grads(grads, params, sign_coef, cfg.g_l2)
         grads = losses.clamp_grads(grads, cfg.g_clamp)
-        self._update(state, "g", self.tx_g, grads, params, True)
+        # facegen/train/step.py:369-372
+        do_update = losses.all_finite(grads) if cfg.guard_nonfinite else True
+        self._update(state, "g", self.tx_g, grads, params, do_update)
         return loss
 
     def __call__(self, state: GanState, pool: torch.Tensor, draws: StepDraws) -> StepMetrics:

@@ -9,7 +9,8 @@ without a GPU. Launched as processes of a group (parallel/multihost.py)
 it trains on the 2-D mesh of --meshShape 'N' (N x 1) or 'DP,MP', the
 single-device program on the global batch, as facegen's C2FTrainer
 always runs on its GSPMD mesh (facegen/train/c2f.py:278-291).
---boundaryPad > 0 is refused. ``main(argv, device="cpu")`` is the
+--boundaryPad P widens the diff/coarse interface inside the step
+(train/c2f.py). ``main(argv, device="cpu")`` is the
 tests' path; the command line has no such flag.
 """
 

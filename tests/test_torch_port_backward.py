@@ -105,6 +105,23 @@ def test_function_passes_gradcheck_in_fp64():
     assert torch.autograd.gradcheck(uc.UpsampleConvFunction.apply, (x, wc, b))
 
 
+@pytest.mark.parametrize("h,cin,cout,k", SHAPES)
+def test_an_empty_batch_gives_empty_outputs_and_zero_weight_gradients(h, cin, cout, k):
+    """N = 0 (a data row of a 2-D mesh that holds none of a batch's rows):
+    the plain versions give an empty forward and dx, and zero dWc and db."""
+    _, w, b, _ = _inputs(h, cin, cout, k)
+    x = torch.zeros(0, h, h, cin, requires_grad=True)
+    wc = uc.collapse_weights(_oihw(w)).requires_grad_()
+    bt = torch.from_numpy(b).requires_grad_()
+    y = uc.UpsampleConvFunction.apply(x, wc, bt)
+    assert tuple(y.shape) == (0, 2 * h, 2 * h, cout)
+    y.backward(torch.zeros_like(y))
+    assert tuple(x.grad.shape) == (0, h, h, cin)
+    assert wc.grad.abs().max() == 0 and bt.grad.abs().max() == 0
+    dy = torch.zeros(0, 2 * h, 2 * h, cout)
+    assert tuple(uc.upsample_conv_dx(dy, wc.detach()).shape) == (0, h, h, cin)
+
+
 def test_function_skips_dx_when_the_input_needs_no_gradient(monkeypatch):
     calls = []
     monkeypatch.setattr(uc, "upsample_conv_dx", lambda *a: calls.append(a))

@@ -226,9 +226,26 @@ def test_c2f_cli_parses_like_jax(argv, monkeypatch):
 @pytest.mark.parametrize("argv,message", [
     # the 2-D mesh is ported (tests/test_torch_port_gspmd.py): without a
     # process group the CLI says how to launch its ranks
-    (["--meshShape", "2"], "launch 2 processes"), (["--boundaryPad", "1"], "not ported"),
-], ids=["argv0-not ported yet", "argv1-not ported"])  # the ids from when the first was refused
-def test_c2f_cli_refuses_what_is_not_ported(argv, message, capsys):
+    (["--meshShape", "2"], "launch 2 processes"),
+    # --boundaryPad is ported (tests/test_torch_port_train_options.py): at
+    # P = 1 <= C the padder is the identity, and the run trains what
+    # --boundaryPad 0 trains, bit for bit
+    (["--boundaryPad", "1"], None),
+], ids=["argv0-not ported yet", "argv1-not ported"])  # the ids from when both were refused
+def test_c2f_cli_refuses_what_is_not_ported(argv, message, capsys, tmp_path):
+    if message is None:
+        tiny = ["--syntheticData", "--fineSize", "8", "--coarseSize", "4", "--batchSize", "4",
+                "--N_epoch", "8", "--epochs", "1", "--noplot", "--grayscale"]
+        runs = {}
+        for label, extra in (("padded", argv), ("plain", ["--boundaryPad", "0"])):
+            save = str(tmp_path / label)
+            trainer = train_c2f.main(tiny + extra + ["--save", save], device="cpu")
+            assert not trainer.step.pad.active
+            runs[label], _ = ckpt.load(save, ckpt_name(trainer.cfg))
+        assert set(runs["padded"]) == set(runs["plain"])
+        for k, v in runs["plain"].items():
+            np.testing.assert_array_equal(runs["padded"][k], v, err_msg=k)
+        return
     with pytest.raises(SystemExit) as e:
         train_c2f.main(argv, device="cpu")
     assert e.value.code != 0 and message in capsys.readouterr().err

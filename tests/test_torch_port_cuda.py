@@ -136,6 +136,50 @@ def test_backward_kernels_match_plain_versions(cuda_device, n, h, cin, cout, dty
     _norm_close(dwc, uc.upsample_conv_dw_reference(x.float(), dy.float()))
 
 
+# the local batches of G32's two layers on the (3, 1) mesh at batch 32
+# (the D phase's halves 6, 6 and 4 rows a rank, the G phase's 11, 11 and
+# 10) and at batch 4, where a rank holds none
+UNEVEN_NS = (0, 4, 6, 10, 11)
+G32_LAYERS = ((8, 128, 256), (16, 256, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", UNEVEN_NS)
+@pytest.mark.parametrize("h,cin,cout", G32_LAYERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_wrappers_at_the_uneven_meshs_local_batches(cuda_device, n, h, cin, cout, dtype):
+    """The forward, dx and dW kernels against their plain versions at
+    G32's layers and the (3, 1) mesh's local batches (M = N*H*W pixels,
+    not a multiple of the M tile); at N = 0 the forward and dx return
+    empty tensors and dW zeros, as the plain versions do, and nothing is
+    launched or counted."""
+    g = torch.Generator().manual_seed(n * h + cin)
+    x = torch.randn(n, h, h, cin, generator=g).to(cuda_device, dtype)
+    dy = torch.randn(n, 2 * h, 2 * h, cout, generator=g).to(cuda_device, dtype)
+    w = (torch.randn(cout, cin, 5, 5, generator=g) / (25 * cin) ** 0.5).to(cuda_device, dtype)
+    b = torch.randn(cout, generator=g).to(cuda_device, dtype)
+    wc = uc.collapse_weights(w)
+    before = (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES)
+    y, dx, dwc = uc.upsample_conv(x, wc, b), uc.upsample_conv_dx(dy, wc), uc.upsample_conv_dw(x, dy)
+    torch.cuda.synchronize()
+    launched = int(n > 0)
+    assert (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES) == tuple(
+        v + launched for v in before)
+    ref_y = uc.upsample_conv_reference(x.float(), wc.float(), b.float())
+    ref_dx = uc.upsample_conv_dx_reference(dy.float(), wc.float())
+    ref_dw = uc.upsample_conv_dw_reference(x.float(), dy.float())
+    assert (y.shape, dx.shape, dwc.shape) == (ref_y.shape, ref_dx.shape, ref_dw.shape)
+    if n == 0:
+        assert ref_dw.abs().max() == 0 and dwc.abs().max() == 0
+        return
+    torch.testing.assert_close(y.float(), ref_y, **TOLS[dtype])
+    if dtype == torch.float32:
+        _norm_close(dx, ref_dx)
+    else:
+        torch.testing.assert_close(dx.float(), ref_dx, **TOLS[dtype])
+    _norm_close(dwc, ref_dw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,cin,cout", TRAIN_SHAPES + [(3, 4, 128, 256), (2, 8, 16, 24)])
 def test_bf16_dw_is_deterministic(cuda_device, n, h, cin, cout):
@@ -500,6 +544,99 @@ def test_graphed_steps_match_eager_steps(cuda_device, dtype, tol):
     assert ms.loss_d.shape == (3,) and bool(torch.isfinite(ms.loss_g).all())
     assert int(graphed.trained_d) + int(graphed.not_trained_d) == 3
     _assert_states_close(graphed, eager, tol)
+
+
+@pytest.mark.cuda
+def test_a_capture_survives_garbage_graphs(cuda_device):
+    """Two graphed runners that became garbage, each holding its captured
+    graph in a reference cycle, wait while a third captures; inside that
+    capture the step runs a collection, as the interpreter may at any
+    allocation. The capture collects first, so no graph is destroyed
+    inside it (which CUDA refuses, and which spoils the capture)."""
+    import gc
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False).validate()
+    pool = _gan_pool(cuda_device)
+    state, step = _gan_step(cuda_device, cfg)
+    d_iteration = step.d_iteration
+
+    def collecting(*args):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return d_iteration(*args)
+
+    step.d_iteration = collecting
+    runner = GraphedStep(step, state, pool.shape[0])
+    runner.set_pool(pool)
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    runner.run(gen, 1)  # the eager warm-up: the next step captures
+    for _ in range(2):
+        old_state, old_step = _gan_step(cuda_device, cfg)
+        old = GraphedStep(old_step, old_state, pool.shape[0])
+        old.set_pool(pool)
+        old.run(torch.Generator(cuda_device).manual_seed(8), 2)
+        assert old.graph is not None
+        old.cycle = old  # garbage to the cyclic collector only
+        del old, old_state, old_step
+    ms = runner.run(gen, 2)
+    torch.cuda.synchronize()
+    assert runner.graph is not None and bool(torch.isfinite(ms.loss_d).all())
+
+
+@pytest.mark.cuda
+def test_graphed_boundary_pad_steps_match_eager_ones(cuda_device):
+    """--boundaryPad 8 at fp32 (TF32 off): 3 graphed steps against 3 eager
+    ones within 1e-5 relative l2, the padded weights made from the live
+    parameters in every replay (nothing cached: the third step's D reads
+    the second's update); the capture launches the three kernels as the
+    unpadded step does (4, 2, 2)."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3,
+                      boundary_pad=8).validate()
+    pool = _gan_pool(cuda_device)
+    eager, eager_step = _gan_step(cuda_device, cfg)
+    graphed, graphed_step = _gan_step(cuda_device, cfg)
+    assert graphed_step.pad.active and graphed_step.pad.pad == 5
+    _eager_steps(eager, eager_step, pool, torch.Generator(cuda_device).manual_seed(7), 3)
+    runner = GraphedStep(graphed_step, graphed, pool.shape[0])
+    runner.set_pool(pool)
+    runner.run(torch.Generator(cuda_device).manual_seed(7), 3)
+    torch.cuda.synchronize()
+    assert runner.launches_per_replay == {"KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2,
+                                          "DW_LAUNCHES": 2}
+    assert tuple(graphed.g.get_parameter("09_conv_out.weight").shape) == (3, 128, 3, 3)
+    _assert_states_close(graphed, eager, 1e-5)
+
+
+@pytest.mark.cuda
+def test_graphed_guard_nonfinite_skips_a_poisoned_update(cuda_device):
+    """guard_nonfinite in the graphed step: with every D weight NaN, no
+    replay lands an update (D's gate closes, G's update is skipped), and
+    not_trained_d counts each step."""
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+
+    cfg = TrainConfig(compute_dtype="float32", reference_init=False,
+                      guard_nonfinite=True).validate()
+    pool = _gan_pool(cuda_device)
+    state, step = _gan_step(cuda_device, cfg)
+    with torch.no_grad():
+        for p in state.d.parameters():
+            p.fill_(float("nan"))
+    before = [p.detach().clone() for p in state.g.parameters()]
+    runner = GraphedStep(step, state, pool.shape[0])
+    runner.set_pool(pool)
+    runner.run(torch.Generator(cuda_device).manual_seed(7), 3)
+    torch.cuda.synchronize()
+    assert runner.graph is not None
+    assert (int(state.trained_d), int(state.not_trained_d)) == (0, 3)
+    assert all(torch.equal(p, q) for p, q in zip(state.g.parameters(), before))
+    assert int(state.opt_g["count"]) == int(state.opt_d["count"]) == 0
 
 
 @pytest.mark.cuda

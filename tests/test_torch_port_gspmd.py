@@ -14,8 +14,8 @@ not run on a mesh here: its step and epoch factories are.
   shards of facegen's ``shard_state`` on ``make_mesh2d``.
 - The GAN step: G32 + D32b colour at batch 8 and G16 + D16_d gray at
   batch 16, fp32, 3 steps (gate open, closed, open) at (2, 2), (2, 1) and
-  (1, 2) against facegen's single-device ``make_train_step`` on its own
-  draws (tests/test_torch_port_train_step.py's recipe at the global
+  (1, 2), and the first at (3, 1), against facegen's single-device
+  ``make_train_step`` on its own draws (tests/test_torch_port_train_step.py's recipe at the global
   batch), and at (2, 2) against ``make_gspmd_step`` on
   ``make_mesh2d(2, 2)``. Tolerances as in tests/test_torch_port_parallel.py:
   losses rtol 1e-4; the parameters' change and Adam's moments 1e-3
@@ -34,10 +34,24 @@ not run on a mesh here: its step and epoch factories are.
   changes and moments are held to 5e-3, the margin
   tests/test_torch_port_parallel.py gives this net, and its batch-norm
   statistics to 5e-5.
-- The c2f, autoencoder and denoiser steps: 3 steps at (2, 1) and (1, 2)
-  against ``make_epoch_fn``, ``make_ae_epoch`` and
+- Uneven data rows: at (3, 1) a data row holds ceil(B / 3) rows of a
+  batch and the last one what is left (``row_block``), as GSPMD pads, so
+  G32 + D32b at batch 8 gives the D phase's halves 2, 2 and 0 rows a rank
+  and the G phase 3, 3 and 2. G32 + D32b at batch 4 leaves rank 2 with no
+  rows in either phase: its 3 steps match facegen's single-device step
+  with the same tolerances, and nothing in them is NaN. facegen's own
+  GSPMD programs run at (3, 1): make_gspmd_c2f_epoch and the AE and
+  denoiser epochs on 8 virtual CPU devices gave the single-device losses
+  and a worst leaf 6.1e-6 from them (checked once; no test here runs them),
+  and its GAN step's only condition is an even batch of at least 4, which
+  the port's 2-D step keeps (the 1-D mesh of local batches keeps
+  facegen's shard_map condition; tests/torch_port_gspmd_ranks.py).
+- The c2f, autoencoder and denoiser steps: 3 steps at (2, 1), (1, 2) and
+  (3, 1) against ``make_epoch_fn``, ``make_ae_epoch`` and
   ``make_denoiser_epoch`` on their draws, with their files' tolerances
-  (tests/test_torch_port_c2f.py, tests/test_torch_port_ae.py).
+  (tests/test_torch_port_c2f.py, tests/test_torch_port_ae.py); at (3, 1)
+  the denoiser's validation loss on a 256-row pool against
+  ``make_denoiser_val`` within 1e-4 relative.
 - The trainer on (2, 2): --epochsPerCompile's message, --weightsVisFreq's
   directories, and its checkpoint resumed on one device, on '2' and by
   facegen. --meshShape 2,1 (G32 + D32b colour, batch 32) on a 61-row
@@ -71,6 +85,7 @@ import test_torch_port_ae as tae
 import test_torch_port_c2f as tc2f
 import test_torch_port_parallel as tpp
 import torch_port_gspmd_ranks as ranks
+import torch_port_parallel_ranks as tpr
 from facegen.config import TrainConfig as JaxTrainConfig
 from facegen.models import ae as jax_ae
 from facegen.models import c2f as jax_c2f
@@ -99,7 +114,16 @@ from facegen_torch.utils.infer import GanInference
 from torch_port_parallel_ranks import digest
 
 NOISE_DIM, POOL = tpp.NOISE_DIM, tpp.POOL
-MESH_NAMES = ("2x2", "2x1a", "1x2a")
+MESH_NAMES = ("2x2", "2x1a", "1x2a", "3x1")
+# the GAN cases and the meshes each runs on: tests/test_torch_port_parallel.py's
+# two on the (2, 2), (2, 1) and (1, 2) meshes, G32 + D32b at batch 8 on (3, 1)
+# too, and at batch 4, where rank 2 of (3, 1) holds no rows
+EVEN = ("2x2", "2x1a", "2x1b", "1x2a", "1x2b")
+GAN_CASES = {"g32": (tpp.CASES["g32"], EVEN + ("3x1",)), "g16": (tpp.CASES["g16"], EVEN),
+             "g32b4": ((32, 3, 4, {}), ("3x1",))}
+# G32 + D32b on g32's inputs with --boundaryPad 8 on (2, 2), where D's first
+# conv is sharded over the model axis and gathered before the step pads it
+PADDED = {"g32p8": ("g32", dict(boundary_pad=8), ("2x2",))}
 SERVE_TOL, JAX_TOL = 1e-5, 2e-4
 
 
@@ -219,6 +243,8 @@ DEN_KW = dict(batch_size=tae.BATCH, scale=8, grayscale=False)
 
 
 def _ae_inputs(work):
+    """Write the ranks' autoencoder inputs; returns the function that runs
+    facegen's epoch on them (start, end leaves, losses)."""
     s, c = 8, 1
     jcfg, tcfg = JaxTrainConfig(**AE_KW), TrainConfig(**AE_KW).validate()
     model = jax_ae.create_autoencoder(s, c, 32)
@@ -234,13 +260,20 @@ def _ae_inputs(work):
         for k, v in tae._masks(jax.random.fold_in(rng, 1 + i), specs).items():
             arrays[f"s{i}/mask/{k}"] = v.numpy()
     np.savez(os.path.join(work, "ae.npz"), **arrays)
-    start = jax_ckpt.flatten_tree({"params": params, "state": state, "opt": opt})
-    p1, s1, o1, jl = jax_ae_loop.make_ae_epoch(model, jcfg)(params, state, opt, rng,
-                                                            jnp.asarray(pool))
-    return start, jax_ckpt.flatten_tree({"params": p1, "state": s1, "opt": o1}), np.asarray(jl)
+
+    def facegen():
+        start = jax_ckpt.flatten_tree({"params": params, "state": state, "opt": opt})
+        p1, s1, o1, jl = jax_ae_loop.make_ae_epoch(model, jcfg)(params, state, opt, rng,
+                                                                jnp.asarray(pool))
+        return start, jax_ckpt.flatten_tree({"params": p1, "state": s1, "opt": o1}), np.asarray(jl)
+
+    return facegen
 
 
 def _denoiser_inputs(work):
+    """Write the ranks' denoiser inputs; returns the function that runs
+    facegen's epoch on them (start, end leaves, losses, and the validation
+    loss after it on a 256-row pool)."""
     s, c = 8, 3
     jcfg, tcfg = JaxTrainConfig(**DEN_KW), TrainConfig(**DEN_KW).validate()
     enc, dec1, dec2, bundle = tae._jax_denoiser(s, c)
@@ -258,40 +291,53 @@ def _denoiser_inputs(work):
         for tag, masks in (("m1", m1), ("m1b", m1b), ("m2", m2)):
             for k, v in masks.items():
                 arrays[f"s{i}/{tag}/{k}"] = v.numpy()
+    arrays["val"] = val = np.random.RandomState(17).randint(0, 256, (256, s, s, c)).astype(np.uint8)
     np.savez(os.path.join(work, "denoiser.npz"), **arrays)
-    start = jax_ckpt.flatten_tree(bundle)
-    jb, jo1, jo2, jl = jax_ae_loop.make_denoiser_epoch(enc, dec1, dec2, jcfg)(
-        bundle, opt1, opt2, rng, jnp.asarray(pool))
-    theirs = jax_ckpt.flatten_tree(jb)
-    for key, jo in (("AE1_DECODER", jo1), ("AE2_DECODER", jo2)):
-        theirs.update({f"{key}/{k}": v for k, v in jax_ckpt.flatten_tree({"opt": jo}).items()})
-    return start, theirs, np.asarray(jl)
+
+    def facegen():
+        start = jax_ckpt.flatten_tree(bundle)
+        jb, jo1, jo2, jl = jax_ae_loop.make_denoiser_epoch(enc, dec1, dec2, jcfg)(
+            bundle, opt1, opt2, rng, jnp.asarray(pool))
+        theirs = jax_ckpt.flatten_tree(jb)
+        for key, jo in (("AE1_DECODER", jo1), ("AE2_DECODER", jo2)):
+            theirs.update({f"{key}/{k}": v for k, v in jax_ckpt.flatten_tree({"opt": jo}).items()})
+        jval = float(jax_ae_loop.make_denoiser_val(dec1, jcfg)(jb, jnp.asarray(val)))
+        return start, theirs, np.asarray(jl), jval
+
+    return facegen
 
 
 @pytest.fixture(scope="module")
 def ranks_run(tmp_path_factory):
-    """The ranks' programs in one spawn of four processes; facegen's steps
-    and epochs computed meanwhile."""
+    """The ranks' programs in one spawn of four processes, started first:
+    they wait for each program's inputs as the parent writes them
+    (``torch_port_parallel_ranks.wait_for``); facegen's steps and epochs
+    computed meanwhile."""
     work = str(tmp_path_factory.mktemp("gspmd_ranks"))
-    gan_in, kwargs = {}, {}
-    for name, case in tpp.CASES.items():
-        kwargs[name] = tpp._step_kwargs(*case)
-        gan_in[name] = _gan_inputs(work, name, *case)
-    with open(os.path.join(work, "gan_steps.json"), "w") as f:
-        json.dump(kwargs, f)
-    c2f_in, c2f_kw = _c2f_inputs(work)
-    with open(os.path.join(work, "family.json"), "w") as f:
-        json.dump({"c2f": c2f_kw, "ae": AE_KW, "denoiser": DEN_KW}, f)
-    side = {"ae": _ae_inputs(work), "denoiser": _denoiser_inputs(work)}  # small nets: quick
     ctx = ranks.spawn(work, join=False)
     try:
-        side.update({name: _jax_gan_steps(*gan_in[name], kwargs[name]) for name in tpp.CASES})
+        gan_in, kwargs = {}, {}
+        for name, (case, _) in GAN_CASES.items():
+            kwargs[name] = tpp._step_kwargs(*case)
+            gan_in[name] = _gan_inputs(work, name, *case)
+        steps = {name: (kwargs[name], meshes, name) for name, (_, meshes) in GAN_CASES.items()}
+        steps.update({name: ({**kwargs[base], **kw}, meshes, base)
+                      for name, (base, kw, meshes) in PADDED.items()})
+        tpr.publish(work, "gan_steps.json", steps)
+        c2f_in, c2f_kw = _c2f_inputs(work)
+        ae, denoiser = _ae_inputs(work), _denoiser_inputs(work)
+        tpr.publish(work, "family.json", {"c2f": c2f_kw, "ae": AE_KW, "denoiser": DEN_KW})
+        side = {"ae": ae(), "denoiser": denoiser()}
+        side.update({name: _jax_gan_steps(*gan_in[name], kwargs[name]) for name in GAN_CASES})
         jg, jd, bundle, pool = gan_in["g16"]
         side["g16_neighbours"] = [
             _jax_gan_steps(jg, jd, {**bundle, "params_d": _nudge(bundle["params_d"], ulps)},
                            pool, kwargs["g16"])[2] for ulps in (-1, 1)]
         side["g32_gspmd"] = _jax_gan_steps(*gan_in["g32"], kwargs["g32"], mesh=make_mesh2d(2, 2))
         side["c2f"] = _jax_c2f(*c2f_in)
+    except BaseException:
+        tpr.abandon(work)
+        raise
     finally:
         while not ctx.join(timeout=600):
             pass
@@ -303,7 +349,7 @@ def _reports(work, name, mesh_name):
     """The reports of ``name`` from every rank of the mesh (and of its twin
     on ranks 2-3), their digests equal; returns the first."""
     twins = {"2x2": [("2x2", range(4))], "2x1a": [("2x1a", (0, 1)), ("2x1b", (2, 3))],
-             "1x2a": [("1x2a", (0, 1)), ("1x2b", (2, 3))]}[mesh_name]
+             "1x2a": [("1x2a", (0, 1)), ("1x2b", (2, 3))], "3x1": [("3x1", (0, 1, 2))]}[mesh_name]
     reports = []
     for mesh, rs in twins:
         for r in rs:
@@ -356,7 +402,8 @@ def _check_gan(work, side_key, name, mesh_name, side):
     assert set(ours) == set(theirs)
     for k in [k for k in theirs if "/" not in k or k.endswith("/count")]:
         np.testing.assert_array_equal(ours[k], np.asarray(theirs[k]), err_msg=k)
-    assert int(ours["confusion"].sum()) == 3 * tpp.CASES[name][2]  # the global batch per step
+    batch = GAN_CASES[PADDED[name][0] if name in PADDED else name][0][2]
+    assert int(ours["confusion"].sum()) == 3 * batch  # the global batch per step
     _check_updates(ours, theirs, start, GAN_KEYS, tpp.TOL, wider)
     stat_tol = G16_STAT_TOL if name == "g16" else tpp.STAT_TOL
     for k in theirs:
@@ -367,8 +414,9 @@ def _check_gan(work, side_key, name, mesh_name, side):
             assert not np.array_equal(ours[k], start[k]), k  # the statistics moved
 
 
-@pytest.mark.parametrize("mesh_name", MESH_NAMES)
-@pytest.mark.parametrize("name", list(tpp.CASES))
+@pytest.mark.parametrize("name,mesh_name", [(name, mesh) for mesh in MESH_NAMES
+                                             for name in tpp.CASES
+                                             if mesh in GAN_CASES[name][1]])
 def test_three_steps_match_the_single_device_step(ranks_run, name, mesh_name):
     work, side = ranks_run
     _check_gan(work, name, name, mesh_name, side)
@@ -390,6 +438,51 @@ def test_three_steps_on_2x2_match_make_gspmd_step(ranks_run):
     _check_gan(work, "g32_gspmd", "g32", "2x2", side)
 
 
+def test_a_padded_step_on_2x2_trains_the_single_device_step(ranks_run):
+    """--boundaryPad 8 on (2, 2): D's first conv is a sharded leaf, gathered
+    into the rank's weight before the step pads its input channels; the 3
+    steps match facegen's unpadded single-device step with the same
+    tolerances (the pad is exact)."""
+    work, side = ranks_run
+    _check_gan(work, "g32", "g32p8", "2x2", side)
+
+
+def test_a_data_row_with_no_rows_adds_nothing(ranks_run):
+    """G32 + D32b at batch 4 on (3, 1): rank 2 holds none of a D half's 2
+    rows and none of G's 4, and adds zeros to every sum (no mean of an
+    empty batch); the 3 steps match facegen's single-device step, and
+    every leaf of the state is finite."""
+    work, side = ranks_run
+    _check_gan(work, "g32b4", "g32b4", "3x1", side)
+    ours, _ = ckpt.load(work, "g32b4_3x1_arrays")
+    assert all(np.isfinite(v).all() for v in ours.values() if v.dtype.kind == "f")
+
+
+@pytest.mark.parametrize("n", [4, 6, 32])
+def test_row_blocks_are_contiguous_disjoint_and_cover_the_batch(n):
+    """``row_block(n, dp, i)`` at dp = 1..8: blocks of ceil(n / dp) rows in
+    the order of the data rows, the last ones short or empty, together
+    exactly the batch; ``Mesh2D.rows``, ``pair_rows`` and ``row_count``
+    take those blocks (a Mesh2D needs no process group for them)."""
+    x = torch.arange(n)
+    for dp in range(1, 9):
+        blocks = [gspmd.row_block(n, dp, i) for i in range(dp)]
+        c = -(-n // dp)
+        assert blocks[0][0] == 0 and blocks[-1][1] == n
+        for (a, b), (a2, _) in zip(blocks, blocks[1:]):
+            assert b == a2  # contiguous and disjoint
+        assert all(b - a == min(c, max(n - a, 0)) for a, b in blocks)
+        assert sum(b - a for a, b in blocks) == n
+        meshes = [gspmd.Mesh2D(dp, 1, i, tuple(range(dp)), torch.device("cpu"), None, None)
+                  for i in range(dp)]
+        assert torch.equal(torch.cat([m.rows(x) for m in meshes]), x)
+        assert [m.row_count(n) for m in meshes] == [b - a for a, b in blocks]
+        pair = torch.cat([x, x + n])
+        h = n // 2
+        assert torch.equal(torch.cat([m.pair_rows(pair)[:m.row_count(n)] for m in meshes]), x)
+        assert [m.pair_rows(x).shape[0] for m in meshes] == [2 * m.row_count(h) for m in meshes]
+
+
 # ------------------------------------------------------------- the leaf rule
 def _facegen_axis(spec):
     return next((i for i, a in enumerate(spec) if a == "model"), None)
@@ -399,8 +492,10 @@ def _facegen_axis(spec):
 _AXIS = {(4, 0): 3, (2, 0): 1, (2, 1): 0}
 
 
-def _nets():
-    """(name, facegen's parameter leaves by path, the port's module)."""
+@pytest.fixture(scope="module")
+def leaf_nets():
+    """(name, facegen's parameter leaves by path, the port's module), built
+    once for both mp cases, which only read them."""
     g32, d32, jb = jax_gan.init_gan(jax.random.key(0), 32, 3, 100)
     g16, d16, jb16 = jax_gan.init_gan(jax.random.key(0), 16, 1, 100)
     pg32, pd32 = gan.init_gan(torch.Generator().manual_seed(0), 32, 3, 100)
@@ -420,13 +515,13 @@ def _nets():
 
 
 @pytest.mark.parametrize("mp", [2, 4])
-def test_the_leaf_rule_is_facegens(mp):
+def test_the_leaf_rule_is_facegens(leaf_nets, mp):
     """Every parameter leaf of every net: the axis facegen's _leaf_spec
     shards, from the port's leaf_spec on facegen's shape and from
     torch_shard_dim on the port's; at both mp, G32 + D32b shard 5,318,848
     of the 5,334,413 numbers of their parameters and batch-norm
     statistics."""
-    sharded, nets = {}, _nets()
+    sharded, nets = {}, leaf_nets
     for name, jparams, module in nets:
         theirs = {k: np.asarray(v).shape for k, v in jax_ckpt.flatten_tree(jparams).items()}
         bn = ckpt._bn_prefixes(module.state_dict())
@@ -473,7 +568,7 @@ def test_shards_have_the_shapes_of_facegens_shard_state(ranks_run, mesh_name):
 
 
 # --------------------------------------------------------- c2f, AE, denoiser
-@pytest.mark.parametrize("mesh_name", ["2x1a", "1x2a"])
+@pytest.mark.parametrize("mesh_name", ["2x1a", "1x2a", "3x1"])
 def test_c2f_steps_match_make_epoch_fn(ranks_run, mesh_name):
     work, side = ranks_run
     start, theirs, jrows = side["c2f"]
@@ -489,7 +584,7 @@ def test_c2f_steps_match_make_epoch_fn(ranks_run, mesh_name):
     _check_updates(ours, theirs, start, GAN_KEYS, tc2f.UPDATE_TOL)
 
 
-@pytest.mark.parametrize("mesh_name", ["2x1a", "1x2a"])
+@pytest.mark.parametrize("mesh_name", ["2x1a", "1x2a", "3x1"])
 def test_autoencoder_steps_match_make_ae_epoch(ranks_run, mesh_name):
     work, side = ranks_run
     start, theirs, jlosses = side["ae"]
@@ -500,12 +595,13 @@ def test_autoencoder_steps_match_make_ae_epoch(ranks_run, mesh_name):
                                          "moments": ("opt/0/mu/", "opt/0/nu/")}, tae.UPDATE_TOL)
 
 
-@pytest.mark.parametrize("mesh_name", ["2x1a", "1x2a"])
+@pytest.mark.parametrize("mesh_name", ["2x1a", "1x2a", "3x1"])
 def test_denoiser_steps_match_make_denoiser_epoch(ranks_run, mesh_name):
     work, side = ranks_run
-    start, theirs, jlosses = side["denoiser"]
-    np.testing.assert_allclose(_reports(work, "denoiser", mesh_name)["losses"], jlosses,
-                               rtol=1e-4)
+    start, theirs, jlosses, jval = side["denoiser"]
+    report = _reports(work, "denoiser", mesh_name)
+    np.testing.assert_allclose(report["losses"], jlosses, rtol=1e-4)
+    np.testing.assert_allclose(report["val"], jval, rtol=1e-4)  # every rank's, on 256 rows
     ours, _ = ckpt.load(work, f"denoiser_{mesh_name}_arrays")
     for net in ("AE1_DECODER", "AE2_DECODER"):
         keys = {"params": (f"{net}/params/",), "moments": (f"{net}/opt/0/mu/", f"{net}/opt/0/nu/")}

@@ -174,22 +174,26 @@ def _jax_steps(jg, jd, bundle, pool, kw):
 
 @pytest.fixture(scope="module")
 def ranks_run(tmp_path_factory):
-    """The ranks' programs ("steps", "gate", "trainers") in one pair of
-    processes; facegen's steps computed meanwhile."""
+    """The ranks' programs ("gate", "trainers", "steps") in one pair of
+    processes, started first: they wait for each input as the parent
+    writes it (``ranks.wait_for``); facegen's steps computed meanwhile."""
     work = str(tmp_path_factory.mktemp("ranks"))
-    inputs, kwargs = {}, {}
-    for name, case in CASES.items():
-        kwargs[name] = _step_kwargs(*case)
-        inputs[name] = _step_inputs(work, name, *case)
-    with open(os.path.join(work, "steps.json"), "w") as f:
-        json.dump(kwargs, f)
-    # a world-1 checkpoint for the ranks to resume (run() saves at its end)
-    world1 = Trainer(TrainConfig(**ranks.TINY, save=os.path.join(work, "world1")),
-                     device="cpu", verbose=False)
-    list(world1.run(1))
-    ctx = ranks.spawn(work, ["steps", "gate", "trainers"], join=False)
+    ctx = ranks.spawn(work, ["gate", "trainers", "steps"], join=False)
     try:
+        inputs, kwargs = {}, {}
+        for name, case in CASES.items():
+            kwargs[name] = _step_kwargs(*case)
+            inputs[name] = _step_inputs(work, name, *case)
+        ranks.publish(work, "steps.json", kwargs)
+        # a world-1 checkpoint for the ranks to resume (run() saves at its end)
+        world1 = Trainer(TrainConfig(**ranks.TINY, save=os.path.join(work, "world1")),
+                         device="cpu", verbose=False)
+        list(world1.run(1))
+        ranks.publish(work, "world1.json", {})
         jax_side = {name: _jax_steps(*inputs[name], kwargs[name]) for name in CASES}
+    except BaseException:
+        ranks.abandon(work)
+        raise
     finally:
         while not ctx.join(timeout=600):
             pass

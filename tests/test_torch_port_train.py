@@ -136,6 +136,7 @@ def test_defaults_and_derived_values_match_jax():
          "--scale", "16", "--D_optmethod", "adagrad", "--computeDtype", "float32",
          "--modernInit", "--syntheticData", "--epochs", "3", "--N_epoch", "-1",
          "--D_maxAcc", "0.9", "--datasetDir", "x.npy", "--epochsPerCompile", "4"],
+    ["--boundaryPad", "8", "--weightsVisFreq", "4"],
 ])
 def test_cli_parses_like_jax(argv):
     ours, theirs = train_config_from_args(argv), jax_config_from_args(argv)
@@ -150,8 +151,11 @@ def test_cli_parses_like_jax(argv):
     # says how to launch them, the 2-D mesh and --denoise included
     (["--meshShape", "4"], "launch 4 processes"), (["--meshShape", "2,2"], "launch 4 processes"),
     (["--denoise", "--meshShape", "2"], "launch 2 processes"),
-    (["--boundaryPad", "8"], "not ported"), (["--batchSize", "5"], "multiple of 2"),
-], ids=[  # the ids the cases had when the first three asserted a refusal
+    # --boundaryPad is ported (tests/test_torch_port_train_options.py): the
+    # flag parses, and only the mesh is refused
+    (["--boundaryPad", "8", "--meshShape", "3"], "launch 3 processes"),
+    (["--batchSize", "5"], "multiple of 2"),
+], ids=[  # the ids the cases had when the first four asserted a refusal
     "argv0-not ported yet", "argv1-not ported yet", "argv2-not ported yet", "argv3-not ported",
     "argv4-multiple of 2"])
 def test_cli_rejects_what_is_not_ported(argv, message, capsys):

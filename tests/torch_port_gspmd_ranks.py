@@ -2,19 +2,22 @@
 
 Four processes of a gloo group on the CPU, started once with
 ``torch.multiprocessing`` by ``spawn``, run every 2-D mesh case: the
-(2, 2) mesh over all four, and the (2, 1) and (1, 2) meshes twice, over
-ranks 0-1 and over ranks 2-3 (every rank creates every mesh's groups, in
-one order). Ranks 0 and 1 then form a group of two for the cases that
-need a whole group of two: a (2, 2) checkpoint resumed at '2', and the
-trainer CLI at --meshShape 2,1 and 2.
+(2, 2) mesh over all four, the (2, 1) and (1, 2) meshes twice, over
+ranks 0-1 and over ranks 2-3, and the (3, 1) mesh over ranks 0-2, whose
+data rows hold unequal blocks of a batch (or none), while rank 3 waits
+(every rank creates every mesh's groups, in one order). Ranks 0-1 and
+ranks 2-3 then form two groups of two for the cases that need a whole
+group of two: a (2, 2) checkpoint resumed at '2', and the trainer CLI at
+--meshShape 2 (ranks 0-1) and 2,1 (ranks 2-3).
 
 This module imports neither JAX nor facegen: the parent computes
 facegen's side and hands the ranks their inputs as ``.npz`` files under
-a work directory, and each rank writes its results there: a digest of
-its state's gathered leaves under facegen's checkpoint paths
-(``report``), and where the parent compares values, the leaves
-themselves, written by the mesh's first rank. A rank's own checks are
-asserts, which reach the parent as the spawned process's exception.
+a work directory, each program's JSON written after its files, which the
+ranks, started first, wait for (``wait_for``); each rank writes its
+results there: a digest of its state's gathered leaves under facegen's
+checkpoint paths (``report``), and where the parent compares values, the
+leaves themselves, written by the mesh's first rank. A rank's own checks
+are asserts, which reach the parent as the spawned process's exception.
 """
 
 from __future__ import annotations
@@ -48,18 +51,19 @@ from facegen_torch.train.ae_loop import (
     DenoiserDraws,
     DenoiserState,
     DenoiserStep,
+    denoiser_val_loss,
 )
 from facegen_torch.train.c2f import C2FDDraws, C2FGDraws, C2FStep, C2FStepDraws, init_c2f_state
 from facegen_torch.train.loop import Trainer
 from facegen_torch.train.optim import adam
 from facegen_torch.train.step import DDraws, GDraws, StepDraws, TrainStep, init_state
 from facegen_torch.utils import checkpoint as ckpt
-from torch_port_parallel_ranks import digest
+from torch_port_parallel_ranks import digest, wait_for
 
 WORLD = 4
 # name -> (dp, mp, ranks): every rank creates every mesh, in this order
 MESHES = {"2x2": (2, 2, None), "2x1a": (2, 1, (0, 1)), "2x1b": (2, 1, (2, 3)),
-          "1x2a": (1, 2, (0, 1)), "1x2b": (1, 2, (2, 3))}
+          "1x2a": (1, 2, (0, 1)), "1x2b": (1, 2, (2, 3)), "3x1": (3, 1, (0, 1, 2))}
 # the trainer cases: 16x16 gray (G16 + D16_d), batch 8, 2 steps of
 # 4 per epoch, G's penalty so that its batch-norm-fed biases move by it
 TINY = dict(scale=16, grayscale=True, noise_dim=8, batch_size=8, n_epoch=8,
@@ -83,7 +87,8 @@ def spawn(work: str, join: bool = True):
 
 
 def _rank_main(rank: int, work: str):
-    torch.set_num_threads(1)
+    torch.set_num_threads(2)
+    os.nice(10)  # the parent computes facegen's side meanwhile: it comes first
     store = dist.FileStore(os.path.join(work, "filestore"), WORLD)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD)
     try:
@@ -91,18 +96,19 @@ def _rank_main(rank: int, work: str):
                   for name, (dp, mp, ranks) in MESHES.items()}
         meshes = {name: m for name, m in meshes.items() if m is not None}
         mesh_constructors(rank, work)
+        trainers(rank, work)  # needs no input: it runs while the parent writes them
         gan_steps(rank, work, meshes)
         family_steps(rank, work, meshes)
-        trainers(rank, work)
     finally:
         dist.destroy_process_group()
-    if rank < 2:
-        store = dist.FileStore(os.path.join(work, "filestore2"), 2)
-        dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
-        try:
-            group_of_two(rank, work)
-        finally:
-            dist.destroy_process_group()
+    # then two groups of two at once: ranks 0-1 and ranks 2-3
+    pair = rank // 2
+    store = dist.FileStore(os.path.join(work, f"filestore_pair{pair}"), 2)
+    dist.init_process_group("gloo", store=store, rank=rank % 2, world_size=2)
+    try:
+        group_of_two(rank % 2, work, pair)
+    finally:
+        dist.destroy_process_group()
 
 
 def _expect_error(fn, message: str):
@@ -134,6 +140,16 @@ def mesh_constructors(rank: int, work: str):
     _expect_error(lambda: mesh2d_from_shape((3, 2)), "asks for 6 ranks, but the process group")
     _expect_error(lambda: mesh2d_from_shape((-1, 3)), "a model axis of 3 does not divide")
     _expect_error(lambda: make_mesh((2, 2)), "a 2-D shape is a mesh of parallel/gspmd.py")
+    # the 2-D mesh takes any batch facegen takes (even, >= 4), its data rows
+    # holding unequal blocks; the 1-D mesh of local batches keeps facegen's
+    # shard_map condition, half real and half fake images on every rank
+    cfg = TrainConfig(**{**TINY, "batch_size": 6}).validate()
+    g, d = gan.init_gan(torch.Generator().manual_seed(0), cfg.scale, cfg.channels,
+                        cfg.noise_dim, reference_init=False)
+    step = TrainStep(cfg, g, d, make_mesh2d(4, 1, device="cpu"))
+    assert (step.draw_batch, step.batch) == (6, (2, 2, 2, 0)[rank])
+    _expect_error(lambda: TrainStep(cfg, g, d, make_mesh((4,), device="cpu")),
+                  "does not split into half real and half fake images on each of 4 ranks")
 
 
 # ------------------------------------------------------------------ GAN steps
@@ -178,18 +194,21 @@ def gan_steps(rank: int, work: str, meshes):
     """3 steps of each case's TrainStep on every mesh this rank is in, on
     facegen's single-device draws; the gate ring filled with 1s before the
     second step (closed) and emptied before the third (open)."""
-    with open(os.path.join(work, "gan_steps.json")) as f:
+    with open(wait_for(work, "gan_steps.json")) as f:
         cases = json.load(f)
-    for case, kw in cases.items():
-        npz = np.load(os.path.join(work, f"{case}.npz"))
+    for case, (kw, mesh_names, inputs) in cases.items():
+        npz = np.load(os.path.join(work, f"{inputs}.npz"))
         cfg = TrainConfig(**kw).validate()
         for mname, mesh in meshes.items():
+            if mname not in mesh_names:
+                continue
             g, d = gan.init_gan(torch.Generator().manual_seed(0), cfg.scale, cfg.channels,
                                 cfg.noise_dim, reference_init=False)
             _load_nets(npz, g, d)
             state = init_state(cfg, g, d, mesh)
             step = TrainStep(cfg, g, d, mesh)
-            assert step.batch == cfg.batch_size // mesh.dp and step.draw_batch == cfg.batch_size
+            assert step.batch == mesh.row_count(cfg.batch_size)
+            assert step.draw_batch == cfg.batch_size
             pool, rows = torch.from_numpy(npz["pool"]), []
             for i in range(3):
                 if i > 0:
@@ -209,9 +228,10 @@ def gan_steps(rank: int, work: str, meshes):
 
 # ------------------------------------------------------- c2f, AE, denoiser
 def family_steps(rank: int, work: str, meshes):
-    """3 steps of the c2f, autoencoder and denoiser steps at (2, 1) and
-    (1, 2) on facegen's draws."""
-    with open(os.path.join(work, "family.json")) as f:
+    """3 steps of the c2f, autoencoder and denoiser steps at (2, 1), (1, 2)
+    and (3, 1) on facegen's draws; then the denoiser's validation loss on
+    its 256-row pool."""
+    with open(wait_for(work, "family.json")) as f:
         kws = json.load(f)
     for mname, mesh in meshes.items():
         if mname == "2x2":
@@ -275,7 +295,8 @@ def family_steps(rank: int, work: str, meshes):
             k = "dec1" if key == "AE1_DECODER" else "dec2"
             arrays.update(ckpt.module_arrays(dec, f"{key}/p", f"{key}/s", shards[k].full_opt(o),
                                              f"{key}/opt"))
-        _finish(work, f"denoiser_{tag}", mesh, arrays, losses=losses)
+        val = float(denoiser_val_loss(dec1, torch.from_numpy(npz["val"])))
+        _finish(work, f"denoiser_{tag}", mesh, arrays, losses=losses, val=val)
 
 
 # ------------------------------------------------------------------ trainers
@@ -300,16 +321,18 @@ def trainers(rank: int, work: str):
     report(work, f"vis22_rank{rank}", ckpt.train_state_arrays(tr.state))
 
 
-def group_of_two(rank: int, work: str):
-    """In a group of two: the (2, 2) run's checkpoint resumed at '2' for an
-    epoch; the trainer CLI at --meshShape 2,1 and at 2 on a 61-row pool
-    (4 steps an epoch)."""
-    tr = _trainer(rank, work, "resumed2", make_mesh((2,), device="cpu"),
-                  network=os.path.join(work, "t22", "rank0", "adversarial"))
-    report(work, f"resumed2_start_rank{rank}", ckpt.train_state_arrays(tr.state))
-    stats = list(tr.run(1))
-    assert np.isfinite(stats[0]["loss_d_mean"]) and tr.state.epoch == 4
-    for shape in ("2,1", "2"):
+def group_of_two(rank: int, work: str, pair: int):
+    """In a group of two (``rank`` its rank in the group): on ranks 0-1 the
+    (2, 2) run's checkpoint resumed at '2' for an epoch, then the trainer
+    CLI at --meshShape 2 on a 61-row pool (4 steps an epoch); on ranks 2-3
+    the CLI at --meshShape 2,1."""
+    if pair == 0:
+        tr = _trainer(rank, work, "resumed2", make_mesh((2,), device="cpu"),
+                      network=os.path.join(work, "t22", "rank0", "adversarial"))
+        report(work, f"resumed2_start_rank{rank}", ckpt.train_state_arrays(tr.state))
+        stats = list(tr.run(1))
+        assert np.isfinite(stats[0]["loss_d_mean"]) and tr.state.epoch == 4
+    for shape in (("2",) if pair == 0 else ("2,1",)):
         save = os.path.join(work, f"cli{shape.replace(',', '')}", f"rank{rank}")
         tr = train_main(CLI + ["--meshShape", shape, "--save", save], device="cpu")
         assert isinstance(tr.mesh, Mesh2D) == (shape == "2,1")

@@ -15,6 +15,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -67,6 +68,34 @@ def report(work: str, name: str, state, **meta) -> None:
         json.dump({"digest": digest(ckpt.train_state_arrays(state)), **meta}, f)
 
 
+def publish(work: str, name: str, obj) -> None:
+    """Write ``<work>/<name>`` as JSON in one rename, so a rank that waits
+    for it (``wait_for``) never reads it half written. The parent writes
+    each program's JSON after the ``.npz`` files it names."""
+    path = os.path.join(work, name)
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def abandon(work: str) -> None:
+    """Tell the waiting ranks that the parent failed before its inputs."""
+    open(os.path.join(work, "abandoned"), "w").close()
+
+
+def wait_for(work: str, name: str, timeout: float = 600.0) -> str:
+    """``<work>/<name>``, once the parent has written it: the ranks start
+    while the parent still makes their inputs."""
+    path, t0 = os.path.join(work, name), time.monotonic()
+    while not os.path.exists(path):
+        if os.path.exists(os.path.join(work, "abandoned")):
+            raise RuntimeError(f"the parent failed before writing {name}")
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no {name} after {timeout} s")
+        time.sleep(0.05)
+    return path
+
+
 def spawn(work: str, programs, env=None, join: bool = True):
     """Start the 2 ranks on ``programs`` (names of ``PROGRAMS``) with a
     FileStore under ``work``, or, with ``env`` (one mapping per rank), by
@@ -77,7 +106,7 @@ def spawn(work: str, programs, env=None, join: bool = True):
 
 
 def _rank_main(rank: int, work: str, programs, env):
-    torch.set_num_threads(1)
+    torch.set_num_threads(2)
     if env is None:
         store = dist.FileStore(os.path.join(work, "filestore"), WORLD)
         dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD)
@@ -109,7 +138,7 @@ def steps(rank: int, work: str):
     """3 steps of each case's DP TrainStep on facegen's shard draws; the
     gate ring filled with 1s before the second (closed) and emptied
     before the third (open), as the parent does to facegen's state."""
-    with open(os.path.join(work, "steps.json")) as f:
+    with open(wait_for(work, "steps.json")) as f:
         cases = json.load(f)
     for name, kw in cases.items():
         npz = np.load(os.path.join(work, f"{name}.npz"))
@@ -182,6 +211,7 @@ def trainers(rank: int, work: str):
             start += n
         report(work, f"{name}_rank{rank}", tr.state, readbacks=tr.readbacks,
                epochs_per_compile=tr.epochs_per_compile)
+    wait_for(work, "world1.json")
     tr = _trainer(rank, work, "resumed", network=os.path.join(work, "world1", "adversarial"))
     report(work, f"resumed_start_rank{rank}", tr.state)
     stats = list(tr.run(1))
