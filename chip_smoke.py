@@ -51,8 +51,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    epochs of 63 steps with --saveFreq 1, then a resume for a third; checks
    the checkpoint, its .old, the _best checkpoint with a finite parzen,
    the sample grid and finite losses; reports c2f training images/s, the
-   approxParzen ms (6400 refinements), the device ms per step and a
-   profile of the step by kernel family;
+   approxParzen ms (6400 refinements); checks the logged step route (a
+   CUDA graph replay a step, train/graph.py) and that the capture launched
+   none of the port's kernels, and reports the capture's ms and the MiB it
+   reserved, then the graphed and the eager step on the same state in
+   turns: ms per step on the stream, and a profile by kernel family with
+   the device's busy share;
 8. c2f sampler path: writes a G16 + D16_d colour base (full width, seeded
    weights, calibrated batch norms), runs ``facegen_torch.sample.main
    --c2f --runs 2`` on phase 7's c2f checkpoint, checks the 2 x 8 grids
@@ -65,7 +69,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     defaults (scale 32, gray, noiseDim 256, batch 32, fp32) on the store
     for 2 epochs of 31 steps; checks the checkpoint, the grid, finite
     losses and that no kernel of the port launched; reports the warm
-    epoch's images/s, the device ms per step and its profile;
+    epoch's images/s; the route, the capture and the graphed against the
+    eager step as phase 7 does;
 11. denoiser training: ``facegen_torch.train_denoiser.main`` at its
     defaults (scale 16, colour, batch 32, fp32) for 2 epochs, then a
     resume for a third; the same checks and reports;
@@ -130,8 +135,11 @@ Phases, each printing its own lines; any failure exits non-zero:
     ``make_mesh2d(1, 1)`` of a 1-rank group, its graphed step (all-reduces
     and all-gathers inside the graph) bit-equal to the single-device
     graphed step in fp32 under cuDNN's deterministic algorithms, both
-    timed on the stream and profiled at the default flags, and a Trainer
-    on that mesh for one epoch (--N_epoch 256, graphed, every kernel);
+    timed on the stream and profiled at the default flags; the c2f,
+    autoencoder and denoiser trainers on that mesh, 3 graphed steps each
+    bit-equal to the same trainer's graphed steps on one device; and a
+    Trainer on that mesh for one epoch (--N_epoch 256, graphed, every
+    kernel);
 25. four gloo ranks sharing the card (``maybe_initialize(backend='gloo')``
     before the CLI) on the 2x2 mesh: ``python -m facegen_torch.train --meshShape 2,2`` at the
     default flags for one epoch (--N_epoch 256) from a TCP coordinator,
@@ -162,9 +170,17 @@ Phases, each printing its own lines; any failure exits non-zero:
     graphed fp32 steps against the unpadded ones; 3 fp32 c2f steps against
     the unpadded ones, and the c2f CLI with --boundaryPad 8 for one epoch;
 30. ``guard_nonfinite`` in the graphed step with every D weight NaN: no
-    update lands and not_trained_d counts every step.
+    update lands and not_trained_d counts every step;
+31. the c2f, autoencoder and denoiser trainers' graphed steps against the
+    same trainers built with ``capture=False``: 3 steps each from one
+    state on the same pool and draws under cuDNN's deterministic
+    algorithms, fp32 (TF32 off) within 1e-5 relative l2 over the
+    parameters, batch-norm statistics, Adam's moments and the losses, and
+    the c2f's bf16 at its default flags within 1e-3; with cuDNN free to
+    choose, eager against eager and graphed against eager (printed: the
+    c2f's fp32 convs then differ run to run).
 
-Every step profile (phases 5-24) reads the device's events from a trace
+Every step profile (phases 5-29) reads the device's events from a trace
 (facegen_torch.utils.profiling: ``trace`` + ``aggregate_trace``) and the
 host's wall time from as many untraced steps run just before.
 
@@ -951,6 +967,9 @@ def phase_training(tmp: str, store: str):
     return launches, graphed_ms
 
 
+STEP_PROFILES = {}  # label -> the last step profile of that label (_profile_train_steps)
+
+
 def _step_ms(run, steps=30, warmup=5):
     """Time per step on the stream: CUDA events around ``run(steps)``
     after ``run(warmup)``, the device's work and its waits for the host's
@@ -993,6 +1012,8 @@ def _profile_train_steps(run, steps=5, label="training path", top=0):
     for r in summary["ops"][:top]:
         print(f"{label}: kernel {r['total_us'] / steps / 1e3:.4f} ms per step in "
               f"{r['calls'] / steps:.0f} launches: {r['name'][:160]}")
+    STEP_PROFILES[label] = {"device_ms": busy_ms, "wall_ms": wall_ms,
+                            "busy": busy_ms / wall_ms, "kernels": launches / steps}
     print(f"{label}: step profile (torch.profiler trace of {steps} steps after 10 warm-up, "
           f"device events; host wall of {steps} untraced steps): {busy_ms:.4f} ms of device "
           f"time in {wall_ms:.3f} ms of host wall per step, busy {100 * busy_ms / wall_ms:.1f} "
@@ -1008,6 +1029,66 @@ def _rel_l2(ours, ref):
     num = sum(float(((o.detach().cpu() - r.detach()) ** 2).sum()) for o, r in zip(ours, ref))
     den = sum(float((r.detach() ** 2).sum()) for r in ref)
     return (num / max(den, 1e-300)) ** 0.5
+
+
+class _Tee:
+    """A stdout that also keeps what is written to it."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _logged(fn):
+    """(``fn()``, what it printed), its output still printed."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn()
+    return result, "".join(tee.parts)
+
+
+GRAPH_ROUTE = "<trainer> step route: one CUDA graph replay a step"
+
+
+def _graph_vs_eager(label, runner, log, run, run_eager, top=0):
+    """A trainer's step as its CLI ran it: the logged route (a CUDA graph
+    replay a step), the capture (its ms, the MiB it reserved, no kernel of
+    the port launched in it), then the graphed and the eager step on the
+    same state, timed on the stream in turns (graphed, eager, eager,
+    graphed) and profiled (device ms, host wall, busy share)."""
+    route = next((ln for ln in log.splitlines() if "step route:" in ln), "")
+    check(route.strip() == GRAPH_ROUTE and runner.graph is not None,
+          f"{label}: the step was not captured: {route!r}")
+    check(not any(runner.launches_per_replay.values()),
+          f"{label}: the capture launched the port's kernels: {runner.launches_per_replay}")
+    print(f"{label}: {route.strip()}; captured in {runner.capture_ms:.1f} ms after "
+          f"{runner.eager_steps} eager steps, {runner.pool_mib:.1f} MiB reserved by the capture; "
+          f"kernel launches per replay {runner.launches_per_replay}")
+    runs = {"graphed": run, "eager": run_eager}
+    times = {"graphed": [], "eager": []}
+    for which in ("graphed", "eager", "eager", "graphed"):
+        times[which].append(_step_ms(runs[which]))
+    for which, ts in times.items():
+        print(f"{label} ({which}): {statistics.mean(ts):.4f} ms per step on the stream (CUDA "
+              f"events over 30 steps, mean of 2 turns: {', '.join(f'{t:.4f}' for t in ts)}; "
+              f"waits for the host included)")
+    _profile_train_steps(run, label=f"{label} (graphed)", top=top)
+    _profile_train_steps(run_eager, label=f"{label} (eager)")
+    graphed, eager = STEP_PROFILES[f"{label} (graphed)"], STEP_PROFILES[f"{label} (eager)"]
+    print(f"{label}: graphed against eager in this run: {statistics.mean(times['graphed']):.4f} "
+          f"/ {statistics.mean(times['eager']):.4f} ms per step on the stream; device "
+          f"{graphed['device_ms']:.4f} / {eager['device_ms']:.4f} ms, host wall "
+          f"{graphed['wall_ms']:.3f} / {eager['wall_ms']:.3f} ms, busy "
+          f"{100 * graphed['busy']:.1f} / {100 * eager['busy']:.1f} % a step; capture "
+          f"{runner.capture_ms:.1f} ms, {runner.pool_mib:.1f} MiB")
 
 
 def phase_step_parity():
@@ -1084,7 +1165,7 @@ def phase_c2f_training(tmp: str, store: str):
     import torch
 
     from facegen_torch import train_c2f
-    from facegen_torch.train.c2f import ckpt_name
+    from facegen_torch.train.c2f import ckpt_name, draw_c2f_step
     from facegen_torch.train.step import steps_per_epoch
 
     save = os.path.join(tmp, "c2f_logs")
@@ -1111,7 +1192,7 @@ def phase_c2f_training(tmp: str, store: str):
     grid = os.path.join(save, "viz", "c2f_samples.png")
     check(os.path.exists(grid) and os.path.getsize(grid) > 0, f"missing grid {grid}")
 
-    trainer2 = train_c2f.main(argv + ["--epochs", "1", "--network", name])
+    trainer2, log = _logged(lambda: train_c2f.main(argv + ["--epochs", "1", "--network", name]))
     check(trainer2.state.epoch == 4, f"resumed run ends at epoch {trainer2.state.epoch}, want 4")
     check(trainer2.best_dist <= best["parzen"], "the resume lost the best parzen")
     with open(os.path.join(save, "metrics_c2f.jsonl")) as f:
@@ -1148,14 +1229,19 @@ def phase_c2f_training(tmp: str, store: str):
     def run(n):
         return trainer2.run_steps(pool, gen, n)
 
+    def run_eager(n):
+        for _ in range(n):
+            trainer2.step(trainer2.state, pool,
+                          draw_c2f_step(gen, cfg, pool.size, trainer2.step.mask_specs))
+
     step_ms = _step_ms(run)
     per_epoch = steps_per_epoch(cfg)
     print(f"c2f training path: approxParzen {statistics.median(parzen_ms):.3f} ms on the stream "
           f"(CUDA events, median of 3: {', '.join(f'{t:.3f}' for t in parzen_ms)}); "
-          f"{step_ms:.4f} ms per step on the stream (CUDA events over 30 steps, waits for the "
-          f"host included): {cfg.n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at "
+          f"{step_ms:.4f} ms per graphed step on the stream (CUDA events over 30 steps, waits "
+          f"for the host included): {cfg.n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at "
           f"{cfg.n_epoch} examples per {per_epoch} steps")
-    _profile_train_steps(run, label="c2f training path", top=8)
+    _graph_vs_eager("c2f training path", trainer2.graphed, log, run, run_eager, top=8)
     return save, launches
 
 
@@ -1304,10 +1390,11 @@ def _check_files(*paths):
         check(os.path.exists(path) and os.path.getsize(path) > 0, f"missing output {path}")
 
 
-def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe):
+def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe, log, run_eager):
     """The checks and lines both AE-family phases share: no kernel of
     the port launched, finite losses, the warm epoch's images/s, the
-    device ms per step and the step's profile."""
+    route and the capture, and the graphed step's time and profile beside
+    the eager step's (``run_eager(draws)``)."""
     import math
 
     import torch
@@ -1331,9 +1418,10 @@ def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe):
         return trainer.run_steps(draws[:n])
 
     step_ms = _step_ms(run)
-    print(f"{label}: {step_ms:.4f} ms per step on the stream (CUDA events over 30 steps, fp32, "
-          f"waits for the host included): {1e3 * cfg.batch_size / step_ms:.1f} images/s")
-    _profile_train_steps(run, label=label, top=5)
+    print(f"{label}: {step_ms:.4f} ms per graphed step on the stream (CUDA events over 30 "
+          f"steps, fp32, waits for the host included): {1e3 * cfg.batch_size / step_ms:.1f} "
+          f"images/s")
+    _graph_vs_eager(label, trainer.graphed, log, run, lambda n: run_eager(draws[:n]), top=5)
 
 
 def phase_ae_training(tmp: str, store: str):
@@ -1348,7 +1436,8 @@ def phase_ae_training(tmp: str, store: str):
     torch.cuda.synchronize()
     _reset_launches()
     t0 = time.perf_counter()
-    trainer = train_autoencoder.main(["--datasetDir", store, "--save", save, "--epochs", "2"])
+    trainer, log = _logged(lambda: train_autoencoder.main(["--datasetDir", store, "--save",
+                                                           save, "--epochs", "2"]))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = _launches()
@@ -1358,9 +1447,13 @@ def phase_ae_training(tmp: str, store: str):
     check(trainer.epoch == 2 and len(trainer.history) == 2, f"{trainer.epoch} epochs, want 2")
     _check_files(os.path.join(save, "autoencoder", "arrays.npz"),
                  os.path.join(save, "viz", "ae_recon.png"))
+    def run_eager(draws):
+        for d in draws:
+            trainer.step(trainer.model, trainer.opt, trainer.pool, d)
+
     _report_fp32_trainer("ae training path", trainer, run_s, launches, trainer.history,
                          "train_autoencoder.main --epochs 2 (scale 32, gray, noiseDim 256, "
-                         "batch 32, fp32)")
+                         "batch 32, fp32)", log, run_eager)
     return launches
 
 
@@ -1390,7 +1483,8 @@ def phase_denoiser_training(tmp: str, store: str):
     name = denoiser_ckpt_name(cfg.scale, cfg.channels)
     _check_files(os.path.join(save, name, "arrays.npz"),
                  os.path.join(save, "viz", "denoiser_recon.png"))
-    trainer2 = train_denoiser.main(argv + ["--epochs", "1", "--network", name])
+    trainer2, log = _logged(lambda: train_denoiser.main(argv + ["--epochs", "1", "--network",
+                                                              name]))
     steps = trainer2.n_pool // cfg.batch_size
     check(trainer2.epoch == 3 and trainer2.history[0]["epoch"] == 3,
           f"the resumed run ends at epoch {trainer2.epoch}, want 3")
@@ -1399,9 +1493,14 @@ def phase_denoiser_training(tmp: str, store: str):
     with open(os.path.join(save, name, "meta.json")) as f:
         check(_json.load(f)["epoch"] == 3, "the resume's checkpoint is not at epoch 3")
     _check_files(os.path.join(save, name + ".old", "arrays.npz"))
+    def run_eager(draws):
+        for d in draws:
+            trainer2.step(trainer2.state, trainer2.pool, d)
+
     _report_fp32_trainer("denoiser training path", trainer2, run_s, launches,
                          trainer.history + trainer2.history,
-                         "train_denoiser.main --epochs 2 (scale 16, colour, batch 32, fp32)")
+                         "train_denoiser.main --epochs 2 (scale 16, colour, batch 32, fp32)",
+                         log, run_eager)
     return save, launches
 
 
@@ -1591,6 +1690,142 @@ def phase_graph_parity():
               f"the eager and graphed steps); {'ok' if ok else 'FAIL'}")
         check(ok, f"the graphed {dtype} step disagrees with the eager step")
     _graph_control(pool)
+
+
+FAMILY = ("c2f", "autoencoder", "denoiser")
+
+
+def _family_trainer(kind, save, dtype="float32", **kw):
+    """A c2f, autoencoder or denoiser trainer on cuda:0 at its CLI's
+    defaults on synthetic data (--N_epoch 256), fp32 unless ``dtype`` (the
+    c2f's); the c2f with --G_L2 1e-3 and the AE family with --coefL1 1e-4,
+    which make the gradients of the biases that feed batch norms the
+    penalty's (their exact gradient is 0: rounding noise, which Adam turns
+    into a step of either sign)."""
+    import torch
+
+    from facegen_torch.config import C2FConfig, TrainConfig
+    from facegen_torch.train.ae_loop import AETrainer, DenoiserTrainer
+    from facegen_torch.train.c2f import C2FTrainer
+
+    dev, common = torch.device("cuda", 0), dict(synthetic_data=True, n_epoch=256, save=save)
+    if kind == "c2f":
+        cfg = C2FConfig(compute_dtype=dtype, g_l2=1e-3, **common)
+        return C2FTrainer(cfg, device=dev, verbose=False, **kw)
+    if kind == "autoencoder":
+        cfg = TrainConfig(scale=32, grayscale=True, noise_dim=256, coef_l1=1e-4, **common)
+        return AETrainer(cfg, device=dev, verbose=False, **kw)
+    cfg = TrainConfig(scale=16, coef_l1=1e-4, **common)
+    return DenoiserTrainer(cfg, device=dev, verbose=False, **kw)
+
+
+def _family_steps(trainer, n=3, seed=7):
+    """``n`` steps of ``trainer.run_steps`` on an epoch's pool and draws
+    from ``seed``; their losses, (n, k) on the device."""
+    import torch
+
+    from facegen_torch.data.c2f import make_triples
+    from facegen_torch.train.c2f import C2FTrainer
+
+    gen = torch.Generator(trainer.device).manual_seed(seed)
+    if isinstance(trainer, C2FTrainer):
+        pool = make_triples(trainer.source.epoch_pool(gen, trainer.pool_n),
+                            trainer.cfg.coarse_size)
+        return torch.stack(trainer.run_steps(pool, gen, n), 1)
+    return trainer.run_steps(trainer.epoch_draws(gen)[:n]).reshape(n, -1)
+
+
+def _family_state(trainer):
+    """({group: tensors}: each net's parameters, batch-norm statistics and
+    Adam moments; [the optimizer counts and the confusion matrix])."""
+    from facegen_torch.train.ae_loop import AETrainer, DenoiserTrainer
+
+    st = getattr(trainer, "state", None)
+    if isinstance(trainer, AETrainer):
+        nets, opts, exact = {"ae": trainer.model}, {"ae": trainer.opt}, []
+    elif isinstance(trainer, DenoiserTrainer):
+        nets, opts, exact = {"dec1": st.dec1, "dec2": st.dec2}, {"dec1": st.opt1,
+                                                                 "dec2": st.opt2}, []
+    else:
+        nets, opts, exact = {"g": st.g, "d": st.d}, {"g": st.opt_g, "d": st.opt_d}, [st.confusion]
+    groups = {}
+    for k, net in nets.items():
+        groups[f"{k} parameters"] = list(net.parameters())
+        if list(net.buffers()):
+            groups[f"{k} statistics"] = list(net.buffers())
+        for kind in ("mu", "nu"):
+            groups[f"{k} {kind}"] = opts[k][kind]
+    return groups, [opt["count"] for opt in opts.values()] + exact
+
+
+def _family_diffs(a, b, losses_a, losses_b):
+    """Relative l2 of trainer ``a``'s state groups and losses against
+    ``b``'s, and whether their counts (and the c2f's confusion) are equal."""
+    import torch
+
+    (ga, ea), (gb, eb) = _family_state(a), _family_state(b)
+    errs = {k: _rel_l2(ga[k], [t.cpu() for t in gb[k]]) for k in ga}
+    errs["losses"] = _rel_l2([losses_a], [losses_b.cpu()])
+    return errs, all(torch.equal(x, y) for x, y in zip(ea, eb))
+
+
+def phase_family_graph_parity(tmp: str):
+    """The c2f, autoencoder and denoiser trainers' graphed steps against
+    their eager steps (the same trainer built with ``capture=False``): 3
+    steps each from one state on the same pool and draws, in fp32 (TF32
+    off) and the c2f also in bf16 at its default flags. Under cuDNN's
+    deterministic algorithms (checked): within 1e-5 (fp32) and 1e-3 (bf16)
+    relative l2 over the parameters, the batch-norm statistics, Adam's
+    moments and the losses, the counts and the confusion equal, no kernel
+    of the port in the captures. As a control, with cuDNN free to choose
+    (printed): a second eager run against the first, and the graphed run
+    against it."""
+    import contextlib
+
+    import torch
+
+    from facegen_torch.sample import full_fp32
+
+    cases = [("c2f", "float32", GRAPH_FP32_TOL), ("c2f", "bfloat16", GRAPH_BF16_TOL),
+             ("autoencoder", "float32", GRAPH_FP32_TOL), ("denoiser", "float32", GRAPH_FP32_TOL)]
+    saved = torch.backends.cudnn.deterministic
+    try:
+        for kind, dtype, tol in cases:
+            save = os.path.join(tmp, f"family_graph_{kind}_{dtype}")
+            runs = {}
+            for deterministic in (False, True):
+                torch.backends.cudnn.deterministic = deterministic
+                names = ("eager", "graphed") + (() if deterministic else ("eager again",))
+                with full_fp32() if dtype == "float32" else contextlib.nullcontext():
+                    trainers = {n: _family_trainer(kind, save, dtype, capture=n == "graphed")
+                                for n in names}
+                    losses = {n: _family_steps(tr) for n, tr in trainers.items()}
+                    torch.cuda.synchronize()
+                runs[deterministic] = trainers, losses
+            trainers, losses = runs[False]
+            control = {n: max(_family_diffs(trainers[n], trainers["eager"], losses[n],
+                                            losses["eager"])[0].values())
+                       for n in ("eager again", "graphed")}
+            trainers, losses = runs[True]
+            graphed, runner = trainers["graphed"], trainers["graphed"].graphed
+            errs, same = _family_diffs(graphed, trainers["eager"], losses["graphed"],
+                                       losses["eager"])
+            ok = (same and runner.graph is not None and trainers["eager"].graphed.graph is None
+                  and not any(runner.launches_per_replay.values())
+                  and all(v <= tol for v in errs.values())
+                  and bool(torch.isfinite(losses["graphed"]).all()))
+            print(f"family graph parity ({kind}, {dtype}"
+                  f"{', TF32 off' if dtype == 'float32' else ''}), 3 graphed vs 3 eager steps "
+                  f"under cuDNN's deterministic algorithms, relative l2: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (tolerance {tol}); counts {'equal' if same else 'DIFFER'}; capture "
+                  f"{runner.capture_ms:.1f} ms, {runner.pool_mib:.1f} MiB reserved by it, "
+                  f"launches per replay {runner.launches_per_replay}; control with cuDNN free "
+                  f"to choose, worst group: eager vs eager {control['eager again']:.3e}, graphed "
+                  f"vs eager {control['graphed']:.3e}; {'ok' if ok else 'FAIL'}")
+            check(ok, f"the graphed {kind} {dtype} step disagrees with the eager step")
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def _state_diffs(a, b):
@@ -2295,6 +2530,8 @@ def phase_gspmd_nccl(tmp: str, store: str):
         _profile_train_steps(runs["single"], label="gspmd nccl path (single-device graphed step)")
         _profile_train_steps(runs["2-D 1x1"], label="gspmd nccl path (1x1 graphed step)")
 
+        _family_on_1x1(tmp, mesh)
+
         save = os.path.join(tmp, "gspmd_nccl_logs")
         tcfg = TrainConfig(dataset_dir=store, save=save, n_epoch=256, epochs=1).validate()
         torch.cuda.synchronize()
@@ -2317,6 +2554,39 @@ def phase_gspmd_nccl(tmp: str, store: str):
     check(launches == want, f"launches {launches}, want {want}")
     _check_files(os.path.join(save, "adversarial", "arrays.npz"))
     return launches
+
+
+def _family_on_1x1(tmp: str, mesh):
+    """The c2f, autoencoder and denoiser trainers on ``mesh`` (the 1x1
+    mesh of a 1-rank NCCL group), their all-reduces inside the CUDA graph,
+    against the same trainers on one device: 3 graphed steps each in fp32
+    (TF32 off) under cuDNN's deterministic algorithms, bit for bit."""
+    import torch
+
+    from facegen_torch.sample import full_fp32
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in FAMILY:
+            with full_fp32():
+                save = os.path.join(tmp, f"gspmd_nccl_{kind}")
+                one, two = _family_trainer(kind, save), _family_trainer(kind, save, mesh=mesh)
+                losses_one, losses_two = _family_steps(one), _family_steps(two)
+                torch.cuda.synchronize()
+            errs, same = _family_diffs(two, one, losses_two, losses_one)
+            same &= bool(torch.equal(losses_two, losses_one))
+            runner = two.graphed
+            ok = (same and max(errs.values()) == 0.0 and one.graphed.graph is not None
+                  and runner.graph is not None and "all-gathers over the 1x1 mesh" in runner.route)
+            print(f"gspmd nccl family parity ({kind}, fp32, TF32 off, cuDNN deterministic): 3 "
+                  f"graphed steps on make_mesh2d(1, 1) vs the single-device graphed steps, "
+                  f"relative l2: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f"; counts and losses {'equal' if same else 'DIFFER'}; {runner.route}; "
+                  f"capture {runner.capture_ms:.1f} ms; {'ok' if ok else 'FAIL'}")
+            check(ok, f"the 1x1 graphed {kind} step is not bit-equal to the single-device one")
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 # the 2-D programs of ranks sharing the card over gloo: a rank of a gloo
@@ -2760,6 +3030,10 @@ def phase_gspmd_family(tmp: str, store: str):
           f"with their start); wall s per CLI on rank 0 {res[0]['walls']}; launches "
           f"(fwd, dx, dW) per rank {[r['launches'] for r in res]}")
     check(all(r["launches"] == [0, 0, 0] for r in res), "a kernel of the port launched")
+    routes = [ln.strip() for ln in logs[0].splitlines() if "step route:" in ln]
+    print(f"gspmd family path: rank 0's step routes {routes}")
+    check(len(routes) == 3 and all("gloo all-reduce of a CUDA tensor" in r for r in routes),
+          f"the family's routes under gloo: {routes}")
 
     here = os.path.abspath(__file__)
     out = os.path.join(tmp, "gspmd_family_steps")
@@ -3541,6 +3815,8 @@ def main() -> int:
             phase_c2f_step_parity()
             phase_ae_step_parity()
         phase_graph_parity()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_family_graph_parity(tmp)
         phase_guard_nonfinite()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -45,8 +45,10 @@ def make_triples(fine_u8: torch.Tensor, coarse_size: int) -> C2FPool:
 
 def gather_triple(pool: C2FPool, idx: torch.Tensor, dtype=torch.float32):
     """A batch of rows -> (fine, coarse, diff): fine and coarse in [0, 1],
-    diff in [-1, 1], computed in ``dtype`` as facegen computes them."""
-    scale = torch.tensor(255.0, dtype=dtype, device=pool.fine.device)
+    diff in [-1, 1], computed in ``dtype`` as facegen computes them, over a
+    0-d tensor filled on the device (a CUDA graph can capture a fill, not
+    a copy from the host)."""
+    scale = torch.full((), 255.0, dtype=dtype, device=pool.fine.device)
     fine = pool.fine[idx].to(dtype) / scale
     coarse = pool.coarse[idx].to(dtype) / scale
     return fine, coarse, fine - coarse

@@ -65,6 +65,13 @@ def dropout_mask_specs(model: nn.Module, batch: int, in_shape, device=None
     return {name: (shape, rates[name]) for name, shape in shapes.items()}
 
 
+def empty_masks(specs: Mapping[str, Tuple[Tuple[int, ...], float]], device
+                ) -> Dict[str, torch.Tensor]:
+    """Uninitialised bool masks of ``specs``' shapes, for ``draw_masks(out=)``."""
+    return {name: torch.empty(shape, dtype=torch.bool, device=device)
+            for name, (shape, _) in specs.items()}
+
+
 def draw_masks(generator: torch.Generator,
                specs: Mapping[str, Tuple[Tuple[int, ...], float]],
                out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -74,8 +81,7 @@ def draw_masks(generator: torch.Generator,
     its tensors, with the same values."""
     dev = generator.device
     if out is None:
-        out = {name: torch.empty(shape, dtype=torch.bool, device=dev)
-               for name, (shape, _) in specs.items()}
+        out = empty_masks(specs, dev)
     for name, (shape, rate) in specs.items():
         torch.lt(torch.rand(shape, generator=generator, device=dev), 1.0 - rate, out=out[name])
     return out

@@ -22,6 +22,15 @@ facegen's. Epoch ``e`` draws from a generator seeded by (seed, 30000 + e)
 for the AE and (seed, 40000 + e) for the denoiser, so a resumed run
 draws fresh batches.
 
+Both trainers' ``run_steps`` run the steps through train/graph.py's
+capture core (facegen's jit of each epoch, ae_loop.py:97-106, 280-289):
+on a card every step after the first replays one CUDA graph of the step,
+which reads the run's pool in place and static draws into which each
+step's draws are copied; the step points the dropout layers and the
+denoiser's white noise (both of its forwards) at those buffers. The
+denoiser's validation loss and both NaN guards run outside it, once per
+epoch.
+
 On a 2-D mesh (parallel/gspmd.py; facegen's ``gspmd_jit`` of the epochs,
 ae_loop.py:102-105, 142-167, 285-288, 332-360) both trainers run the
 single-device program on the global batch: every rank draws the epoch's
@@ -40,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Iterator, List, NamedTuple, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,6 +69,7 @@ from facegen_torch.parallel.gspmd import (
 )
 from facegen_torch.parallel.mesh import replicate
 from facegen_torch.train import losses
+from facegen_torch.train.graph import StepGraph, copy_into
 from facegen_torch.train.optim import adam, gated_update
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_grid
@@ -307,7 +317,8 @@ class _Trainer:
 class AETrainer(_Trainer):
     """train_autoencoder.lua's loop (facegen/train/ae_loop.py:125-193)."""
 
-    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None):
+    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None,
+                 capture: bool = True):
         self._place(cfg.validate(), device, verbose, mesh)
         cfg = self.cfg
         self.n_pool = pool_size(cfg, mesh)
@@ -326,13 +337,19 @@ class AETrainer(_Trainer):
         source = make_source(cfg, self.device)
         self.pool = source.epoch_pool(seeded_generator(self.device, cfg.seed, 2), self.n_pool)
         self.epoch, self.history = 0, []
+        self.draws = AEDraws(torch.empty(cfg.batch_size, dtype=torch.int64, device=self.device),
+                             dropout.empty_masks(self.step.mask_specs, self.device))
+        self.graphed = StepGraph(lambda: self.step(self.model, self.opt, self.pool, self.draws),
+                                 (), self.device, mesh, log=self._log, capture=capture,
+                                 name="autoencoder step")
 
     def epoch_draws(self, generator: torch.Generator) -> List[AEDraws]:
         return ae_epoch_draws(generator, self.cfg.batch_size, self.n_pool, self.step.mask_specs)
 
-    def run_steps(self, draws) -> torch.Tensor:
-        """One step per draws; their losses stacked on the device."""
-        return torch.stack([self.step(self.model, self.opt, self.pool, d) for d in draws])
+    def run_steps(self, draws: Sequence[AEDraws]) -> torch.Tensor:
+        """One step per draws, each copied into the static draws the
+        captured step reads; their losses stacked on the device."""
+        return self.graphed.run_steps(lambda i: copy_into(self.draws, draws[i]), len(draws))
 
     def train_epoch(self) -> dict:
         cfg, e = self.cfg, self.epoch
@@ -360,7 +377,8 @@ class AETrainer(_Trainer):
 class DenoiserTrainer(_Trainer):
     """train_denoiser.lua's loop (facegen/train/ae_loop.py:303-392)."""
 
-    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None):
+    def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None,
+                 capture: bool = True):
         self._place(cfg.validate(), device, verbose, mesh)
         cfg = self.cfg
         self.n_pool = pool_size(cfg, mesh)
@@ -386,6 +404,16 @@ class DenoiserTrainer(_Trainer):
         source = make_source(cfg, self.device, holdout=VAL_ROWS)
         self.pool = source.epoch_pool(seeded_generator(self.device, cfg.seed, 2), self.n_pool)
         self.val_pool = source.range_pool(0, VAL_ROWS)
+        noise = (cfg.batch_size,) + tuple(cfg.img_shape)
+        specs = self.step.mask_specs
+        self.draws = DenoiserDraws(
+            torch.empty(cfg.batch_size, dtype=torch.int64, device=self.device),
+            torch.empty(noise, device=self.device), dropout.empty_masks(specs, self.device),
+            torch.empty(noise, device=self.device), dropout.empty_masks(specs, self.device),
+            dropout.empty_masks(specs, self.device))
+        self.graphed = StepGraph(lambda: self.step(self.state, self.pool, self.draws), (2,),
+                                 self.device, mesh, log=self._log, capture=capture,
+                                 name="denoiser step")
 
     def resume(self, network: str, dec1: nn.Module, dec2: nn.Module):
         """--network: a checkpoint name or dir/name; a value that names no
@@ -405,9 +433,10 @@ class DenoiserTrainer(_Trainer):
         return denoiser_epoch_draws(generator, cfg.batch_size, cfg.img_shape, self.n_pool,
                                     self.step.mask_specs)
 
-    def run_steps(self, draws) -> torch.Tensor:
-        """One step per draws; (steps, 2) losses on the device."""
-        return torch.stack([self.step(self.state, self.pool, d) for d in draws])
+    def run_steps(self, draws: Sequence[DenoiserDraws]) -> torch.Tensor:
+        """One step per draws, each copied into the static draws the
+        captured step reads; (steps, 2) losses on the device."""
+        return self.graphed.run_steps(lambda i: copy_into(self.draws, draws[i]), len(draws))
 
     def train_epoch(self) -> dict:
         cfg, e = self.cfg, self.epoch

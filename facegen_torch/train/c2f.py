@@ -19,6 +19,14 @@ the real rows, the fake conditions' rows, the noise and D's dropout
 masks; per G iteration the conditions' rows, the noise and D's masks.
 ``draw_c2f_step`` makes them on the device; the tests rebuild facegen's.
 
+``C2FTrainer.run_steps`` runs the steps through train/graph.py's capture
+core (facegen's one ``lax.scan`` of the epoch under ``jax.jit``,
+c2f.py:205-214, 294): on a card every step after the first replays one
+CUDA graph of the step, which reads a static copy of the epoch's pool and
+static draws that ``draw_c2f_step(out=)`` fills before each step;
+approxParzen, the grid and the confusion matrix's reset run outside it,
+and the epoch's metrics are read back once.
+
 On a 2-D mesh (parallel/gspmd.py; facegen's ``make_gspmd_c2f_epoch``,
 c2f.py:278-291) the trainer runs the single-device program on the global
 batch, as the GAN's step does there (train/step.py): every rank draws
@@ -60,6 +68,7 @@ from facegen_torch.nn.init import seeded_generator
 from facegen_torch.parallel.gspmd import flat_all_reduce, global_rows, shard_params
 from facegen_torch.parallel.mesh import replicate
 from facegen_torch.train import losses, metrics as M
+from facegen_torch.train.graph import StepGraph
 from facegen_torch.train.optim import gated_update, make_c2f_optimizer
 from facegen_torch.train.step import make_boundary_padder, steps_per_epoch
 from facegen_torch.utils import checkpoint as ckpt
@@ -123,26 +132,55 @@ def init_c2f_state(cfg: C2FConfig, g: nn.Module, d: nn.Module, mesh=None) -> C2F
     )
 
 
-def draw_c2f_step(generator: torch.Generator, cfg: C2FConfig, pool_n: int,
-                  mask_specs: Dict[str, Tuple[Tuple[int, ...], float]]) -> C2FStepDraws:
-    """One step's draws from ``generator``, on its device; ``mask_specs``
-    as ``C2FStep.mask_specs``."""
-    dev, fs, half = generator.device, cfg.fine_size, cfg.batch_size // 2
+def empty_c2f_draws(cfg: C2FConfig, mask_specs: Dict[str, Tuple[Tuple[int, ...], float]],
+                    device) -> C2FStepDraws:
+    """Uninitialised buffers of one step's draws, for ``draw_c2f_step(out=)``."""
+    fs, half = cfg.fine_size, cfg.batch_size // 2
 
     def idx(n):
-        return torch.randint(0, pool_n, (n,), generator=generator, device=dev)
+        return torch.empty(n, dtype=torch.int64, device=device)
 
     def noise(n):
-        return torch.rand(n, fs, fs, 1, generator=generator, device=dev) * 2.0 - 1.0
+        return torch.empty(n, fs, fs, 1, device=device)
 
     def masks():
-        return dropout.draw_masks(generator, mask_specs)
+        return dropout.empty_masks(mask_specs, device)
 
-    d = tuple(C2FDDraws(idx(half), idx(half), noise(half), masks())
-              for _ in range(cfg.d_iterations))
-    g = tuple(C2FGDraws(idx(cfg.batch_size), noise(cfg.batch_size), masks())
-              for _ in range(cfg.g_iterations))
-    return C2FStepDraws(d, g)
+    return C2FStepDraws(
+        tuple(C2FDDraws(idx(half), idx(half), noise(half), masks())
+              for _ in range(cfg.d_iterations)),
+        tuple(C2FGDraws(idx(cfg.batch_size), noise(cfg.batch_size), masks())
+              for _ in range(cfg.g_iterations)))
+
+
+def draw_c2f_step(generator: torch.Generator, cfg: C2FConfig, pool_n: int,
+                  mask_specs: Dict[str, Tuple[Tuple[int, ...], float]],
+                  out: Optional[C2FStepDraws] = None) -> C2FStepDraws:
+    """One step's draws from ``generator``, on its device; ``mask_specs``
+    as ``C2FStep.mask_specs``. With ``out`` (``empty_c2f_draws``, e.g. a
+    CUDA graph's static buffers) they are written into its tensors: the
+    same values, drawn in the same order."""
+    dev = generator.device
+    if out is None:
+        out = empty_c2f_draws(cfg, mask_specs, dev)
+
+    def idx(buf):
+        torch.randint(0, pool_n, buf.shape, generator=generator, device=dev, out=buf)
+
+    def noise(buf):  # U(-1, 1)
+        torch.rand(buf.shape, generator=generator, device=dev, out=buf)
+        buf.mul_(2.0).sub_(1.0)
+
+    for dd in out.d:
+        idx(dd.idx_real)
+        idx(dd.idx_fake)
+        noise(dd.noise)
+        dropout.draw_masks(generator, mask_specs, out=dd.masks)
+    for gd in out.g:
+        idx(gd.idx)
+        noise(gd.noise)
+        dropout.draw_masks(generator, mask_specs, out=gd.masks)
+    return out
 
 
 class C2FStep:
@@ -287,7 +325,7 @@ class C2FTrainer:
     (seed, 20000 + i, k), so a resumed run draws fresh pools."""
 
     def __init__(self, cfg: C2FConfig, device=None, source=None, verbose: bool = True,
-                 mesh=None):
+                 mesh=None, capture: bool = True):
         self.cfg = cfg.validate()
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
@@ -311,6 +349,12 @@ class C2FTrainer:
             replicate([*g.parameters(), *g.buffers(), *d.parameters(), *d.buffers()], mesh)
         self.state = init_c2f_state(cfg, g, d, mesh)
         self.step = C2FStep(cfg, g, d, mesh)
+        # the step as a CUDA graph on a card (train/graph.py): it reads the
+        # static pool and draws, which each epoch and step write
+        self.draws = empty_c2f_draws(cfg, self.step.mask_specs, self.device)
+        self.graphed = StepGraph(
+            lambda: torch.stack(self.step(self.state, self.graphed.pool, self.draws)), (3,),
+            self.device, mesh, log=self._log, capture=capture, name="c2f step")
         self.pool_n = cfg.n_epoch if cfg.n_epoch > 0 else source.size
         self.best_dist = math.inf
         # VAL_DATA = the first val_size images (train_c2f.lua:218)
@@ -356,11 +400,13 @@ class C2FTrainer:
 
     def run_steps(self, pool: C2FPool, generator: torch.Generator,
                   n_steps: int) -> C2FStepMetrics:
-        """``n_steps`` steps on ``pool``; their metrics stacked on the device."""
-        ms = [self.step(self.state, pool,
-                        draw_c2f_step(generator, self.cfg, pool.size, self.step.mask_specs))
-              for _ in range(n_steps)]
-        return C2FStepMetrics(*(torch.stack(xs) for xs in zip(*ms)))
+        """``n_steps`` steps on ``pool`` through the captured step; their
+        metrics stacked on the device."""
+        self.graphed.set_pool(pool)
+        cfg, specs = self.cfg, self.step.mask_specs
+        rows = self.graphed.run_steps(
+            lambda i: draw_c2f_step(generator, cfg, pool.size, specs, out=self.draws), n_steps)
+        return C2FStepMetrics(*rows.unbind(1))
 
     def parzen(self, generator: torch.Generator) -> np.ndarray:
         """approxParzen over the validation pool, ``batch_size`` refinements

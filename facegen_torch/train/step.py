@@ -169,8 +169,7 @@ def empty_draws(cfg: TrainConfig, mask_specs: Dict[str, Tuple[Tuple[int, ...], f
     half = batch // 2
 
     def masks():
-        return {name: torch.empty(shape, dtype=torch.bool, device=device)
-                for name, (shape, _) in mask_specs.items()}
+        return dropout.empty_masks(mask_specs, device)
 
     def noise(n):
         return torch.empty(n, cfg.noise_dim, device=device)

@@ -33,6 +33,7 @@ import optax
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.config import TrainConfig as JaxTrainConfig
 from facegen.models import ae as jax_ae
 from facegen.nn import Ctx, layers as JL, sequential as jax_sequential

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.ops import upsample_conv as jax_uc
 from facegen.ops.pallas.upsample_conv import (
     space_to_depth as jax_space_to_depth,

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.config import C2FConfig as JaxC2FConfig
 from facegen.data.c2f import gather_triple as jax_gather_triple
 from facegen.data.c2f import make_triples as jax_make_triples

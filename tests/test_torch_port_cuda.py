@@ -963,3 +963,178 @@ def test_trace_of_graphed_replays_lists_the_three_kernels(cuda_device, tmp_path)
              for k in ("UpconvFwd", "UpconvDx", "UpconvDw")}
     assert calls == {"UpconvFwd": 12, "UpconvDx": 6, "UpconvDw": 6}
     assert summary["total_us"] > 0 and summary["device"] != "host (no device track)"
+
+
+# ------------------------------------------ the c2f, autoencoder and denoiser graphs
+FAMILY = ("c2f", "autoencoder", "denoiser")
+NO_LAUNCHES = dict.fromkeys(("KERNEL_LAUNCHES", "DX_LAUNCHES", "DW_LAUNCHES"), 0)
+
+
+def _family_trainer(kind, save, dtype="float32", **kw):
+    """A c2f, autoencoder or denoiser trainer on cuda:0 at its CLI's
+    defaults on synthetic data (--N_epoch 256), fp32 unless ``dtype`` (the
+    c2f's); the c2f with --G_L2 1e-3 and the AE family with --coefL1 1e-4,
+    which make the gradients of the biases that feed batch norms the
+    penalty's instead of rounding noise that Adam turns into a step of
+    either sign."""
+    from facegen_torch.config import C2FConfig, TrainConfig
+    from facegen_torch.train.ae_loop import AETrainer, DenoiserTrainer
+    from facegen_torch.train.c2f import C2FTrainer
+
+    dev, common = torch.device("cuda", 0), dict(synthetic_data=True, n_epoch=256, save=save)
+    if kind == "c2f":
+        return C2FTrainer(C2FConfig(compute_dtype=dtype, g_l2=1e-3, **common), device=dev,
+                          verbose=False, **kw)
+    if kind == "autoencoder":
+        return AETrainer(TrainConfig(scale=32, grayscale=True, noise_dim=256, coef_l1=1e-4,
+                                     **common), device=dev, verbose=False, **kw)
+    return DenoiserTrainer(TrainConfig(scale=16, coef_l1=1e-4, **common), device=dev,
+                           verbose=False, **kw)
+
+
+def _family_steps(trainer, n=3, seed=7):
+    """``n`` steps of ``trainer.run_steps`` on an epoch's pool and draws
+    from ``seed``; their losses, (n, k) on the device."""
+    from facegen_torch.data.c2f import make_triples
+    from facegen_torch.train.c2f import C2FTrainer
+
+    gen = torch.Generator(trainer.device).manual_seed(seed)
+    if isinstance(trainer, C2FTrainer):
+        pool = make_triples(trainer.source.epoch_pool(gen, trainer.pool_n),
+                            trainer.cfg.coarse_size)
+        return torch.stack(trainer.run_steps(pool, gen, n), 1)
+    return trainer.run_steps(trainer.epoch_draws(gen)[:n]).reshape(n, -1)
+
+
+def _family_state(trainer):
+    """({group: tensors}: each net's parameters, batch-norm statistics and
+    Adam moments; [the optimizer counts and the c2f's confusion matrix])."""
+    from facegen_torch.train.ae_loop import AETrainer, DenoiserTrainer
+
+    st = getattr(trainer, "state", None)
+    if isinstance(trainer, AETrainer):
+        nets, opts, exact = {"ae": trainer.model}, {"ae": trainer.opt}, []
+    elif isinstance(trainer, DenoiserTrainer):
+        nets, opts, exact = ({"dec1": st.dec1, "dec2": st.dec2},
+                             {"dec1": st.opt1, "dec2": st.opt2}, [])
+    else:
+        nets, opts, exact = {"g": st.g, "d": st.d}, {"g": st.opt_g, "d": st.opt_d}, [st.confusion]
+    groups = {}
+    for k, net in nets.items():
+        groups[f"{k} parameters"] = list(net.parameters())
+        if list(net.buffers()):
+            groups[f"{k} statistics"] = list(net.buffers())
+        for kind in ("mu", "nu"):
+            groups[f"{k} {kind}"] = opts[k][kind]
+    return groups, [opt["count"] for opt in opts.values()] + exact
+
+
+def _assert_family_close(a, b, losses_a, losses_b, tol):
+    (ga, ea), (gb, eb) = _family_state(a), _family_state(b)
+    for k in ga:
+        assert _rel_l2(ga[k], [t.cpu() for t in gb[k]]) <= tol, k
+    assert all(torch.equal(x, y) for x, y in zip(ea, eb))
+    assert _rel_l2([losses_a], [losses_b.cpu()]) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,tol", [("c2f", "float32", 1e-5), ("c2f", "bfloat16", 1e-3),
+                                            ("autoencoder", "float32", 1e-5),
+                                            ("denoiser", "float32", 1e-5)])
+def test_family_graphed_steps_match_eager_steps(cuda_device, tmp_path, kind, dtype, tol):
+    """3 steps through the trainer's CUDA graph (one eager warm-up, the
+    capture, two replays) against 3 steps of the same trainer built with
+    ``capture=False``, from the same state on the same pool and draws,
+    under cuDNN's deterministic algorithms: fp32 (TF32 off) within 1e-5
+    relative l2 over the parameters, the batch-norm statistics, Adam's
+    moments and the losses, the c2f's bf16 within 1e-3; the counts equal;
+    no kernel of the port in the capture. (With cuDNN free to choose, the
+    c2f's fp32 convs differ from run to run: two eager runs read 1.3e-3
+    on an H100.)"""
+    from facegen_torch.train.graph import WARMUP_STEPS
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = _family_trainer(kind, str(tmp_path), dtype, capture=False)
+        graphed = _family_trainer(kind, str(tmp_path), dtype)
+        losses_e, losses_g = _family_steps(eager), _family_steps(graphed)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    runner = graphed.graphed
+    assert runner.route == "one CUDA graph replay a step" and eager.graphed.graph is None
+    assert runner.graph is not None and runner.eager_steps == WARMUP_STEPS
+    assert runner.launches_per_replay == NO_LAUNCHES
+    assert bool(torch.isfinite(losses_g).all())
+    _assert_family_close(graphed, eager, losses_g, losses_e, tol)
+
+
+class _Collecting:
+    """A trainer's step that runs a collection when it is called inside a
+    capture, as the interpreter may at any allocation."""
+
+    def __init__(self, step):
+        self.step, self.mask_specs = step, step.mask_specs
+
+    def __call__(self, *args):
+        import gc
+
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return self.step(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", FAMILY)
+def test_a_family_capture_survives_garbage_graphs(cuda_device, tmp_path, kind):
+    """Two trainers of the kind that captured their step and became
+    garbage (each holds its graph in a reference cycle: the trainer, its
+    runner, the step closure) wait while a third captures, and a
+    collection runs inside that capture; no graph is destroyed inside it."""
+    trainer = _family_trainer(kind, str(tmp_path / "live"))
+    trainer.step = _Collecting(trainer.step)
+    _family_steps(trainer, 1)  # the eager warm-up: the next step captures
+    for i in range(2):
+        old = _family_trainer(kind, str(tmp_path / f"old{i}"))
+        _family_steps(old, 2, seed=8)
+        assert old.graphed.graph is not None
+        del old
+    losses = _family_steps(trainer, 2, seed=9)
+    torch.cuda.synchronize()
+    assert trainer.graphed.graph is not None and bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", FAMILY)
+def test_family_on_a_1x1_nccl_mesh_equals_the_single_device_graph(cuda_device, tmp_path, kind):
+    """The trainer on ``make_mesh2d(1, 1)`` of a 1-rank NCCL group, its
+    all-reduces inside the CUDA graph, against the same trainer on one
+    device: 3 graphed steps each in fp32 (TF32 off) under cuDNN's
+    deterministic algorithms, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from facegen_torch.parallel import make_mesh2d, maybe_initialize
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert maybe_initialize({"FACEGEN_COORDINATOR": f"127.0.0.1:{port}",
+                             "FACEGEN_NUM_PROCESSES": "1", "FACEGEN_PROCESS_ID": "0"})
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh2d(1, 1)
+        one = _family_trainer(kind, str(tmp_path))
+        two = _family_trainer(kind, str(tmp_path), mesh=mesh)
+        losses_one, losses_two = _family_steps(one), _family_steps(two)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        dist.destroy_process_group()
+    assert one.graphed.graph is not None and two.graphed.graph is not None
+    assert "all-gathers over the 1x1 mesh inside it" in two.graphed.route
+    assert torch.equal(losses_two, losses_one)
+    _assert_family_close(two, one, losses_two, losses_one, 0.0)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.data import augment as jax_aug
 from facegen.data.pipeline import prepare_pool as jax_prepare_pool
 from facegen.data.synthetic import synthetic_faces as jax_synthetic_faces

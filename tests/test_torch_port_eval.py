@@ -32,6 +32,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.data.pipeline import prepare_pool as jax_prepare_pool
 from facegen.data.synthetic import synthetic_faces as jax_synthetic_faces
 from facegen.eval import parity as jp

@@ -72,7 +72,6 @@ not run on a mesh here: its step and epoch factories are.
 import dataclasses
 import json
 import os
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -86,6 +85,7 @@ import test_torch_port_c2f as tc2f
 import test_torch_port_parallel as tpp
 import torch_port_gspmd_ranks as ranks
 import torch_port_parallel_ranks as tpr
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.config import TrainConfig as JaxTrainConfig
 from facegen.models import ae as jax_ae
 from facegen.models import c2f as jax_c2f
@@ -307,13 +307,11 @@ def _denoiser_inputs(work):
     return facegen
 
 
-@pytest.fixture(scope="module")
-def ranks_run(tmp_path_factory):
+def _ranks_and_facegen(work):
     """The ranks' programs in one spawn of four processes, started first:
     they wait for each program's inputs as the parent writes them
     (``torch_port_parallel_ranks.wait_for``); facegen's steps and epochs
-    computed meanwhile."""
-    work = str(tmp_path_factory.mktemp("gspmd_ranks"))
+    computed meanwhile. Returns facegen's side."""
     ctx = ranks.spawn(work, join=False)
     try:
         gan_in, kwargs = {}, {}
@@ -341,8 +339,17 @@ def ranks_run(tmp_path_factory):
     finally:
         while not ctx.join(timeout=600):
             pass
-    yield work, side
-    shutil.rmtree(work)
+    return tpp._numpy(side)
+
+
+@pytest.fixture(scope="session")
+def ranks_run(tmp_path_factory):
+    """(the ranks' work directory, facegen's side), built once per test
+    session: under pytest-xdist the first worker to need it runs the four
+    ranks and facegen's side, the others read its files, and the last
+    worker to finish removes them (``torch_port_parallel_ranks.run_once``)."""
+    with tpr.run_once(tmp_path_factory, "gspmd_ranks", _ranks_and_facegen) as run:
+        yield run
 
 
 def _reports(work, name, mesh_name):

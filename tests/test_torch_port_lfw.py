@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.data import lfw as jax_lfw
 from facegen_torch.data import lfw
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.models import gan as jax_gan
 from facegen.nn import Ctx, init as jax_init, layers as JL, sequential as jax_sequential
 from facegen.nn.core import param_count

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.ops import upsample_conv as jax_uc
 from facegen.ops.pallas.upsample_conv import upsample_conv_pallas
 from facegen_torch.nn.layers import UpsampleConv

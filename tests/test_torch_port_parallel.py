@@ -40,6 +40,7 @@ import pytest
 import torch
 
 import torch_port_parallel_ranks as ranks
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.config import TrainConfig as JaxTrainConfig
 from facegen.models import gan as jax_gan
 from facegen.parallel import make_mesh as jax_make_mesh
@@ -172,12 +173,16 @@ def _jax_steps(jg, jd, bundle, pool, kw):
     return start, jax_ckpt.flatten_tree(jax.device_get(state)), rows
 
 
-@pytest.fixture(scope="module")
-def ranks_run(tmp_path_factory):
+def _numpy(tree):
+    """``tree`` with its JAX arrays as numpy arrays (picklable anywhere)."""
+    return jax.tree.map(lambda x: np.asarray(x) if isinstance(x, jax.Array) else x, tree)
+
+
+def _ranks_and_facegen(work):
     """The ranks' programs ("gate", "trainers", "steps") in one pair of
     processes, started first: they wait for each input as the parent
-    writes it (``ranks.wait_for``); facegen's steps computed meanwhile."""
-    work = str(tmp_path_factory.mktemp("ranks"))
+    writes it (``ranks.wait_for``); facegen's steps computed meanwhile.
+    Returns facegen's side, with numpy arrays."""
     ctx = ranks.spawn(work, ["gate", "trainers", "steps"], join=False)
     try:
         inputs, kwargs = {}, {}
@@ -197,8 +202,17 @@ def ranks_run(tmp_path_factory):
     finally:
         while not ctx.join(timeout=600):
             pass
-    yield work, jax_side
-    shutil.rmtree(work)  # its states and checkpoints: ~0.5 GB
+    return _numpy(jax_side)
+
+
+@pytest.fixture(scope="session")
+def ranks_run(tmp_path_factory):
+    """(the ranks' work directory, facegen's side), built once per test
+    session (``ranks.run_once``): under pytest-xdist the other workers read
+    the first one's files, and the last worker to finish removes them
+    (the ranks' states and checkpoints: ~0.9 GB)."""
+    with ranks.run_once(tmp_path_factory, "ranks", _ranks_and_facegen) as run:
+        yield run
 
 
 def _assert_ranks_equal(work, name):

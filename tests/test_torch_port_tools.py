@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.config import TrainConfig as JaxTrainConfig
 from facegen.export import export_generator as jax_export_generator
 from facegen.models import gan as jax_gan

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.config import TrainConfig as JaxTrainConfig
 from facegen.config import train_config_from_args as jax_config_from_args
 from facegen.train import losses as jax_losses

@@ -47,6 +47,7 @@ import torch
 
 import test_torch_port_c2f as tc2f
 import test_torch_port_train_step as tts
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.models import gan as jax_gan
 from facegen.nn import init as jax_winit
 from facegen.train import c2f as jax_train_c2f

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_threads  # noqa: F401  (this xdist worker's share of the cores)
 from facegen.config import TrainConfig as JaxTrainConfig
 from facegen.models import gan as jax_gan
 from facegen.train.step import init_state as jax_init_state

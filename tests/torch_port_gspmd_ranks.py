@@ -87,8 +87,10 @@ def spawn(work: str, join: bool = True):
 
 
 def _rank_main(rank: int, work: str):
+    # the ranks keep the test workers' priority: a rank's collectives wait
+    # for its peers, and under the whole suite's load a rank at nice 10
+    # (about a tenth of a nice-0 process's share of the CPU) stalls them
     torch.set_num_threads(2)
-    os.nice(10)  # the parent computes facegen's side meanwhile: it comes first
     store = dist.FileStore(os.path.join(work, "filestore"), WORLD)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD)
     try:

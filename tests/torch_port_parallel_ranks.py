@@ -12,10 +12,14 @@ reach the parent as the spawned process's exception.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
+import pickle
+import shutil
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -49,6 +53,7 @@ from facegen_torch.train.step import (
 from facegen_torch.utils import checkpoint as ckpt
 
 WORLD = 2
+SHARED_WAIT_S = 900.0  # how long a test worker waits for another to build a ranks run
 # the Trainer cases: 4 steps of batch 8 per epoch, 16x16 gray
 TINY = dict(scale=16, grayscale=True, noise_dim=8, batch_size=8, n_epoch=16,
             synthetic_data=True, noplot=True, compute_dtype="float32", reference_init=False)
@@ -94,6 +99,60 @@ def wait_for(work: str, name: str, timeout: float = 600.0) -> str:
             raise TimeoutError(f"no {name} after {timeout} s")
         time.sleep(0.05)
     return path
+
+
+@contextlib.contextmanager
+def run_once(tmp_path_factory, name: str, build, timeout: float = SHARED_WAIT_S):
+    """Yields ``(work, side)``: ``build(work)`` run once per test session in
+    the directory ``work``, returning ``side`` (picklable: numpy arrays,
+    not JAX's). Under pytest-xdist the workers share the session's base
+    directory (pytest-xdist's recipe for a session fixture): the first
+    worker to take the file lock builds and pickles ``side`` beside the
+    ranks' files, and the others wait for the lock, at most ``timeout``
+    seconds, then read them. A failed build leaves its traceback, which
+    every later caller raises at once. Each worker that uses ``work``
+    holds a marker in ``<name>.users`` until the context ends; the last
+    to leave removes ``work`` (several GB of states and checkpoints), so
+    no worker removes what another may still read."""
+    from filelock import FileLock, Timeout  # torch depends on filelock
+
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    work, users = root / name, root / f"{name}.users"
+    done, failed = work / "side.pkl", work / "failed.txt"
+    lock = FileLock(str(root / f"{name}.lock"), timeout=timeout)
+    marker = users / os.environ.get("PYTEST_XDIST_WORKER", "main")
+    side = None
+    try:
+        with lock:
+            users.mkdir(exist_ok=True)
+            marker.touch()
+            if failed.exists():
+                raise RuntimeError(f"building {name} failed in another worker:\n"
+                                   f"{failed.read_text()}")
+            if not done.exists():
+                work.mkdir(exist_ok=True)
+                try:
+                    side = build(str(work))
+                except BaseException:
+                    failed.write_text(traceback.format_exc())
+                    raise
+                with open(str(done) + ".tmp", "wb") as f:
+                    pickle.dump(side, f)
+                os.replace(str(done) + ".tmp", done)
+    except Timeout:
+        raise TimeoutError(f"waited {timeout} s for another worker to build {name} "
+                           f"under {root}") from None
+    if side is None:
+        with open(done, "rb") as f:
+            side = pickle.load(f)
+    try:
+        yield str(work), side
+    finally:
+        with lock:
+            marker.unlink(missing_ok=True)
+            if not any(users.iterdir()) and not failed.exists():
+                shutil.rmtree(work, ignore_errors=True)
 
 
 def spawn(work: str, programs, env=None, join: bool = True):
