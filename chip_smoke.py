@@ -6,10 +6,11 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles the CUDA kernels from facegen_torch/csrc, one nvcc per
-   source, in parallel (seconds), prints ptxas's registers and spills, and
-   fails unless the bf16 forward, dx and dW kernels hold HGMMA (wgmma)
-   instructions in their SASS (cuobjdump);
+2. build: compiles the CUDA kernels from facegen_torch/csrc (the
+   upsample-conv's three and the update's two, csrc/fused_update.cu), one
+   nvcc per source, in parallel (seconds), prints ptxas's registers and
+   spills, and fails unless the bf16 forward, dx and dW kernels hold HGMMA
+   (wgmma) instructions in their SASS (cuobjdump);
 3. kernels: the upsample + conv forward kernel against its plain PyTorch
    version (the phase conv) at G's two layers at the sampler's batch
    (N = 1024) and at every batch of the training path (16, 32, 100,
@@ -40,12 +41,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    (G32 + D32b colour, batch 32, bf16) on the store for 2 epochs of 63
    steps with --saveFreq 1, then a resume for a third, every step after
    the first a replay of the step's CUDA graph (train/graph.py); checks
-   every kernel's launch count against the steps and grids, finite
+   every kernel's launch count against the steps and grids (the update's
+   two kernels once per net a step, also in every later GAN path), finite
    losses, metrics.jsonl, the checkpoint and its .old; holds one fp32 step
    on the card against the same step on the CPU; reports training
    images/s, the capture, and the ms per step and a profile of the step
    by kernel family with the device's busy share, for the graphed step
-   and for the eager step in the same call;
+   and for the eager step in the same call, then the graphed step with
+   the update's kernels against the same step recaptured with the plain
+   update (fused, plain, plain, fused: kernels a step, device time, the
+   elementwise share, ms on the stream); phases 7, 10 and 11 do the same;
 7. c2f training path: ``facegen_torch.train_c2f.main`` at the default
    flags (fine 32, coarse 16, colour, batch 32, bf16) on the store for 2
    epochs of 63 steps with --saveFreq 1, then a resume for a third; checks
@@ -180,6 +185,18 @@ Phases, each printing its own lines; any failure exits non-zero:
     choose, eager against eager and graphed against eager (printed: the
     c2f's fp32 convs then differ run to run).
 
+32. the update's two kernels (csrc/fused_update.cu; run after phase 4):
+    prep (the penalty's gradient, the clamp, sum |p| and sum p^2, the
+    count of entries that are not finite) and the gated update against
+    their plain versions on the leaves of G32, D32b, G16, D16_d, the c2f's
+    G and D, the autoencoder and a denoiser decoder at full width (Adam;
+    Adagrad, SGD and SGD with momentum on D32b), a closed gate bit-equal,
+    a second launch bit-equal, the tickets left at 0; then both timed at
+    the GAN step's leaves (D32b's and G32's at the default flags) in turns
+    with the plain versions and, for the update, torch._fused_adam_ on the
+    same leaves (ungated, no penalty): each row's bound (bytes at
+    3.35 TB/s) and share of it.
+
 Every step profile (phases 5-29) reads the device's events from a trace
 (facegen_torch.utils.profiling: ``trace`` + ``aggregate_trace``) and the
 host's wall time from as many untraced steps run just before.
@@ -191,9 +208,11 @@ exits non-zero before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -208,8 +227,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                          "facegen/ops/pallas/upsample_conv.py:140"),
     "upsample_conv_dw": ("facegen_torch/csrc/upsample_conv_bwd.cu",
                          "facegen/ops/pallas/upsample_conv.py:158"),
+    # the update's two kernels stand for no Pallas kernel but for XLA's
+    # fusion of facegen's tree.maps: the penalty, clamp and finite check,
+    # and the gated optax update
+    "fused_prep": ("facegen_torch/csrc/fused_update.cu", "facegen/train/losses.py:32"),
+    "fused_update": ("facegen_torch/csrc/fused_update.cu", "facegen/train/optim.py:48"),
 }
-SOURCES = ("upsample_conv", "upsample_conv_bwd")
+UPCONV = ("upsample_conv_fwd", "upsample_conv_dx", "upsample_conv_dw")
+SOURCES = ("upsample_conv", "upsample_conv_bwd", "fused_update")
 
 # (N, H, Cin, Cout, K): G32's upconv1 and upconv2 at the sampler's batch
 G_SHAPES = [(1024, 8, 128, 256, 5), (1024, 16, 256, 128, 5)]
@@ -317,8 +342,18 @@ DP_SERVE_FP32_TOL = 1e-5
 # sums in other orders over trained weights, ~1e-6
 EXPORT_TOL = 1e-4
 
-# the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
+# the update's kernels against their plain versions on the same card
+# tensors: gradients, parameters and optimizer states within 1e-6 relative
+# l2 (each product and sum rounded alone on both sides; powf and rsqrtf may
+# differ in the last bit); prep's sums of |p| and p^2 within 1e-5 relative
+# (fp64 partials against fp32 sums); counts exact
+UPDATE_TOL = 1e-6
+SUMS_RTOL = 1e-5
+
+# the H100 SXM's published dense bf16 tensor-core rate, fp32 rate outside
+# the tensor cores, and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -853,6 +888,177 @@ def _check_empty_batches():
             check(ok, f"the wrappers at N = 0 ({h}, {cin}, {cout}, {dtype})")
 
 
+def _update_leaves(shapes, dev, seed, tx):
+    """Seeded parameters, gradients (some beyond a clamp of 0.02) and
+    ``tx``'s state three steps in, on the card."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    params = [(torch.randn(s, generator=gen) * 0.05).to(dev) for s in shapes]
+    grads = [(torch.randn(s, generator=gen) * 0.012).to(dev) for s in shapes]
+    state = tx.init(params)
+    for key, v in state.items():
+        if key == "count":
+            v.fill_(3)
+        else:
+            for t in v:
+                t.copy_((torch.rand(t.shape, generator=gen) * 1e-4).to(dev))
+    return params, grads, state
+
+
+def _state_list(state):
+    from facegen_torch.train.optim import _state_tensors
+
+    return _state_tensors(state)
+
+
+def _max_abs(ours, ref):
+    return max(float((a.float() - b.float()).abs().max()) for a, b in zip(ours, ref))
+
+
+def _check_update_kernels(label, shapes, tx, dev, prep_args, gate, seed=0):
+    """Both kernels over one net's leaves against their plain versions on
+    copies of the same card tensors, a closed gate, and a second launch;
+    returns (prep's max abs error, update's)."""
+    import torch
+
+    from facegen_torch.ops import fused_update as fu
+
+    params, grads, state = _update_leaves(shapes, dev, seed, tx)
+    again = [g.clone() for g in grads]
+    ref_grads, ref_stats = fu.prep_reference(params, [g.clone() for g in grads], **prep_args)
+    grads, stats = fu.prep(params, grads, **prep_args)  # in place on the card
+    again, stats2 = fu.prep(params, again, **prep_args)  # a second launch on the same inputs
+    ref_p = [p.clone() for p in params]
+    ref_s = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+             for k, v in state.items()}
+    fu.update_reference(tx, [g.clone() for g in grads], ref_s, ref_p, gate)
+    kept = ([p.clone() for p in params], [t.clone() for t in _state_list(state)])
+    closed = torch.zeros((), dtype=torch.bool, device=dev)
+    fu.update(tx, grads, state, params, closed)
+    torch.cuda.synchronize()
+    closed_ok = (all(torch.equal(a, b) for a, b in zip(params, kept[0]))
+                 and all(torch.equal(a, b) for a, b in zip(_state_list(state), kept[1])))
+    fu.update(tx, grads, state, params, gate)
+    torch.cuda.synchronize()
+    closed_ok &= all(torch.equal(a, b) for a, b in zip(grads, again))
+    closed_ok &= not fu._TICKETS[dev.index].any()  # every launch leaves them at 0
+    prep_err, update_err = _max_abs(grads, ref_grads), _max_abs(params, ref_p)
+    errs = {"grads": _rel_l2(grads, [g.cpu() for g in ref_grads]),
+            "params": _rel_l2(params, [p.cpu() for p in ref_p])}
+    for ours, ref in zip(_state_list(state), _state_list(ref_s)):
+        if ours.dtype == torch.int32:
+            closed_ok &= int(ours) == int(ref)
+        else:
+            errs["state"] = max(errs.get("state", 0.0), _rel_l2([ours], [ref.cpu()]))
+    sums_err = 0.0
+    if stats is not None:
+        a, b = stats.cpu().double(), ref_stats.cpu().double()
+        sums_err = float(((a[:2] - b[:2]).abs() / b[:2].abs().clamp(min=1e-30)).max())
+        closed_ok &= bool(a[2] == b[2]) and torch.equal(stats, stats2)  # deterministic sums
+    ok = closed_ok and all(v <= UPDATE_TOL for v in errs.values()) and sums_err <= SUMS_RTOL
+    print(f"update kernels check {label} ({len(shapes)} leaves, "
+          f"{sum(math.prod(sh) for sh in shapes)} parameters): relative l2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f", sums {sums_err:.3e} (tolerances {UPDATE_TOL}, {SUMS_RTOL}); max_abs_err prep "
+          f"{prep_err:.3e}, update {update_err:.3e}; closed gate, count and second launch "
+          f"{'bit-equal' if closed_ok else 'DIFFER'}; {'ok' if ok else 'FAIL'}")
+    check(ok, f"the update's kernels disagree with their plain versions ({label})")
+    return prep_err, update_err
+
+
+def phase_update_kernels():
+    """Phase 32: the update's two kernels against their plain versions on
+    every trainer's nets at full width, then timed at the GAN step's leaves
+    (D32b's and G32's at the default flags) in turns with the plain
+    versions and, for the update, one library call (torch._fused_adam_ on
+    the same leaves, ungated, no penalty). Returns the kernels line's
+    numbers for both, summed over D's and G's launch of a step."""
+    import torch
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.models import ae, c2f, gan
+    from facegen_torch.ops import fused_update as fu
+    from facegen_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    g32, d32b = gan.init_gan(gen, 32, 3, 100)
+    g16, d16 = gan.init_gan(gen, 16, 3, 100)
+    c2f_g, c2f_d = c2f.init_c2f(gen, 32, 3)
+    nets = {"G32": g32, "D32b": d32b, "G16": g16, "D16_d": d16, "c2f G": c2f_g, "c2f D": c2f_d,
+            "AE": ae.create_autoencoder(32, 1, 256, generator=gen),
+            "denoiser decoder": ae.init_denoiser(gen, 16, 3)[1]}
+    shapes = {k: [tuple(p.shape) for p in m.parameters()] for k, m in nets.items()}
+    every = dict(sign_coef=1e-3, linear_coef=1e-4, clamp=0.02, sums=True, count=True)
+    gate = torch.ones((), dtype=torch.bool, device=dev)
+    for name, sh in shapes.items():
+        _check_update_kernels(f"{name}, adam, penalty + clamp + sums + count", sh,
+                              make_optimizer("adam", TrainConfig(), "D"), dev, every, gate)
+    for method, flags in (("adagrad", {}), ("sgd", {}), ("sgd", {"d_sgd_momentum": 0.9})):
+        tx = make_optimizer(method, TrainConfig(**flags), "D")
+        _check_update_kernels(f"D32b, {tx.kind}", shapes["D32b"], tx, dev, every, gate)
+
+    # the GAN step's two launches of each, at the default flags: D (the L2
+    # penalty's gradient and sums, clamp 1, the accuracy gate on the
+    # device) and G (clamp 5; no penalty, G_L2 0; no gate)
+    cfg = TrainConfig().validate()
+    tx = make_optimizer("adam", cfg, "D")
+    main = {"D32b": (dict(sign_coef=cfg.d_l1, linear_coef=cfg.d_l2, clamp=cfg.d_clamp,
+                          sums=True), gate, 12),
+            "G32": (dict(sign_coef=cfg.g_l2, linear_coef=cfg.g_l2, clamp=cfg.g_clamp), True, 8)}
+    errs = {"fused_prep": 0.0, "fused_update": 0.0}
+    rows = {"fused_prep": [], "fused_update": []}
+    for name, (args, net_gate, prep_bytes) in main.items():
+        e_prep, e_update = _check_update_kernels(f"{name} at the default flags", shapes[name],
+                                                 tx, dev, args, net_gate, seed=1)
+        errs["fused_prep"] = max(errs["fused_prep"], e_prep)
+        errs["fused_update"] = max(errs["fused_update"], e_update)
+        params, grads, state = _update_leaves(shapes[name], dev, 2, tx)
+        numel = sum(p.numel() for p in params)
+        steps = [torch.zeros((), device=dev) for _ in params]
+        lib_m, lib_v = [t.clone() for t in state["mu"]], [t.clone() for t in state["nu"]]
+        lib_p = [p.clone() for p in params]
+
+        def library():
+            torch._fused_adam_(lib_p, grads, lib_m, lib_v, [], steps, lr=cfg.d_adam_lr_effective,
+                               beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                               amsgrad=False, maximize=False)
+
+        calls = {
+            "fused_prep": ({"kernel": lambda: fu.prep(params, grads, **args),
+                            "plain": lambda: fu.prep_reference(params, grads, **args)},
+                           numel * prep_bytes, numel * 9),
+            "fused_update": ({"kernel": lambda: fu.update(tx, grads, state, params, net_gate),
+                              "plain": lambda: fu.update_reference(tx, grads, state, params,
+                                                                   net_gate),
+                              "library": library}, numel * 28, numel * 14)}
+        for kernel, (fns, nbytes, flop) in calls.items():
+            t, runs = _time_turns(fns)
+            t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            row = {"kernel": kernel, "net": name, "leaves": len(params), "parameters": numel,
+                   "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t.get("library"),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                   "share_of_bound": max(t_ops, t_bytes) / t["kernel"],
+                   "gb_per_s": nbytes / t["kernel"] / 1e6, "launches_per_step": 1}
+            spread = "; ".join(f"{k} {min(v):.4f}-{max(v):.4f}" for k, v in runs.items())
+            print(f"table {json.dumps(row)} spread(ms) {spread}")
+            rows[kernel].append(row)
+        del params, grads, state, lib_m, lib_v, lib_p
+    out = {}
+    for kernel, rs in rows.items():
+        lib = [r["library_ms"] for r in rs]
+        out[kernel] = {"max_abs_err": errs[kernel], "ms": sum(r["ms"] for r in rs),
+                       "plain_ms": sum(r["plain_ms"] for r in rs),
+                       "bound_ms": sum(r["bound_ms"] for r in rs), "bound_by": "bytes",
+                       "library_ms": None if None in lib else sum(lib),
+                       "launches_per_step": len(rs)}
+        print(f"{kernel} at the GAN step's leaves (D32b + G32, one launch each): "
+              f"{json.dumps(out[kernel])}")
+    return out
+
+
 def write_store(tmp: str) -> str:
     """A 4096-image synthetic store (64x64 uint8 faces) under ``tmp``."""
     import numpy as np
@@ -868,16 +1074,42 @@ def write_store(tmp: str) -> str:
 
 
 def _reset_launches():
+    from facegen_torch.ops import fused_update as fu
     from facegen_torch.ops import upsample_conv as uc
 
     uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0
+    fu.PREP_LAUNCHES = fu.UPDATE_LAUNCHES = 0
 
 
 def _launches():
+    from facegen_torch.ops import fused_update as fu
     from facegen_torch.ops import upsample_conv as uc
 
     return {"upsample_conv_fwd": uc.KERNEL_LAUNCHES, "upsample_conv_dx": uc.DX_LAUNCHES,
-            "upsample_conv_dw": uc.DW_LAUNCHES}
+            "upsample_conv_dw": uc.DW_LAUNCHES, "fused_prep": fu.PREP_LAUNCHES,
+            "fused_update": fu.UPDATE_LAUNCHES}
+
+
+def _upconv_replay(per_replay):
+    """The upsample-conv kernels' entries of a graph's launches per replay."""
+    return {k: v for k, v in per_replay.items() if k not in ("PREP_LAUNCHES", "UPDATE_LAUNCHES")}
+
+
+def _upconv(launches):
+    """The upsample-conv kernels' entries of a launch count."""
+    return {k: launches[k] for k in UPCONV}
+
+
+def _updates(iterations, prep=None):
+    """The update kernels' launches for ``iterations`` net iterations, one
+    of each a net iteration; ``prep`` where prep has no work in some."""
+    return {"fused_prep": iterations if prep is None else prep, "fused_update": iterations}
+
+
+# a GAN step's launches per replay: the upsample-conv's forward at both
+# layers in both phases, dx and dW in the G phase, and D's and G's update
+GAN_REPLAY = {"KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2, "DW_LAUNCHES": 2, "PREP_LAUNCHES": 2,
+              "UPDATE_LAUNCHES": 2}
 
 
 def phase_training(tmp: str, store: str):
@@ -912,6 +1144,10 @@ def phase_training(tmp: str, store: str):
     want_fwd = 4 * steps + 4 * viz_calls
     check(launches["upsample_conv_fwd"] == want_fwd,
           f"forward launches {launches['upsample_conv_fwd']} != {want_fwd}")
+    # per step: D's and G's update, each prep (D: the L2 penalty, its sums
+    # and the clamp; G: the clamp) and the update
+    check({k: launches[k] for k in ("fused_prep", "fused_update")} == _updates(2 * steps),
+          f"update launches {launches} != 2 x {steps} steps each")
     for name in ("adversarial", "adversarial.old"):
         check(os.path.exists(os.path.join(save, name, "arrays.npz")), f"missing checkpoint {name}")
     for name in ("samples_fixed", "best50", "worst50", "real100"):
@@ -932,9 +1168,8 @@ def phase_training(tmp: str, store: str):
           f"with the epoch's read-back; grids and pool outside the clock)")
 
     graphed = trainer2.graphed
-    check(graphed.graph is not None and graphed.launches_per_replay == {
-        "KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2, "DW_LAUNCHES": 2},
-        f"the trainer's step was not captured as expected: {graphed.launches_per_replay}")
+    check(graphed.graph is not None and graphed.launches_per_replay == GAN_REPLAY,
+          f"the trainer's step was not captured as expected: {graphed.launches_per_replay}")
     print(f"training path: the step was captured as a CUDA graph in {graphed.capture_ms:.1f} ms "
           f"after {graphed.eager_steps} eager steps; kernel launches per replay "
           f"{graphed.launches_per_replay}")
@@ -964,6 +1199,7 @@ def phase_training(tmp: str, store: str):
               f"images/s at the epoch's count of {n_epoch} examples per {per_epoch} steps")
     graphed_ms = _profile_train_steps(run, label="training path (graphed)")
     _profile_train_steps(run_eager, label="training path (eager)")
+    _fused_vs_plain("training path", graphed, run, top=12)
     return launches, graphed_ms
 
 
@@ -1004,6 +1240,7 @@ def _profile_train_steps(run, steps=5, label="training path", top=0):
                 "upsample-conv dx (UpconvDx)": ("upconvdx",),
                 "upsample-conv forward (UpconvFwd)": ("upconvfwd",),
                 "split-K sums (reduce_splits)": ("reduce_splits",),
+                "update (fused_prep, fused_update)": ("fused_prep", "fused_update"),
                 "cuDNN / cuBLAS": ("cudnn", "xmma", "gemm", "conv", "cutlass", "sm90_")}
     us = _by_family(summary["ops"], families, "elementwise, reductions, copies")
     busy_ms = summary["total_us"] / steps / 1e3
@@ -1013,7 +1250,9 @@ def _profile_train_steps(run, steps=5, label="training path", top=0):
         print(f"{label}: kernel {r['total_us'] / steps / 1e3:.4f} ms per step in "
               f"{r['calls'] / steps:.0f} launches: {r['name'][:160]}")
     STEP_PROFILES[label] = {"device_ms": busy_ms, "wall_ms": wall_ms,
-                            "busy": busy_ms / wall_ms, "kernels": launches / steps}
+                            "busy": busy_ms / wall_ms, "kernels": launches / steps,
+                            "elementwise": us["elementwise, reductions, copies"] / steps / 1e3
+                            / busy_ms}
     print(f"{label}: step profile (torch.profiler trace of {steps} steps after 10 warm-up, "
           f"device events; host wall of {steps} untraced steps): {busy_ms:.4f} ms of device "
           f"time in {wall_ms:.3f} ms of host wall per step, busy {100 * busy_ms / wall_ms:.1f} "
@@ -1058,17 +1297,22 @@ def _logged(fn):
 GRAPH_ROUTE = "<trainer> step route: one CUDA graph replay a step"
 
 
-def _graph_vs_eager(label, runner, log, run, run_eager, top=0):
+def _graph_vs_eager(label, runner, log, run, run_eager, updates, top=0):
     """A trainer's step as its CLI ran it: the logged route (a CUDA graph
-    replay a step), the capture (its ms, the MiB it reserved, no kernel of
-    the port launched in it), then the graphed and the eager step on the
+    replay a step), the capture (its ms, the MiB it reserved, none of the
+    upsample-conv kernels and ``updates`` = (prep, update) launches of the
+    update's kernels in it), then the graphed and the eager step on the
     same state, timed on the stream in turns (graphed, eager, eager,
-    graphed) and profiled (device ms, host wall, busy share)."""
+    graphed) and profiled (device ms, host wall, busy share); then the
+    graphed step with the update's kernels against it with the plain
+    update (``_fused_vs_plain``)."""
     route = next((ln for ln in log.splitlines() if "step route:" in ln), "")
     check(route.strip() == GRAPH_ROUTE and runner.graph is not None,
           f"{label}: the step was not captured: {route!r}")
-    check(not any(runner.launches_per_replay.values()),
-          f"{label}: the capture launched the port's kernels: {runner.launches_per_replay}")
+    want = {"KERNEL_LAUNCHES": 0, "DX_LAUNCHES": 0, "DW_LAUNCHES": 0,
+            "PREP_LAUNCHES": updates[0], "UPDATE_LAUNCHES": updates[1]}
+    check(runner.launches_per_replay == want,
+          f"{label}: launches per replay {runner.launches_per_replay}, want {want}")
     print(f"{label}: {route.strip()}; captured in {runner.capture_ms:.1f} ms after "
           f"{runner.eager_steps} eager steps, {runner.pool_mib:.1f} MiB reserved by the capture; "
           f"kernel launches per replay {runner.launches_per_replay}")
@@ -1089,6 +1333,54 @@ def _graph_vs_eager(label, runner, log, run, run_eager, top=0):
           f"{graphed['wall_ms']:.3f} / {eager['wall_ms']:.3f} ms, busy "
           f"{100 * graphed['busy']:.1f} / {100 * eager['busy']:.1f} % a step; capture "
           f"{runner.capture_ms:.1f} ms, {runner.pool_mib:.1f} MiB")
+    _fused_vs_plain(label, runner, run)
+
+
+@contextlib.contextmanager
+def _plain_update():
+    """Every trainer's update tail as the plain composition of torch ops,
+    leaf by leaf (the wrappers' plain versions on the card, and no layout
+    copies), for the step profiles' comparison in the same call; never on
+    the port's own path."""
+    from facegen_torch.ops import fused_update as fu
+
+    saved = fu.prep, fu.update, fu.in_layouts_of
+    fu.prep, fu.update = fu.prep_reference, fu.update_reference
+    fu.in_layouts_of = lambda params, grads: list(grads)
+    try:
+        yield
+    finally:
+        fu.prep, fu.update, fu.in_layouts_of = saved
+
+
+def _fused_vs_plain(label, runner, run, top=0):
+    """The graphed step with the update's two kernels against the same
+    step recaptured with the plain update (``_plain_update``), on the same
+    state: kernels per step, device time, the elementwise share and the ms
+    per step on the stream, in turns (fused, plain, plain, fused; each turn
+    recaptures, after one eager warm-up step); with ``top``, the first
+    fused turn lists the kernels that take the most device time. ``run(n)``
+    runs n steps through ``runner``."""
+    turns = {"fused": [], "plain": []}
+    for route in ("fused", "plain", "plain", "fused"):
+        runner.graph, runner.eager_steps = None, 0  # recapture at the next step
+        with _plain_update() if route == "plain" else contextlib.nullcontext():
+            run(1)
+            ms = _step_ms(run)
+        _profile_train_steps(run, label=f"{label} ({route} update)",
+                             top=top if route == "fused" and not turns["fused"] else 0)
+        turns[route].append((ms, STEP_PROFILES[f"{label} ({route} update)"]))
+    check(runner.graph is not None, f"{label}: the step was not recaptured")
+    means = {route: {k: statistics.mean(p[k] for _, p in ts) for k in ("device_ms", "kernels",
+                                                                       "elementwise")}
+             for route, ts in turns.items()}
+    print(f"{label}: the update's kernels against the plain update, graphed, in turns (fused, "
+          f"plain, plain, fused): " + "; ".join(
+              f"{route}: {statistics.mean(ms for ms, _ in ts):.4f} ms per step on the stream "
+              f"({', '.join(f'{ms:.4f}' for ms, _ in ts)}), device {means[route]['device_ms']:.4f} "
+              f"ms in {means[route]['kernels']:.0f} kernels a step, elementwise "
+              f"{100 * means[route]['elementwise']:.1f} %" for route, ts in turns.items()))
+    STEP_PROFILES[f"{label}: fused vs plain"] = means
 
 
 def phase_step_parity():
@@ -1183,6 +1475,8 @@ def phase_c2f_training(tmp: str, store: str):
           f"(fine {cfg.fine_size}, coarse {cfg.coarse_size}, batch {cfg.batch_size}, "
           f"{cfg.compute_dtype}); launches {launches}")
     check(steps == 126, f"expected 2 x 63 steps at the default flags, got {steps}")
+    want = {**dict.fromkeys(UPCONV, 0), **_updates(2 * steps)}  # D's and G's update a step
+    check(launches == want, f"c2f launches {launches}, want {want}")
     name = ckpt_name(cfg)
     for n in (name, name + ".old", name + "_best"):
         check(os.path.exists(os.path.join(save, n, "arrays.npz")), f"missing checkpoint {n}")
@@ -1241,7 +1535,7 @@ def phase_c2f_training(tmp: str, store: str):
           f"{step_ms:.4f} ms per graphed step on the stream (CUDA events over 30 steps, waits "
           f"for the host included): {cfg.n_epoch / (per_epoch * step_ms / 1e3):.1f} images/s at "
           f"{cfg.n_epoch} examples per {per_epoch} steps")
-    _graph_vs_eager("c2f training path", trainer2.graphed, log, run, run_eager, top=8)
+    _graph_vs_eager("c2f training path", trainer2.graphed, log, run, run_eager, (2, 2), top=8)
     return save, launches
 
 
@@ -1390,17 +1684,21 @@ def _check_files(*paths):
         check(os.path.exists(path) and os.path.getsize(path) > 0, f"missing output {path}")
 
 
-def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe, log, run_eager):
-    """The checks and lines both AE-family phases share: no kernel of
-    the port launched, finite losses, the warm epoch's images/s, the
-    route and the capture, and the graphed step's time and profile beside
-    the eager step's (``run_eager(draws)``)."""
+def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe, log, run_eager,
+                         updates):
+    """The checks and lines both AE-family phases share: none of the
+    upsample-conv kernels launched and the update's kernels ``updates`` =
+    (prep, update) times a step, finite losses, the warm epoch's images/s,
+    the route and the capture, and the graphed step's time and profile
+    beside the eager step's (``run_eager(draws)``)."""
     import math
 
     import torch
 
     print(f"{label}: {describe} took {run_s:.3f} s; launches {launches}")
-    check(not any(launches.values()), f"the {label} launched the port's kernels: {launches}")
+    steps = 2 * (trainer.n_pool // trainer.cfg.batch_size)  # the counted run's 2 epochs
+    want = {**dict.fromkeys(UPCONV, 0), **_updates(updates[1] * steps, updates[0] * steps)}
+    check(launches == want, f"the {label} launched {launches}, want {want}")
     for r in rows:
         check(all(math.isfinite(v) for k, v in r.items() if k.startswith(("loss", "val"))),
               f"non-finite losses in {r}")
@@ -1421,7 +1719,8 @@ def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe, log, r
     print(f"{label}: {step_ms:.4f} ms per graphed step on the stream (CUDA events over 30 "
           f"steps, fp32, waits for the host included): {1e3 * cfg.batch_size / step_ms:.1f} "
           f"images/s")
-    _graph_vs_eager(label, trainer.graphed, log, run, lambda n: run_eager(draws[:n]), top=5)
+    _graph_vs_eager(label, trainer.graphed, log, run, lambda n: run_eager(draws[:n]), updates,
+                    top=5)
 
 
 def phase_ae_training(tmp: str, store: str):
@@ -1453,7 +1752,7 @@ def phase_ae_training(tmp: str, store: str):
 
     _report_fp32_trainer("ae training path", trainer, run_s, launches, trainer.history,
                          "train_autoencoder.main --epochs 2 (scale 32, gray, noiseDim 256, "
-                         "batch 32, fp32)", log, run_eager)
+                         "batch 32, fp32)", log, run_eager, (0, 1))
     return launches
 
 
@@ -1500,7 +1799,7 @@ def phase_denoiser_training(tmp: str, store: str):
     _report_fp32_trainer("denoiser training path", trainer2, run_s, launches,
                          trainer.history + trainer2.history,
                          "train_denoiser.main --epochs 2 (scale 16, colour, batch 32, fp32)",
-                         log, run_eager)
+                         log, run_eager, (2, 2))
     return save, launches
 
 
@@ -1528,7 +1827,7 @@ def phase_training_denoise(store: str, denoiser_save: str):
     # per step 4 forward (G in the D and the G phase), 2 dx, 2 dW; the one
     # grid set runs G on the fixed and on the random noise
     want = {"upsample_conv_fwd": 4 * steps + 4, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
     check(launches == want, f"launches {launches}, want {want}")
     viz = os.path.join(denoiser_save, "viz")
     _check_files(os.path.join(viz, "samples_fixed.png"), os.path.join(viz, "samples_denoised.png"))
@@ -1811,7 +2110,8 @@ def phase_family_graph_parity(tmp: str):
             errs, same = _family_diffs(graphed, trainers["eager"], losses["graphed"],
                                        losses["eager"])
             ok = (same and runner.graph is not None and trainers["eager"].graphed.graph is None
-                  and not any(runner.launches_per_replay.values())
+                  and not any(_upconv_replay(runner.launches_per_replay).values())
+                  and runner.launches_per_replay["UPDATE_LAUNCHES"] > 0
                   and all(v <= tol for v in errs.values())
                   and bool(torch.isfinite(losses["graphed"]).all()))
             print(f"family graph parity ({kind}, {dtype}"
@@ -1937,7 +2237,7 @@ def phase_epochs_per_compile(tmp: str, store: str):
     print(f"epochsPerCompile path: train.main {' '.join(argv[4:])} took {run_s:.3f} s for "
           f"{steps} steps; {trainer.readbacks} read-backs; launches {launches}")
     want = {"upsample_conv_fwd": 4 * steps, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
     check(launches == want, f"launches {launches}, want {want}")
     check(trainer.epochs_per_compile == 4 and trainer.readbacks == 2,
           f"{trainer.epochs_per_compile} epochs per chunk, {trainer.readbacks} read-backs")
@@ -1976,7 +2276,7 @@ def phase_weights_vis(tmp: str, store: str):
     # per step 4 forward, 2 dx, 2 dW; the grid set 4 forward; each dump's
     # G (fp32, eval) 2 forward
     want = {"upsample_conv_fwd": 4 * steps + 4 + 2 * 4, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
     print(f"weightsVisFreq path: train.main --weightsVisFreq 16 --epochs 1 took {run_s:.3f} s; "
           f"launches {launches}")
     check(launches == want, f"launches {launches}, want {want}")
@@ -2039,7 +2339,7 @@ def phase_lfw_builder(tmp: str):
     launches = _launches()
     steps = steps_per_epoch(trainer.cfg)
     want = {"upsample_conv_fwd": 4 * steps, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
     check(launches == want, f"launches {launches}, want {want}")
     check(trainer.source.size == 256, f"the trainer's store has {trainer.source.size} rows")
     rows = _metrics_rows(save)
@@ -2087,12 +2387,15 @@ def _train_state(cfg, device, seed=5, g_biases=False, mesh=None):
 # a group, with the wrappers' counts set to 0 before it and printed after
 DP_CLI = (
     "import json, runpy, sys\n"
+    "from facegen_torch.ops import fused_update as fu\n"
     "from facegen_torch.ops import upsample_conv as uc\n"
     "uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0\n"
+    "fu.PREP_LAUNCHES = fu.UPDATE_LAUNCHES = 0\n"
     "sys.argv = ['facegen_torch.train'] + sys.argv[1:]\n"
     "runpy.run_module('facegen_torch.train', run_name='__main__', alter_sys=True)\n"
     "print('launches ' + json.dumps({'upsample_conv_fwd': uc.KERNEL_LAUNCHES, "
-    "'upsample_conv_dx': uc.DX_LAUNCHES, 'upsample_conv_dw': uc.DW_LAUNCHES}))\n"
+    "'upsample_conv_dx': uc.DX_LAUNCHES, 'upsample_conv_dw': uc.DW_LAUNCHES, "
+    "'fused_prep': fu.PREP_LAUNCHES, 'fused_update': fu.UPDATE_LAUNCHES}))\n"
 )
 
 
@@ -2141,7 +2444,7 @@ def phase_dp_nccl(tmp: str, store: str):
     check(bool(captured), "the 1-rank NCCL trainer did not capture its step")
     steps = 2 * steps_per_epoch(TrainConfig())
     want = {"upsample_conv_fwd": 4 * steps + 4 * 2, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
     check(launches == want, f"launches {launches}, want {want}")
     rows = _metrics_rows(save)
     check([r["epoch"] for r in rows] == [1, 2], f"epochs {[r['epoch'] for r in rows]}")
@@ -2224,6 +2527,7 @@ def dp_gloo_rank(rank: int, port: int, device: str, out: str) -> None:
     from facegen_torch.config import TrainConfig
     from facegen_torch.data.pipeline import prepare_pool
     from facegen_torch.data.synthetic import draw_synthetic_faces
+    from facegen_torch.ops import fused_update as fu
     from facegen_torch.ops import upsample_conv as uc
     from facegen_torch.parallel import make_mesh, maybe_initialize, shard_pool
     from facegen_torch.sample import full_fp32
@@ -2247,7 +2551,18 @@ def dp_gloo_rank(rank: int, port: int, device: str, out: str) -> None:
             by_shape[f"upsample_conv_{which} N={a.shape[0]}"] += 1
             return launch_bwd(which, a, b)
 
+        def counted_update(launch_update):  # by the net's leaf count
+            def wrapper(*args):
+                params = args[0] if launch_update is launch_prep else args[3]
+                name = "fused_prep" if launch_update is launch_prep else "fused_update"
+                by_shape[f"{name} leaves={len(params)}"] += 1
+                return launch_update(*args)
+            return wrapper
+
         uc._launch, uc._launch_bwd = counted, counted_bwd
+        launch_prep, launch_update = fu._launch_prep, fu._launch_update
+        fu._launch_prep, fu._launch_update = (counted_update(launch_prep),
+                                              counted_update(launch_update))
         pool = prepare_pool(draw_synthetic_faces(torch.Generator().manual_seed(6), 256), 32, 3)
         cfg = TrainConfig(compute_dtype="float32", reference_init=False, g_l2=1e-3).validate()
         # cuDNN's deterministic algorithms: with its free ones two fp32 runs
@@ -2276,6 +2591,7 @@ def dp_gloo_rank(rank: int, port: int, device: str, out: str) -> None:
                 step(state, local, draws())
         torch.backends.cudnn.deterministic = False
         uc._launch, uc._launch_bwd = launch, launch_bwd
+        fu._launch_prep, fu._launch_update = launch_prep, launch_update
         arrays, meta = ckpt.train_state_arrays(state), {"launches": dict(by_shape)}
         if dev.type == "cuda":  # the gloo step's time at the default flags
             cfg = TrainConfig().validate()
@@ -2369,7 +2685,9 @@ def phase_dp_gloo(tmp: str):
               f"flags, local batch 16, bf16; {m['route']})")
     check(ok, "the 2-rank gloo step on the card disagrees")
     want = {"upsample_conv_fwd N=8": 2 * 2 * 3, "upsample_conv_fwd N=16": 2 * 2 * 3,
-            "upsample_conv_dx N=16": 2 * 2 * 3, "upsample_conv_dw N=16": 2 * 2 * 3}
+            "upsample_conv_dx N=16": 2 * 2 * 3, "upsample_conv_dw N=16": 2 * 2 * 3,
+            **{f"{k} leaves={n}": 2 * 3 for k in ("fused_prep", "fused_update")
+               for n in (20, 15)}}  # D32b's and G32's update, 3 steps on 2 ranks
     check(by_shape == want, f"launches by shape {by_shape}, want {want}")
     return {name: sum(v for k, v in by_shape.items() if k.startswith(name + " "))
             for name in KERNELS}
@@ -2545,7 +2863,7 @@ def phase_gspmd_nccl(tmp: str, store: str):
         dist.destroy_process_group()
     steps = steps_per_epoch(tcfg)
     want = {"upsample_conv_fwd": 4 * steps + 4, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
     print(f"gspmd nccl path: Trainer on make_mesh2d(1, 1), 1 epoch of {steps} steps at the "
           f"default flags in {run_s:.3f} s (with the capture and the grids): loss_d "
           f"{stats[0]['loss_d_mean']:.4f} loss_g {stats[0]['loss_g_mean']:.4f}; "
@@ -2911,7 +3229,8 @@ def phase_gspmd_gloo(tmp: str, store: str):
     route = next((ln for ln in logs[0].splitlines() if "step route:" in ln), "")
     steps = steps_per_epoch(TrainConfig(n_epoch=256))
     want = [{"upsample_conv_fwd": 4 * steps + (4 if r == 0 else 0),
-             "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps} for r in range(world)]
+             "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps,
+             **_updates(2 * steps)} for r in range(world)]
     rows = _metrics_rows(saves[0])
     print(f"gspmd 2x2 path: python -m facegen_torch.train --meshShape 2,2 as 4 gloo ranks sharing "
           f"cuda:0 (maybe_initialize(backend='gloo') before the CLI), 1 epoch of {steps} steps "
@@ -2984,8 +3303,10 @@ def phase_gspmd_gloo(tmp: str, store: str):
 GSPMD_FAMILY_CLI = (
     "import json, sys, time\n"
     "from facegen_torch import train_autoencoder, train_c2f, train_denoiser\n"
+    "from facegen_torch.ops import fused_update as fu\n"
     "from facegen_torch.ops import upsample_conv as uc\n"
     "uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0\n"
+    "fu.PREP_LAUNCHES = fu.UPDATE_LAUNCHES = 0\n"
     "store, save = sys.argv[1], sys.argv[2]\n"
     "common = ['--datasetDir', store, '--N_epoch', '256', '--epochs', '1', '--meshShape', '2']\n"
     "walls = {}\n"
@@ -2996,7 +3317,7 @@ GSPMD_FAMILY_CLI = (
     "    walls[name] = time.perf_counter() - t0\n"
     "    assert tr.mesh is not None and (tr.mesh.dp, tr.mesh.mp) == (2, 1), tr.mesh\n"
     "print('family ' + json.dumps({'walls': walls, 'launches': [uc.KERNEL_LAUNCHES, "
-    "uc.DX_LAUNCHES, uc.DW_LAUNCHES]}))\n"
+    "uc.DX_LAUNCHES, uc.DW_LAUNCHES, fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES]}))\n"
 )
 
 
@@ -3004,8 +3325,8 @@ def phase_gspmd_family(tmp: str, store: str):
     """The c2f, autoencoder and denoiser CLIs at --meshShape 2 (the 2x1
     mesh) on two gloo ranks sharing cuda:0, one short epoch each
     (--N_epoch 256); then 3 fp32 steps of each on the 2x1 mesh against its
-    single-device step on the card. Returns their launches (none: these
-    nets have no upsample-conv)."""
+    single-device step on the card. Returns the CLIs' launches over both
+    ranks (the update's kernels only: these nets have no upsample-conv)."""
     import numpy as np
 
     from facegen_torch.utils import checkpoint as ckpt
@@ -3028,8 +3349,9 @@ def phase_gspmd_family(tmp: str, store: str):
     print(f"gspmd family path: the c2f, autoencoder and denoiser CLIs at --meshShape 2 on 2 gloo "
           f"ranks sharing cuda:0, one epoch each (--N_epoch 256) in {run_s:.3f} s (2 processes, "
           f"with their start); wall s per CLI on rank 0 {res[0]['walls']}; launches "
-          f"(fwd, dx, dW) per rank {[r['launches'] for r in res]}")
-    check(all(r["launches"] == [0, 0, 0] for r in res), "a kernel of the port launched")
+          f"(fwd, dx, dW, prep, update) per rank {[r['launches'] for r in res]}")
+    check(all(r["launches"][:3] == [0, 0, 0] and r["launches"][4] > 0 for r in res),
+          "an upsample-conv kernel launched, or the update's kernels did not")
     routes = [ln.strip() for ln in logs[0].splitlines() if "step route:" in ln]
     print(f"gspmd family path: rank 0's step routes {routes}")
     check(len(routes) == 3 and all("gloo all-reduce of a CUDA tensor" in r for r in routes),
@@ -3059,7 +3381,7 @@ def phase_gspmd_family(tmp: str, store: str):
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" (tolerance {tol}); {'ok' if ok else 'FAIL'}")
     check(ok_all, "a 2x1 family step disagrees with its single-device step")
-    return {name: 0 for name in KERNELS}
+    return dict(zip(KERNELS, (sum(r["launches"][k] for r in res) for k in range(len(KERNELS)))))
 
 
 # the uneven (3, 1) mesh: three gloo ranks sharing the card, each of
@@ -3180,7 +3502,8 @@ def phase_uneven_mesh(tmp: str, store: str):
     metas = [m for _, m in loaded["gan32"]]
     steps = steps_per_epoch(TrainConfig(n_epoch=256))
     want = [{"upsample_conv_fwd": 4 * steps + (4 if r == 0 else 0),
-             "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps} for r in range(world)]
+             "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps,
+             **_updates(2 * steps)} for r in range(world)]
     cli = [m["cli"] for m in metas]
     print(f"uneven 3x1 path: 3 gloo ranks sharing cuda:0 in {run_s:.3f} s (3 processes, with "
           f"their start, the CLIs and the steps); python -m facegen_torch.train --meshShape 3,1 "
@@ -3191,8 +3514,10 @@ def phase_uneven_mesh(tmp: str, store: str):
               f"{k} {cli[0][k]['s']:.3f} s" for k in ("c2f", "autoencoder", "denoiser")))
     check([c["gan"]["launches"] for c in cli] == want,
           f"3x1 CLI launches {[c['gan']['launches'] for c in cli]}, want {want}")
-    check(all(c[k]["launches"] == {n: 0 for n in KERNELS} for c in cli
-              for k in ("c2f", "autoencoder", "denoiser")), "a family CLI launched a kernel")
+    check(all(_upconv(c[k]["launches"]) == dict.fromkeys(UPCONV, 0)
+              and c[k]["launches"]["fused_update"] > 0 for c in cli
+              for k in ("c2f", "autoencoder", "denoiser")),
+          "a family CLI launched an upsample-conv kernel, or not the update's")
     saves = [os.path.join(out, "gan_cli", f"rank{r}") for r in range(world)]
     rows = _metrics_rows(saves[0])
     print(f"uneven 3x1 path: epoch 1 loss_d {rows[0]['loss_d_mean']:.4f} loss_g "
@@ -3320,10 +3645,10 @@ def phase_boundary_pad(tmp: str, store: str):
                   f"{_metrics_rows(save)[0]['images_per_sec']:.1f} images/s")
             check(tr.step.pad.active and tr.step.pad.pad == 5, "the padder is not on")
             check(launches == {"upsample_conv_fwd": 4 * steps + 4,
-                               "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps},
+                               "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps,
+                               **_updates(2 * steps)},
                   f"padded launches {launches}")
-            check(tr.graphed.launches_per_replay == {"KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2,
-                                                     "DW_LAUNCHES": 2},
+            check(tr.graphed.launches_per_replay == GAN_REPLAY,
                   f"padded launches per replay {tr.graphed.launches_per_replay}")
             _check_files(os.path.join(save, "adversarial", "arrays.npz"))
             stored = tr.state.g.get_parameter("09_conv_out.weight").shape
@@ -3623,7 +3948,8 @@ def phase_quality_report(tmp: str, store: str):
         check(json.loads(out.getvalue()) == report, f"{label}: printed report differs")
         check(_key_tree(report) == keys, f"{label}: keys {_key_tree(report)}")
         check(all(np.isfinite(v) for v in _numbers(report)), f"{label}: non-finite {report}")
-        want = {"upsample_conv_fwd": fwd, "upsample_conv_dx": 0, "upsample_conv_dw": 0}
+        want = {"upsample_conv_fwd": fwd, "upsample_conv_dx": 0, "upsample_conv_dw": 0,
+                **_updates(0)}
         check(launches == want, f"{label}: launches {launches}, want {want}")
         print(f"quality report {label}: parity.main took {run_s:.3f} s (wall, with checkpoint "
               f"loads, store preparation and host statistics); launches {launches}")
@@ -3717,7 +4043,7 @@ def phase_trace_and_debug(tmp: str, store: str, graphed_ms: float):
     launches = _launches()
     steps = steps_per_epoch(cfg)
     want = {"upsample_conv_fwd": 4 * 2 * steps + 4 * 2, "upsample_conv_dx": 2 * 2 * steps,
-            "upsample_conv_dw": 2 * 2 * steps}
+            "upsample_conv_dw": 2 * 2 * steps, **_updates(2 * 2 * steps)}
     print(f"trace path: Trainer(trace_dir=...).run(2) took {run_s:.3f} s; launches {launches}")
     check(launches == want, f"launches {launches}, want {want}")
     check(trainer.epochs_per_compile == 1 and trainer.graphed.graph is not None,
@@ -3784,6 +4110,7 @@ def main() -> int:
         with full_fp32():
             summary = {"upsample_conv_fwd": phase_kernels()}
             bwd = phase_bwd_kernels()
+            summary.update(phase_update_kernels())
         summary["upsample_conv_dx"], summary["upsample_conv_dw"] = bwd["dx"], bwd["dw"]
         with tempfile.TemporaryDirectory() as tmp:
             store = write_store(tmp)
@@ -3822,9 +4149,10 @@ def main() -> int:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     print(f"launches by path: {json.dumps(by_path)}")
-    # launches: the training path's 2-epoch run, which runs all three
-    # kernels; max_abs_err (bf16) and ms (both layers at N = 32) at its
-    # shapes; launches_by_path: each path's run, counted from 0
+    # launches: the training path's 2-epoch run, which runs all five
+    # kernels; max_abs_err (bf16) and ms (both layers at N = 32; the
+    # update's kernels: D32b's and G32's launch at the default flags) at
+    # its shapes; launches_by_path: each path's run, counted from 0
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **summary[name],

@@ -55,6 +55,7 @@ import torch.distributed as dist
 from torch import nn
 
 from facegen_torch.config import mesh_axes
+from facegen_torch.ops import fused_update
 from facegen_torch.parallel.multihost import rank_device
 
 MIN_SHARD = 64  # facegen's min_shard: smaller dims stay replicated
@@ -384,11 +385,12 @@ class ShardedParams:
             self.mesh.all_gather_(work, master)
 
     def update(self, tx, grads: Sequence[torch.Tensor], opt: dict, do_update) -> None:
-        """``gated_update`` of the masters with this rank's shards of the
-        full gradients ``grads``, then the gather into the parameters."""
-        from facegen_torch.train.optim import gated_update  # train/ imports this module
-
-        gated_update(tx, self.shards(grads), opt, self.masters, do_update)
+        """The gated update of the masters (ops/fused_update.py:update) with
+        this rank's shards of the full gradients ``grads``, then the gather
+        into the parameters. A sharded leaf's gradient must come in its
+        parameter's shard-major layout (``flat_all_reduce``'s ``like``), so
+        that its shard shares its master's layout."""
+        fused_update.update(tx, self.shards(grads), opt, self.masters, do_update)
         self.gather_()
 
     @torch.no_grad()
@@ -449,19 +451,35 @@ def set_batch_norm_mesh(module: nn.Module, mesh: Optional[Mesh2D]) -> None:
             m.mesh = mesh if mesh is not None and mesh.dp > 1 else None
 
 
+def _memory_order(t: torch.Tensor) -> List[int]:
+    """``t``'s dims from the outermost in memory to the innermost."""
+    return sorted(range(t.dim()), key=lambda d: (-t.stride(d), d))
+
+
 def flat_all_reduce(mesh, buffers: Dict[str, torch.Tensor], key: str,
-                    parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+                    parts: Sequence[torch.Tensor],
+                    like: Sequence[Optional[torch.Tensor]] = ()) -> List[torch.Tensor]:
     """``parts`` summed over ``mesh``'s data group in one SUM all-reduce of
     a flat fp32 buffer (``buffers[key]``, allocated at the first call so a
     CUDA graph's capture finds it in place); fp32 views of the buffer in
-    the parts' shapes."""
+    the parts' shapes. The first ``len(like)`` parts are laid out in the
+    buffer as their ``like`` tensor (a parameter, e.g. a sharded one's
+    shard-major storage; None: row-major), and their views have its
+    strides: the packing copy is the only one."""
+    orders = [_memory_order(m) if m is not None else list(range(t.dim()))
+              for t, m in zip(parts, like)]
+    orders += [list(range(t.dim())) for t in parts[len(orders):]]
     sizes = [t.numel() for t in parts]
     flat = buffers.get(key)
     if flat is None:
         flat = buffers[key] = torch.empty(sum(sizes), device=parts[0].device)
-    torch.cat([t.reshape(-1).float() for t in parts], out=flat)
+    torch.cat([t.permute(o).reshape(-1).float() for t, o in zip(parts, orders)], out=flat)
     mesh.all_reduce_sum_(flat)
-    return [p.view(t.shape) for p, t in zip(flat.split(sizes), parts)]
+    outs = []
+    for p, t, o in zip(flat.split(sizes), parts, orders):
+        inverse = sorted(range(len(o)), key=o.__getitem__)
+        outs.append(p.view([t.shape[d] for d in o]).permute(inverse))
+    return outs
 
 
 # -------------------------------------------------------------------- serving

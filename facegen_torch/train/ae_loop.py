@@ -70,7 +70,7 @@ from facegen_torch.parallel.gspmd import (
 from facegen_torch.parallel.mesh import replicate
 from facegen_torch.train import losses
 from facegen_torch.train.graph import StepGraph, copy_into
-from facegen_torch.train.optim import adam, gated_update
+from facegen_torch.train.optim import adam, penalised_update
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_grid
 
@@ -163,18 +163,22 @@ class _MeshStep:
         return self.mesh.rows(t)
 
     def _grads(self, key: str, loss: torch.Tensor, params) -> tuple:
-        """(the global batch's gradients, its loss): the loss a local share."""
+        """(the global batch's gradients, in the parameters' layouts; its
+        loss): the loss a local share."""
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if self.mesh is not None:
-            *grads, loss = flat_all_reduce(self.mesh, self._flat, key, [*grads, loss])
+            *grads, loss = flat_all_reduce(self.mesh, self._flat, key, [*grads, loss], params)
         return list(grads), loss
 
-    def _update(self, shards, grads, opt: dict, params) -> None:
-        if shards is not None:
-            shards.update(self.tx, grads, opt, True)
-        else:
-            gated_update(self.tx, grads, opt, params, True)
+    def _update(self, shards, grads, opt: dict, params, clamp: float,
+                penalty: bool) -> torch.Tensor:
+        """The L1/L2 penalty's gradient on every parameter, biases included,
+        the clamp and Adam (``penalised_update``, no gate), on ``shards`` on a
+        2-D mesh; the loss's penalty (with ``penalty``)."""
+        cfg = self.cfg
+        return penalised_update(self.tx, grads, opt, params, cfg.coef_l1, cfg.coef_l1,
+                                cfg.coef_l2, clamp, penalty=penalty, shards=shards)[0]
 
 
 class AEStep(_MeshStep):
@@ -192,19 +196,15 @@ class AEStep(_MeshStep):
 
     def __call__(self, model: nn.Module, opt: dict, pool: torch.Tensor,
                  draws: AEDraws) -> torch.Tensor:
-        cfg = self.cfg
         x = pool[self._rows(draws.idx)].float() / 255.0
         model.train()
         dropout.set_dropout_masks(model, self._rows(draws.masks))
         params = list(model.parameters())
         grads, loss = self._grads("ae", losses.batch_mean((model(x) - x).abs(), self.global_rows),
                                   params)
-        # the L1/L2 penalty on every parameter, biases included, in the loss
-        # and the gradients, and no clamp (train_autoencoder.lua:196-204)
-        loss = loss + losses.penalty_loss(params, cfg.coef_l1, cfg.coef_l2)
-        grads = losses.add_penalty_grads(grads, params, cfg.coef_l1, cfg.coef_l2)
-        self._update(self.shards, grads, opt, params)
-        return loss
+        # the penalty in the loss and the gradients, and no clamp
+        # (train_autoencoder.lua:196-204)
+        return loss + self._update(self.shards, grads, opt, params, 0.0, True)
 
 
 @dataclasses.dataclass
@@ -231,14 +231,12 @@ class DenoiserStep(_MeshStep):
                opt: dict) -> torch.Tensor:
         """One decoder's update on ``loss`` (this rank's share on a mesh);
         returns the global batch's loss."""
-        cfg = self.cfg
         params = list(dec.parameters())
         grads, loss = self._grads(key, loss, params)
         # the penalty feeds the gradient only: the reported loss stays the
         # bare BCE (train_denoiser.lua:272, 311); then the clamp (:289-291)
-        grads = losses.add_penalty_grads(grads, params, cfg.coef_l1, cfg.coef_l2)
-        grads = losses.clamp_grads(grads, cfg.ae_clamp)
-        self._update(None if st.shards is None else st.shards[key], grads, opt, params)
+        self._update(None if st.shards is None else st.shards[key], grads, opt, params,
+                     self.cfg.ae_clamp, False)
         return loss
 
     def __call__(self, st: DenoiserState, pool: torch.Tensor,

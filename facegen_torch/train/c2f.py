@@ -69,7 +69,7 @@ from facegen_torch.parallel.gspmd import flat_all_reduce, global_rows, shard_par
 from facegen_torch.parallel.mesh import replicate
 from facegen_torch.train import losses, metrics as M
 from facegen_torch.train.graph import StepGraph
-from facegen_torch.train.optim import gated_update, make_c2f_optimizer
+from facegen_torch.train.optim import make_c2f_optimizer, penalised_update
 from facegen_torch.train.step import make_boundary_padder, steps_per_epoch
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_png, to_grid
@@ -200,12 +200,14 @@ class C2FStep:
             d, cfg.batch_size, (cfg.img_shape, cfg.img_shape), device)
         self._flat: Dict[str, torch.Tensor] = {}
 
-    def _update(self, state: C2FState, net: str, tx, grads, params) -> None:
+    def _update(self, state: C2FState, net: str, tx, grads, params, sign_coef: float,
+                l1: float, l2: float, clamp: float) -> torch.Tensor:
+        """``net``'s iteration tail (``penalised_update``, no gate), on this
+        rank's shards of its state on a 2-D mesh; the loss's penalty."""
         opt = state.opt_g if net == "g" else state.opt_d
-        if state.shards is not None:
-            state.shards[net].update(tx, grads, opt, True)
-        else:
-            gated_update(tx, grads, opt, params, True)  # no gate
+        shards = None if state.shards is None else state.shards[net]
+        return penalised_update(tx, grads, opt, params, sign_coef, l1, l2, clamp,
+                                shards=shards)[0]
 
     def d_iteration(self, state: C2FState, pool: C2FPool, draws: C2FDDraws):
         cfg, g, d, mesh, pad = self.cfg, state.g, state.d, self.mesh, self.pad
@@ -235,13 +237,11 @@ class C2FStep:
         loss = loss.detach()
         if mesh is not None:
             *grads, loss, acc, counts = flat_all_reduce(mesh, self._flat, "d",
-                                                        [*grads, loss, acc, counts])
+                                                        [*grads, loss, acc, counts], params)
             acc, counts = acc.clone(), counts.to(torch.int32)
-        # penalties on the pre-update parameters, then the clamp
-        loss = loss + losses.penalty_loss(params, cfg.d_l1, cfg.d_l2)
-        grads = losses.add_penalty_grads(grads, params, cfg.d_l1, cfg.d_l2)
-        grads = losses.clamp_grads(grads, cfg.d_clamp)
-        self._update(state, "d", self.tx_d, grads, params)
+        # penalties on the pre-update parameters, then the clamp and the update
+        loss = loss + self._update(state, "d", self.tx_d, grads, params, cfg.d_l1, cfg.d_l1,
+                                   cfg.d_l2, cfg.d_clamp)
         state.confusion += counts
         return loss, acc
 
@@ -263,14 +263,11 @@ class C2FStep:
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if mesh is not None:
-            *grads, loss = flat_all_reduce(mesh, self._flat, "g", [*grads, loss])
-        loss = loss + losses.penalty_loss(params, cfg.g_l1, cfg.g_l2)
+            *grads, loss = flat_all_reduce(mesh, self._flat, "g", [*grads, loss], params)
         # the reference's bug (adversarial.lua:223): G_L2 scales the sign term too
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
-        grads = losses.add_penalty_grads(grads, params, sign_coef, cfg.g_l2)
-        grads = losses.clamp_grads(grads, cfg.g_clamp)
-        self._update(state, "g", self.tx_g, grads, params)
-        return loss
+        return loss + self._update(state, "g", self.tx_g, grads, params, sign_coef, cfg.g_l1,
+                                   cfg.g_l2, cfg.g_clamp)
 
     def __call__(self, state: C2FState, pool: C2FPool, draws: C2FStepDraws) -> C2FStepMetrics:
         zero = torch.zeros((), device=pool.fine.device)

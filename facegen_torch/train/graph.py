@@ -5,8 +5,8 @@ facegen/train/c2f.py:205-214; the autoencoder's and the denoiser's
 epochs, facegen/train/ae_loop.py:97-106, 280-289).
 
 facegen compiles an epoch into one device program. The port's steps are
-hundreds of kernel launches issued from Python (the GAN's some 1,650, the
-c2f's some 1,250), so on the card the host's launch rate, not the device,
+hundreds of kernel launches issued from Python (the GAN's some 720, the
+c2f's some 490), so on the card the host's launch rate, not the device,
 sets their pace. ``StepGraph`` is the one capture core of all four
 trainers: it captures one whole step into a CUDA graph once and then
 replays it, one launch a step besides the step's draws. A trainer plugs
@@ -30,7 +30,7 @@ writes lives in tensors that outlive the capture:
   capture records their addresses;
 - the state: parameters, optimizer moments and counts, batch-norm
   statistics, the GAN gate's ring and counters and the confusion
-  matrices. Every write to them is in place (``gated_update`` and
+  matrices. Every write to them is in place (the update's kernels and
   ``BatchNorm`` ``copy_``, ``+=``, ``zero_``, ``load_train_state``
   ``copy_``), so no state tensor is rebound after the capture; code that
   rebinds one would leave the graph writing the old tensor;
@@ -48,7 +48,9 @@ after the warm-up: after any resume, which loads in place.
 
 Launch counts: the kernels' wrappers count launches in Python, so a
 replay would count nothing. What the capture counted is taken back and
-recorded, and each replay adds it (``ops/upsample_conv.py``). The counts
+recorded, and each replay adds it (``ops/upsample_conv.py``,
+``ops/fused_update.py``: every trainer's update is two kernels a net
+iteration, the first left out where it has nothing to do). The counts
 under replay are thus derived from the capture, not observed; that the
 replayed kernels ran is shown by the graph's parity with eager steps.
 
@@ -79,6 +81,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from facegen_torch.ops import fused_update as fu
 from facegen_torch.ops import upsample_conv as uc
 from facegen_torch.parallel.gspmd import Mesh2D
 from facegen_torch.parallel.multihost import warmup_collectives
@@ -90,7 +93,9 @@ from facegen_torch.train.step import (
     empty_draws,
 )
 
-_COUNTERS = ("KERNEL_LAUNCHES", "DX_LAUNCHES", "DW_LAUNCHES")
+# the kernels' launch counters: (module, name)
+_COUNTERS = ((uc, "KERNEL_LAUNCHES"), (uc, "DX_LAUNCHES"), (uc, "DW_LAUNCHES"),
+             (fu, "PREP_LAUNCHES"), (fu, "UPDATE_LAUNCHES"))
 WARMUP_STEPS = 1  # eager steps on a card before the capture
 NO_CAPTURE = "capture=False asks for no capture"
 
@@ -209,12 +214,12 @@ class StepGraph:
             self._capture()
         draw()
         self.graph.replay()
-        for name, n in self.launches_per_replay.items():
-            setattr(uc, name, getattr(uc, name) + n)
+        for module, name in _COUNTERS:
+            setattr(module, name, getattr(module, name) + self.launches_per_replay[name])
         row.copy_(self.metrics)
 
     def _capture(self) -> None:
-        before = {name: getattr(uc, name) for name in _COUNTERS}
+        before = {name: getattr(module, name) for module, name in _COUNTERS}
         graph = torch.cuda.CUDAGraph()
         # A trainer that became garbage holds its graph in a reference cycle
         # (the trainer, its StepGraph, the bound log method). A collection
@@ -237,9 +242,10 @@ class StepGraph:
         torch.cuda.synchronize(self.device)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_mib = (torch.cuda.memory_reserved(self.device) - reserved) / 2**20
-        self.launches_per_replay = {name: getattr(uc, name) - before[name] for name in _COUNTERS}
-        for name, n in before.items():  # the capture launched nothing
-            setattr(uc, name, n)
+        self.launches_per_replay = {name: getattr(module, name) - before[name]
+                                    for module, name in _COUNTERS}
+        for module, name in _COUNTERS:  # the capture launched nothing
+            setattr(module, name, before[name])
         self.graph, self.metrics = graph, metrics
         self.log(f"<trainer> captured the {self.name} as a CUDA graph in {self.capture_ms:.1f} "
                  f"ms after {self.eager_steps} eager steps; kernel launches per replay "

@@ -9,7 +9,7 @@ of tensors in the same order.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,16 +35,19 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     return batch_mean(per, rows)
 
 
+def penalty_sums(params: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(||p||_1, ||p||_2^2) over all parameters, 0-d fp32 tensors."""
+    with torch.no_grad():
+        return sum(p.abs().sum() for p in params), sum((p * p).sum() for p in params)
+
+
 def penalty_loss(params: Sequence[torch.Tensor], l1: float, l2: float) -> torch.Tensor:
     """L1 * ||p||_1 + L2 * ||p||_2^2 / 2 over all parameters
     (adversarial.lua:105-106); a 0-d fp32 tensor on the params' device."""
-    device = params[0].device
     if l1 == 0.0 and l2 == 0.0:
-        return torch.zeros((), device=device)
-    with torch.no_grad():
-        l1_term = sum(p.abs().sum() for p in params)
-        l2_term = sum((p * p).sum() for p in params)
-        return l1 * l1_term + l2 * l2_term / 2.0
+        return torch.zeros((), device=params[0].device)
+    l1_term, l2_term = penalty_sums(params)
+    return l1 * l1_term + l2 * l2_term / 2.0
 
 
 def add_penalty_grads(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
@@ -73,10 +76,3 @@ def batch_accuracy(logits: torch.Tensor, targets: torch.Tensor,
     ``rows``, as ``batch_mean``."""
     pred = (logits.reshape(-1) > 0).float()
     return batch_mean((pred == targets.reshape(-1).float()).float(), rows)
-
-
-def all_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """A 0-d bool tensor: whether every entry of ``grads`` is finite, from
-    one max-abs reduction over all of them on the device (NaN and inf
-    propagate through it; nothing is read back to the host)."""
-    return torch.isfinite(torch.nn.utils.get_total_norm(grads, float("inf")))

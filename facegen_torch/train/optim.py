@@ -17,13 +17,22 @@ as the reference's interruptible optimizers skip a step
 choice is ``torch.where``: no value is read back to the host. With
 ``do_update=True`` it is a plain update: G's step and the c2f trainer's
 stock optimizers (``make_c2f_optimizer``), which have no gate.
+
+``penalised_update`` is every trainer's iteration tail in facegen's
+order: the penalty on the pre-update parameters, its gradient, the clamp,
+the finite check, the gate, the update. On CUDA tensors it is two kernels
+over all of a net's leaves (ops/fused_update.py); on the CPU the plain
+composition of ``losses`` and ``gated_update``. Each optimizer names its
+``kind`` and ``hyper``-parameters for the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Sequence, Union
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple, Union
 
 import torch
+
+from facegen_torch.ops import fused_update
 
 State = Dict[str, object]
 
@@ -31,6 +40,8 @@ State = Dict[str, object]
 class Optimizer(NamedTuple):
     init: Callable[[Sequence[torch.Tensor]], State]
     update: Callable[..., tuple]
+    kind: str                  # the update kernel's optimizer: ops/fused_update.KINDS
+    hyper: Dict[str, float]    # its hyperparameters by name
 
 
 def _zeros(params):
@@ -54,7 +65,7 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Op
         updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for m, v in zip(mu, nu)]
         return updates, {"count": count, "mu": mu, "nu": nu}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, "adam", {"lr": lr, "b1": b1, "b2": b2, "eps": eps})
 
 
 def adagrad(lr: float = 1e-2, initial_accumulator_value: float = 0.0,
@@ -72,14 +83,15 @@ def adagrad(lr: float = 1e-2, initial_accumulator_value: float = 0.0,
                    for g, s in zip(grads, sos)]
         return updates, {"sum_of_squares": sos}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, "adagrad", {"lr": lr, "eps": eps})
 
 
 def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
     """optax.sgd: plain steps, or with momentum a trace g + momentum*t."""
     if momentum <= 0:
         return Optimizer(lambda params: {},
-                         lambda grads, state, params=None: ([-lr * g for g in grads], {}))
+                         lambda grads, state, params=None: ([-lr * g for g in grads], {}),
+                         "sgd", {"lr": lr})
 
     def init(params):
         return {"trace": _zeros(params)}
@@ -88,7 +100,7 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
         trace = [g + momentum * t for g, t in zip(grads, state["trace"])]
         return [-lr * t for t in trace], {"trace": trace}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, "sgd_momentum", {"lr": lr, "momentum": momentum})
 
 
 def make_optimizer(method: str, cfg, which: str) -> Optimizer:
@@ -147,3 +159,43 @@ def gated_update(tx: Optimizer, grads: Sequence[torch.Tensor], state: State,
     olds, news = list(params) + _state_tensors(state), new_params + _state_tensors(new_state)
     for old, new in zip(olds, news):
         old.copy_(new if do_update is True else torch.where(do_update, new, old))
+
+
+@torch.no_grad()
+def penalised_update(tx: Optimizer, grads: Sequence[torch.Tensor], state: State,
+                     params: Sequence[torch.Tensor], sign_coef: float, l1: float, l2: float,
+                     clamp: float = 0.0, gate: Union[bool, torch.Tensor] = True,
+                     guard: bool = False, penalty: bool = True,
+                     shards=None) -> Tuple[torch.Tensor, Union[bool, torch.Tensor]]:
+    """One iteration's tail, in facegen's order (facegen/train/step.py:
+    301-325, 362-373): the gradients gain ``sign_coef * sign(p) + l2 * p``
+    of the pre-update ``params`` and are clamped to [-clamp, clamp] (0: no
+    clamp); with ``guard`` the gate closes when any of them is not finite;
+    then ``tx`` updates ``params`` and ``state`` in place where the gate
+    holds. On a 2-D mesh ``shards`` (parallel/gspmd.py:ShardedParams)
+    takes the update on this rank's masters, made from ``state``, after the
+    penalty and clamp on the full ``params``.
+
+    Returns (the loss's penalty ``l1 * ||p||_1 + l2 * ||p||_2^2 / 2``
+    (losses.penalty_loss; zeros without ``penalty`` or with both 0), the
+    gate applied: ``gate``, and'd with the finite check under ``guard``).
+    ``grads`` may be overwritten. On the card a gradient that does not
+    share its parameter's layout is first copied into it (one copy a conv
+    weight: ops/fused_update.py:in_layouts_of); on a mesh the gradients
+    come in the parameters' layouts (parallel/gspmd.py:flat_all_reduce)."""
+    params = list(params)
+    if params[0].device.type == "cuda":  # the kernels walk p and g in one layout
+        grads = fused_update.in_layouts_of(params, grads)
+    sums = penalty and (l1 != 0.0 or l2 != 0.0)
+    grads, stats = fused_update.prep(params, grads, sign_coef, l2, clamp, sums=sums,
+                                     count=guard)
+    term = (l1 * stats[0] + l2 * stats[1] / 2.0 if sums
+            else torch.zeros((), device=params[0].device))
+    if guard:
+        finite = stats[2] == 0
+        gate = finite if gate is True else gate & finite
+    if shards is not None:
+        shards.update(tx, grads, state, gate)
+    else:
+        fused_update.update(tx, grads, state, params, gate)
+    return term, gate

@@ -49,9 +49,14 @@ penalty and the clamp follow, once, as on one device, and the update runs
 on this rank's shards of the state (``GanState.shards``), which are then
 gathered into the nets' weights.
 
+Each iteration ends in ``optim.penalised_update``: the penalty on the
+pre-update parameters, its gradient, the clamp, the finite check, the
+gate and the update, two kernels over all of the net's leaves on the card
+(ops/fused_update.py).
+
 facegen's options with no flag: ``guard_nonfinite`` closes D's gate, and
 skips G's update, when any gradient of the iteration is not finite
-(``losses.all_finite``, on the device); ``g_train_in_d_phase = False``
+(counted by the update's first kernel, on the device); ``g_train_in_d_phase = False``
 makes D's fakes with G in eval mode, so the D phase moves none of G's
 batch-norm statistics. ``--boundaryPad P`` widens the G -> D image
 interface to P channels inside the step (``make_boundary_padder``).
@@ -72,7 +77,7 @@ from facegen_torch.nn import dropout
 from facegen_torch.parallel.gspmd import (
     Mesh2D, flat_all_reduce, global_rows, set_batch_norm_mesh, shard_params)
 from facegen_torch.train import losses, metrics
-from facegen_torch.train.optim import _state_tensors, gated_update, make_optimizer
+from facegen_torch.train.optim import _state_tensors, make_optimizer, penalised_update
 
 
 @dataclasses.dataclass
@@ -357,15 +362,18 @@ class TrainStep:
         self._flat: Dict[str, torch.Tensor] = {}  # the iterations' reduction buffers
 
     def _reduce(self, key: str, state: GanState, means: List[torch.Tensor],
-                sums: Tuple[torch.Tensor, ...] = ()) -> List[torch.Tensor]:
+                sums: Tuple[torch.Tensor, ...] = (), params=()) -> List[torch.Tensor]:
         """Average both nets' batch-norm statistics (in place) and ``means``
         over the mesh, and sum ``sums``, in one SUM all-reduce of the
         iteration's flat fp32 buffer. Returns the reduced ``means`` and
-        ``sums``, fp32 views of the buffer. On a 2-D mesh the statistics
-        are already the global batch's and ``means`` come as this rank's
-        shares of the global means: all is summed over the data group."""
+        ``sums``, fp32 views of the buffer, the first ``len(params)`` of
+        ``means`` (the gradients) in their parameters' layouts. On a 2-D
+        mesh the statistics are already the global batch's and ``means``
+        come as this rank's shares of the global means: all is summed over
+        the data group."""
         stats = [] if self.exact else [b for net in (state.g, state.d) for b in net.buffers()]
-        out = flat_all_reduce(self.mesh, self._flat, key, stats + means + list(sums))
+        out = flat_all_reduce(self.mesh, self._flat, key, stats + means + list(sums),
+                              like=[None] * len(stats) + list(params))
         if not self.exact:
             flat = self._flat[key]
             flat[:sum(t.numel() for t in stats + means)].div_(self.mesh.size)  # pmean
@@ -373,12 +381,15 @@ class TrainStep:
                 b.copy_(r)
         return out[len(stats):]
 
-    def _update(self, state: GanState, net: str, tx, grads, params, do_update) -> None:
+    def _update(self, state: GanState, net: str, tx, grads, params, sign_coef: float,
+                l1: float, l2: float, clamp: float, gate):
+        """``net``'s iteration tail (``penalised_update``), on this rank's
+        shards of its state on a 2-D mesh; (the loss's penalty, the gate
+        applied)."""
         opt = state.opt_g if net == "g" else state.opt_d
-        if state.shards is not None:
-            state.shards[net].update(tx, grads, opt, do_update)
-        else:
-            gated_update(tx, grads, opt, params, do_update)
+        shards = None if state.shards is None else state.shards[net]
+        return penalised_update(tx, grads, opt, params, sign_coef, l1, l2, clamp, gate,
+                                self.cfg.guard_nonfinite, shards=shards)
 
     def d_iteration(self, state: GanState, pool: torch.Tensor, draws: DDraws):
         cfg, g, d, pad = self.cfg, state.g, state.d, self.pad
@@ -406,22 +417,22 @@ class TrainStep:
         acc = losses.batch_accuracy(logits, targets, self.global_rows)
         counts = metrics.update_confusion(metrics.empty_confusion(logits.device), logits, targets)
         if self.mesh is not None:  # facegen/train/step.py:296-310
-            *grads, loss, acc, counts = self._reduce("d", state, [*grads, loss, acc], (counts,))
+            *grads, loss, acc, counts = self._reduce("d", state, [*grads, loss, acc], (counts,),
+                                                     params)
             acc, counts = acc.clone(), counts.to(torch.int32)
-        # penalties on the pre-update parameters, then the clamp
-        loss = loss + losses.penalty_loss(params, cfg.d_l1, cfg.d_l2)
-        grads = losses.add_penalty_grads(grads, params, cfg.d_l1, cfg.d_l2)
-        grads = losses.clamp_grads(grads, cfg.d_clamp)
 
         # push into the ring, then average (adversarial.lua:154-167)
         k_ring = state.accs.shape[0]
         state.accs.scatter_(0, (state.accs_n % k_ring).long().reshape(1), acc.reshape(1))
         state.accs_n += 1
         acc_avg = state.accs.sum() / torch.clamp(state.accs_n, max=k_ring).float()
-        do_train = acc_avg < cfg.d_max_acc
-        if cfg.guard_nonfinite:  # facegen/train/step.py:319-323
-            do_train = do_train & losses.all_finite(grads)
-        self._update(state, "d", self.tx_d, grads, params, do_train)
+        # the penalty on the pre-update parameters, its gradient, the clamp,
+        # and the gate, closed too by a gradient that is not finite under
+        # guard_nonfinite (facegen/train/step.py:301-323)
+        penalty, do_train = self._update(state, "d", self.tx_d, grads, params, cfg.d_l1,
+                                         cfg.d_l1, cfg.d_l2, cfg.d_clamp,
+                                         acc_avg < cfg.d_max_acc)
+        loss = loss + penalty
         state.confusion += counts
         state.trained_d += do_train.int()
         state.not_trained_d += (~do_train).int()
@@ -443,16 +454,13 @@ class TrainStep:
         grads = torch.autograd.grad(loss, params)
         loss = loss.detach()
         if self.mesh is not None:  # facegen/train/step.py:358-361
-            *grads, loss = self._reduce("g", state, [*grads, loss])
-        loss = loss + losses.penalty_loss(params, cfg.g_l1, cfg.g_l2)
-        # the reference's bug (adversarial.lua:223): G_L2 scales the sign term too
+            *grads, loss = self._reduce("g", state, [*grads, loss], params=params)
+        # the reference's bug (adversarial.lua:223): G_L2 scales the sign term
+        # too; no gate but the finite check (facegen/train/step.py:362-372)
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
-        grads = losses.add_penalty_grads(grads, params, sign_coef, cfg.g_l2)
-        grads = losses.clamp_grads(grads, cfg.g_clamp)
-        # facegen/train/step.py:369-372
-        do_update = losses.all_finite(grads) if cfg.guard_nonfinite else True
-        self._update(state, "g", self.tx_g, grads, params, do_update)
-        return loss
+        penalty, _ = self._update(state, "g", self.tx_g, grads, params, sign_coef, cfg.g_l1,
+                                  cfg.g_l2, cfg.g_clamp, True)
+        return loss + penalty
 
     def __call__(self, state: GanState, pool: torch.Tensor, draws: StepDraws) -> StepMetrics:
         zero = torch.zeros((), device=pool.device)

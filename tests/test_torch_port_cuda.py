@@ -13,7 +13,13 @@ inputs with fp32 accumulation and then the output's bf16 rounding. The
 backward kernels' fp32 dx and dW (of both types; bf16 inputs are exact
 in fp32) are held to 1e-4 of the plain result's largest entry: their
 sums run over 9*4*Cout or N*H*W products, whose rounding grows with the
-terms, not with the entry they land in.
+terms, not with the entry they land in. The update's two kernels
+(ops/fused_update.py) against their plain versions on the same card
+tensors: gradients, parameters and optimizer states within 1e-6 relative
+l2 (each product and sum rounded alone on both sides; powf and rsqrtf may
+differ in the last bit), the sums of |p| and p^2 within 1e-5 relative
+(fp64 partials against fp32 sums), counts exact; a closed gate, a second
+launch and a graph's replay bit for bit.
 """
 
 import subprocess
@@ -25,6 +31,7 @@ import torch
 
 from facegen_torch.models import gan
 from facegen_torch.ops import _build
+from facegen_torch.ops import fused_update as fu
 from facegen_torch.ops import upsample_conv as uc
 from facegen_torch.utils.infer import GanInference
 
@@ -591,8 +598,8 @@ def test_graphed_boundary_pad_steps_match_eager_ones(cuda_device):
     """--boundaryPad 8 at fp32 (TF32 off): 3 graphed steps against 3 eager
     ones within 1e-5 relative l2, the padded weights made from the live
     parameters in every replay (nothing cached: the third step's D reads
-    the second's update); the capture launches the three kernels as the
-    unpadded step does (4, 2, 2)."""
+    the second's update); the capture launches the kernels as the
+    unpadded step does (4, 2, 2, and the update's 2 and 2)."""
     from facegen_torch.config import TrainConfig
     from facegen_torch.train.graph import GraphedStep
 
@@ -608,7 +615,8 @@ def test_graphed_boundary_pad_steps_match_eager_ones(cuda_device):
     runner.run(torch.Generator(cuda_device).manual_seed(7), 3)
     torch.cuda.synchronize()
     assert runner.launches_per_replay == {"KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2,
-                                          "DW_LAUNCHES": 2}
+                                          "DW_LAUNCHES": 2, "PREP_LAUNCHES": 2,
+                                          "UPDATE_LAUNCHES": 2}
     assert tuple(graphed.g.get_parameter("09_conv_out.weight").shape) == (3, 128, 3, 3)
     _assert_states_close(graphed, eager, 1e-5)
 
@@ -804,11 +812,12 @@ def test_graphed_draws_and_launch_counts(cuda_device):
     cfg = TrainConfig().validate()
     pool = _gan_pool(cuda_device)
     state, step = _gan_step(cuda_device, cfg)
-    counts = lambda: (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES)  # noqa: E731
+    counts = lambda: (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES,  # noqa: E731
+                      fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES)
     before = counts()
     _eager_steps(state, step, pool, torch.Generator(cuda_device).manual_seed(1), 1)
     per_step = tuple(b - a for a, b in zip(before, counts()))
-    assert per_step == (4, 2, 2)
+    assert per_step == (4, 2, 2, 2, 2)  # the update's two kernels once per net
     runner = GraphedStep(step, state, pool.shape[0])
     runner.set_pool(pool)
     before = counts()
@@ -816,7 +825,8 @@ def test_graphed_draws_and_launch_counts(cuda_device):
     torch.cuda.synchronize()
     assert tuple(b - a for a, b in zip(before, counts())) == tuple(5 * n for n in per_step)
     assert runner.launches_per_replay == dict(zip(("KERNEL_LAUNCHES", "DX_LAUNCHES",
-                                                   "DW_LAUNCHES"), per_step))
+                                                   "DW_LAUNCHES", "PREP_LAUNCHES",
+                                                   "UPDATE_LAUNCHES"), per_step))
     gen = torch.Generator(cuda_device).manual_seed(2)
     for _ in range(5):
         want = draw_step(gen, cfg, pool.shape[0], step.mask_specs)
@@ -967,7 +977,14 @@ def test_trace_of_graphed_replays_lists_the_three_kernels(cuda_device, tmp_path)
 
 # ------------------------------------------ the c2f, autoencoder and denoiser graphs
 FAMILY = ("c2f", "autoencoder", "denoiser")
-NO_LAUNCHES = dict.fromkeys(("KERNEL_LAUNCHES", "DX_LAUNCHES", "DW_LAUNCHES"), 0)
+# a replay's launches: none of the upsample-conv kernels; the update's two
+# kernels per net iteration (c2f: D and G; denoiser: its two decoders; the
+# autoencoder: its one net, whose prep has work here only through
+# --coefL1, as it has no clamp)
+FAMILY_LAUNCHES = {
+    kind: {"KERNEL_LAUNCHES": 0, "DX_LAUNCHES": 0, "DW_LAUNCHES": 0, "PREP_LAUNCHES": n,
+           "UPDATE_LAUNCHES": n}
+    for kind, n in (("c2f", 2), ("autoencoder", 1), ("denoiser", 2))}
 
 
 def _family_trainer(kind, save, dtype="float32", **kw):
@@ -1048,7 +1065,8 @@ def test_family_graphed_steps_match_eager_steps(cuda_device, tmp_path, kind, dty
     under cuDNN's deterministic algorithms: fp32 (TF32 off) within 1e-5
     relative l2 over the parameters, the batch-norm statistics, Adam's
     moments and the losses, the c2f's bf16 within 1e-3; the counts equal;
-    no kernel of the port in the capture. (With cuDNN free to choose, the
+    none of the upsample-conv kernels in the capture, the update's
+    (FAMILY_LAUNCHES). (With cuDNN free to choose, the
     c2f's fp32 convs differ from run to run: two eager runs read 1.3e-3
     on an H100.)"""
     from facegen_torch.train.graph import WARMUP_STEPS
@@ -1065,7 +1083,7 @@ def test_family_graphed_steps_match_eager_steps(cuda_device, tmp_path, kind, dty
     runner = graphed.graphed
     assert runner.route == "one CUDA graph replay a step" and eager.graphed.graph is None
     assert runner.graph is not None and runner.eager_steps == WARMUP_STEPS
-    assert runner.launches_per_replay == NO_LAUNCHES
+    assert runner.launches_per_replay == FAMILY_LAUNCHES[kind]
     assert bool(torch.isfinite(losses_g).all())
     _assert_family_close(graphed, eager, losses_g, losses_e, tol)
 
@@ -1138,3 +1156,224 @@ def test_family_on_a_1x1_nccl_mesh_equals_the_single_device_graph(cuda_device, t
     assert "all-gathers over the 1x1 mesh inside it" in two.graphed.route
     assert torch.equal(losses_two, losses_one)
     _assert_family_close(two, one, losses_two, losses_one, 0.0)
+
+
+# ------------------------------------------------ the update's two kernels
+UPDATE_TOL = 1e-6
+SUMS_RTOL = 1e-5
+# the nets whose leaves the trainers update, full width: the GAN's at 32
+# and 16 (G16 + D16_d), the c2f's, the autoencoder and a denoiser decoder
+FUSED_NETS = ("G32", "D32b", "G16", "D16_d", "c2f_G", "c2f_D", "AE", "denoiser_dec")
+
+
+def _fused_shapes(net):
+    from facegen_torch.models import ae, c2f
+
+    gen = torch.Generator().manual_seed(0)
+    if net in ("G32", "D32b", "G16", "D16_d"):
+        g, d = gan.init_gan(gen, 32 if net in ("G32", "D32b") else 16, 3, 100)
+        module = g if net.startswith("G") else d
+    elif net.startswith("c2f"):
+        module = c2f.init_c2f(gen, 32, 3)[0 if net == "c2f_G" else 1]
+    elif net == "AE":
+        module = ae.create_autoencoder(32, 1, 256, generator=gen)
+    else:
+        module = ae.init_denoiser(gen, 16, 3)[1]
+    return [tuple(p.shape) for p in module.parameters()]
+
+
+def _fused_leaves(shapes, method, device, seed=0):
+    """Parameters, gradients (a tenth beyond the clamp of 0.02) and an
+    optimizer state three steps in, from a seed."""
+    from facegen_torch.train import optim
+
+    gen = torch.Generator().manual_seed(seed)
+    params = [(torch.randn(s, generator=gen) * 0.05).to(device) for s in shapes]
+    grads = [(torch.randn(s, generator=gen) * 0.012).to(device) for s in shapes]
+    kind = "sgd" if method == "sgd_momentum" else method
+    tx = optim.make_optimizer(kind, _optim_cfg(method), "D")
+    state = tx.init(params)
+    for key, v in state.items():
+        if key == "count":
+            v.fill_(3)
+        else:
+            for t in v:
+                t.copy_((torch.rand(t.shape, generator=gen) * 1e-4).to(device))
+    return tx, params, grads, state
+
+
+def _optim_cfg(method):
+    from facegen_torch.config import TrainConfig
+
+    return TrainConfig(d_sgd_momentum=0.9 if method == "sgd_momentum" else 0.0)
+
+
+def _copies(tensors):
+    return [t.clone() for t in tensors]
+
+
+def _state_copy(state):
+    return {k: _copies(v) if isinstance(v, list) else v.clone() for k, v in state.items()}
+
+
+def _state_list(state):
+    from facegen_torch.train.optim import _state_tensors
+
+    return _state_tensors(state)
+
+
+PREP_ARGS = dict(sign_coef=1e-3, linear_coef=1e-4, clamp=0.02, sums=True, count=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,method", [(n, "adam") for n in FUSED_NETS]
+                         + [("D32b", m) for m in ("adagrad", "sgd", "sgd_momentum")])
+def test_fused_update_kernels_match_their_plain_versions(cuda_device, net, method):
+    """prep (penalty gradient, clamp, sums, finite count) and the gated
+    update over all of a full-width net's leaves in one launch each,
+    against their plain versions on copies of the same card tensors."""
+    tx, params, grads, state = _fused_leaves(_fused_shapes(net), method, cuda_device)
+    ref_grads, ref_stats = fu.prep_reference(params, _copies(grads), **PREP_ARGS)
+    before = (fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES)
+    out_grads, stats = fu.prep(params, grads, **PREP_ARGS)
+    assert all(a is b for a, b in zip(out_grads, grads))  # in place
+    assert _rel_l2(grads, [g.cpu() for g in ref_grads]) <= UPDATE_TOL
+    stats, ref_stats = stats.cpu(), ref_stats.cpu()
+    assert torch.allclose(stats[:2], ref_stats[:2], rtol=SUMS_RTOL, atol=0)
+    assert stats[2] == ref_stats[2] == 0
+    ref_params, ref_state = _copies(params), _state_copy(state)
+    gate = torch.ones((), dtype=torch.bool, device=cuda_device)
+    fu.update_reference(tx, _copies(grads), ref_state, ref_params, gate)
+    fu.update(tx, grads, state, params, gate)
+    torch.cuda.synchronize()
+    assert (fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _rel_l2(params, [p.cpu() for p in ref_params]) <= UPDATE_TOL
+    for ours, ref in zip(_state_list(state), _state_list(ref_state)):
+        if ours.dtype == torch.int32:
+            assert int(ours) == int(ref) == 4
+        else:
+            assert _rel_l2([ours], [ref.cpu()]) <= UPDATE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["adam", "adagrad", "sgd", "sgd_momentum"])
+def test_a_closed_gate_leaves_every_byte(cuda_device, method):
+    """A closed device gate: the update kernel writes nothing, Adam's count
+    included."""
+    tx, params, grads, state = _fused_leaves(_fused_shapes("D32b"), method, cuda_device)
+    want_p, want_s = _copies(params), _copies(_state_list(state))
+    fu.update(tx, grads, state, params, torch.zeros((), dtype=torch.bool, device=cuda_device))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(params, want_p))
+    assert all(torch.equal(a, b) for a, b in zip(_state_list(state), want_s))
+
+
+@pytest.mark.cuda
+def test_two_launches_are_bit_equal(cuda_device):
+    """prep's sums (a last-block reduction in block order) and both
+    kernels' outputs are the same bits on a second launch on the same
+    inputs; the tickets are left at zero."""
+    runs = []
+    for _ in range(2):
+        tx, params, grads, state = _fused_leaves(_fused_shapes("D32b"), "adam", cuda_device)
+        _, stats = fu.prep(params, grads, **PREP_ARGS)
+        fu.update(tx, grads, state, params, True)
+        torch.cuda.synchronize()
+        runs.append([stats, *grads, *params, *_state_list(state)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert not fu._TICKETS[cuda_device.index].any()
+
+
+@pytest.mark.cuda
+def test_a_table_longer_than_one_launch(cuda_device):
+    """150 leaves of 1 to 5000 entries (and two empty ones): three launches
+    of each kernel, the sums added over them, Adam's count advanced once,
+    the results as the plain versions'."""
+    rs = torch.Generator().manual_seed(3)
+    sizes = [int(n) for n in torch.randint(1, 5001, (150,), generator=rs)]
+    sizes[5] = sizes[77] = 0
+    shapes = [(n,) for n in sizes]
+    tx, params, grads, state = _fused_leaves(shapes, "adam", cuda_device, seed=4)
+    ref_grads, ref_stats = fu.prep_reference(params, _copies(grads), **PREP_ARGS)
+    ref_params, ref_state = _copies(params), _state_copy(state)
+    fu.update_reference(tx, _copies(ref_grads), ref_state, ref_params, True)
+    assert len(fu.segments(sizes, _build.load("fused_update").facegen_fused_max_segments())) == 3
+    before = (fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES)
+    _, stats = fu.prep(params, grads, **PREP_ARGS)
+    fu.update(tx, grads, state, params, True)
+    torch.cuda.synchronize()
+    assert (fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES) == (before[0] + 3, before[1] + 3)
+    assert _rel_l2(grads, [g.cpu() for g in ref_grads]) <= UPDATE_TOL
+    assert torch.allclose(stats.cpu()[:2], ref_stats.cpu()[:2], rtol=SUMS_RTOL, atol=0)
+    assert _rel_l2(params, [p.cpu() for p in ref_params]) <= UPDATE_TOL
+    assert int(state["count"]) == int(ref_state["count"]) == 4
+    for kind in ("mu", "nu"):
+        assert _rel_l2(state[kind], [t.cpu() for t in ref_state[kind]]) <= UPDATE_TOL
+    assert not fu._TICKETS[cuda_device.index].any()
+
+
+@pytest.mark.cuda
+def test_a_captured_penalised_update_replays_as_the_eager_calls(cuda_device):
+    """penalised_update (guarded, with D's gate) captured in a CUDA graph
+    once and replayed twice from a state equals two eager calls bit for
+    bit: the tables, the workspace and the tickets are static, the
+    moments and Adam's count written in place."""
+    from facegen_torch.train.optim import penalised_update
+
+    def fresh():
+        return _fused_leaves(_fused_shapes("D32b"), "adam", cuda_device)
+
+    gate = torch.ones((), dtype=torch.bool, device=cuda_device)
+    tx, params, grads, state = fresh()
+    eager = []
+    for _ in range(2):
+        g = _copies(grads)
+        pen, applied = penalised_update(tx, g, state, params, 1e-3, 1e-3, 1e-4, 0.02, gate, True)
+        eager.append((pen.clone(), applied.clone()))
+    tx, params, grads, state = fresh()
+    static = _copies(grads)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        pen, applied = penalised_update(tx, _copies(static), state, params, 1e-3, 1e-3, 1e-4,
+                                        0.02, gate, True)
+    replayed = []
+    for _ in range(2):
+        graph.replay()
+        replayed.append((pen.clone(), applied.clone()))
+    torch.cuda.synchronize()
+    want_tx, want_params, want_grads, want_state = fresh()
+    for _ in range(2):
+        penalised_update(want_tx, _copies(want_grads), want_state, want_params, 1e-3, 1e-3,
+                         1e-4, 0.02, gate, True)
+    assert all(torch.equal(a, b) for a, b in zip(params, want_params))
+    assert all(torch.equal(a, b) for a, b in zip(_state_list(state), _state_list(want_state)))
+    for (p1, g1), (p2, g2) in zip(replayed, eager):
+        assert torch.equal(p1, p2) and torch.equal(g1, g2) and bool(g1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan_leaf", [None, 3], ids=["finite", "nan"])
+def test_penalised_update_on_the_card_matches_the_cpu(cuda_device, nan_leaf):
+    """The whole tail (G's coefficients with the reference's bug, G's
+    clamp, the finite check) on G32's leaves: the card's kernels against
+    the CPU's plain composition, within the update's tolerance; a NaN
+    gradient closes the gate on both."""
+    from facegen_torch.train.optim import penalised_update
+
+    shapes = _fused_shapes("G32")
+    runs = []
+    for device in ("cpu", cuda_device):
+        tx, params, grads, state = _fused_leaves(shapes, "adam", device)
+        if nan_leaf is not None:
+            grads[nan_leaf].view(-1)[0] = float("nan")
+        pen, applied = penalised_update(tx, grads, state, params, 5e-4, 2e-3, 5e-4, 5.0, True,
+                                        True)
+        runs.append((float(pen), bool(applied), params, state))
+    (pen_c, gate_c, p_c, s_c), (pen_g, gate_g, p_g, s_g) = runs
+    assert gate_c == gate_g == (nan_leaf is None)
+    assert pen_g == pytest.approx(pen_c, rel=SUMS_RTOL)
+    assert _rel_l2(p_g, p_c) <= UPDATE_TOL
+    assert int(s_g["count"]) == int(s_c["count"])
+    for kind in ("mu", "nu"):
+        assert _rel_l2(s_g[kind], s_c[kind]) <= UPDATE_TOL
