@@ -1,0 +1,24 @@
+"""The window's arithmetic: rates over a window and percentiles."""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+
+def percentile(values: Sequence[float], q: float) -> float:
+    """The ``q``-th percentile (0-100) by linear interpolation between the
+    closest ranks of the sorted values (numpy's default)."""
+    if not values:
+        raise ValueError("percentile of no values")
+    xs = sorted(values)
+    pos = (len(xs) - 1) * q / 100.0
+    lo = math.floor(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def rate(units: float, seconds: float) -> float:
+    if seconds <= 0:
+        raise ValueError(f"a window of {seconds} s")
+    return units / seconds
