@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from facegen_torch.data.augment import augment_batch, sample_affine_params
+from facegen_torch.utils.profiling import span
 
 # BT.601 luma, as torch's image.rgb2y for 1-channel loads (dataset.lua:90)
 _LUMA = (0.299, 0.587, 0.114)
@@ -77,9 +78,10 @@ class DataSource:
         return self.store[torch.sort(idx).values.to(self.device)]
 
     def epoch_pool(self, generator: torch.Generator, n: int) -> torch.Tensor:
-        raw = self.raw_batch(generator, n)
-        aug = {k: v.to(self.device) for k, v in sample_affine_params(generator, n).items()}
-        return prepare_pool(raw, self.scale, self.channels, aug)
+        with span("data.pool"):
+            raw = self.raw_batch(generator, n)
+            aug = {k: v.to(self.device) for k, v in sample_affine_params(generator, n).items()}
+            return prepare_pool(raw, self.scale, self.channels, aug)
 
     def range_pool(self, start: int, count: int) -> torch.Tensor:
         """Rows [start, start + count) resized without augmentation, the

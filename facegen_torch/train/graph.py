@@ -92,6 +92,7 @@ from facegen_torch.train.step import (
     draw_step,
     empty_draws,
 )
+from facegen_torch.utils.profiling import span
 
 # the kernels' launch counters: (module, name)
 _COUNTERS = ((uc, "KERNEL_LAUNCHES"), (uc, "DX_LAUNCHES"), (uc, "DW_LAUNCHES"),
@@ -190,13 +191,19 @@ class StepGraph:
 
     def run_steps(self, draw: Callable[[int], None], n_steps: int) -> torch.Tensor:
         rows = torch.empty((n_steps,) + self.shape, device=self.device)
+
+        def draw_spanned(i: int) -> None:
+            with span("step.draw"):
+                draw(i)
+
         for i in range(n_steps):
-            self._step(lambda: draw(i), rows[i])
+            self._step(lambda: draw_spanned(i), rows[i])
         return rows
 
     def _eager(self, draw: Callable[[], None], row: torch.Tensor) -> None:
-        draw()
-        row.copy_(self.body())
+        with span("step.eager"):
+            draw()
+            row.copy_(self.body())
 
     def _step(self, draw: Callable[[], None], row: torch.Tensor) -> None:
         if not self.captures:
@@ -213,7 +220,8 @@ class StepGraph:
         if self.graph is None:
             self._capture()
         draw()
-        self.graph.replay()
+        with span("step.replay"):
+            self.graph.replay()
         for module, name in _COUNTERS:
             setattr(module, name, getattr(module, name) + self.launches_per_replay[name])
         row.copy_(self.metrics)

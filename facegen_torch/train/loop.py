@@ -84,7 +84,7 @@ from facegen_torch.train.step import (
 )
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.infer import GanInference
-from facegen_torch.utils.profiling import MetricsLogger, enable_nan_debugging
+from facegen_torch.utils.profiling import MetricsLogger, enable_nan_debugging, span
 from facegen_torch.utils.viz import visualize_progress
 
 CKPT_NAME = "adversarial"  # logs/adversarial.net in the reference
@@ -271,7 +271,8 @@ class Trainer:
         cfg = self.cfg
         gens = [self._epoch_generators(start_idx + j) for j in range(n)]
         self._log("Loading new training data...")
-        pools = [self.source.epoch_pool(g[0], self.pool_n) for g in gens]
+        with span("loop.pools"):
+            pools = [self.source.epoch_pool(g[0], self.pool_n) for g in gens]
         if not cfg.noplot and self.writes:
             report = visualize_progress(
                 self.inf, self.fixed_noise, pools[0], os.path.join(cfg.save, "viz"), gens[0][2],
@@ -293,11 +294,13 @@ class Trainer:
                 ms = self._traced_epoch(pool, g[1], n_steps)
             else:
                 ms = self._epoch_steps(pool, g[1], n_steps)
-            summaries.append(epoch_summary(self.state, ms))
-            reset_epoch_stats(self.state)
+            with span("loop.summary"):
+                summaries.append(epoch_summary(self.state, ms))
+                reset_epoch_stats(self.state)
             self.state.epoch += 1
         # the chunk's one read-back, which also waits for the device
-        summaries = summaries_to_host(summaries)
+        with span("loop.readback"):
+            summaries = summaries_to_host(summaries)
         self.readbacks += 1
         dt = time.perf_counter() - t0
         del pools
@@ -328,7 +331,8 @@ class Trainer:
         # every saveFreq epochs (adversarial.lua:319); a chunk keeps only its
         # last state, so it saves once if it crossed a boundary
         if any((epoch_before + j) % cfg.save_freq == 0 for j in range(n)):
-            self.save()
+            with span("loop.save"):
+                self.save()
         return all_stats
 
     def run(self, epochs: Optional[int] = None) -> Iterator[dict]:

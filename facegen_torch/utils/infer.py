@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from facegen_torch.parallel.gspmd import ShardedReplica
+from facegen_torch.utils.profiling import span
 
 
 class GanInference:
@@ -63,17 +64,22 @@ class GanInference:
         self.request_devices = [next(net.parameters()).device if isinstance(net, nn.Module)
                                 else net.device for net in self.g_replicas]
 
-    def _split(self, nets: List[nn.Module], x: torch.Tensor) -> torch.Tensor:
+    def _split(self, nets: List[nn.Module], x: torch.Tensor, name: str) -> torch.Tensor:
         """``nets[i]`` on the i-th of ``len(nets)`` equal parts of ``x``,
         wrap-padded; the fp32 outputs in order on ``self.device``, cut back
-        to ``len(x)``."""
+        to ``len(x)``. The span ``name`` covers the nets' calls, and on one
+        device neither the cast in nor the fp32 copy out."""
         if len(nets) == 1:
-            return nets[0](x.to(self.device, self.dtype)).float()
+            x = x.to(self.device, self.dtype)
+            with span(name):
+                y = nets[0](x)
+            return y.float()
         n, k = x.shape[0], len(nets)
         total = n + (-n % k)
         padded = x.repeat((-(-total // n),) + (1,) * (x.dim() - 1))[:total]
-        parts = [net(part.to(dev, self.dtype))
-                 for net, part, dev in zip(nets, padded.chunk(k), self.request_devices)]
+        with span(name):
+            parts = [net(part.to(dev, self.dtype))
+                     for net, part, dev in zip(nets, padded.chunk(k), self.request_devices)]
         return torch.cat([p.float().to(self.device) for p in parts])[:n]
 
     def noise(self, generator: torch.Generator, n: int) -> torch.Tensor:
@@ -84,7 +90,7 @@ class GanInference:
     @torch.no_grad()
     def generate(self, noise: torch.Tensor) -> torch.Tensor:
         """(n, noise_dim) -> (n, H, W, C) fp32 images in [0, 1]."""
-        return self._split(self.g_replicas, noise)
+        return self._split(self.g_replicas, noise, "infer.generate")
 
     def generate_n(self, generator: torch.Generator, n: int) -> torch.Tensor:
         return self.generate(self.noise(generator, n))
@@ -92,7 +98,7 @@ class GanInference:
     @torch.no_grad()
     def score(self, images: torch.Tensor) -> torch.Tensor:
         """(n, H, W, C) images -> (n,) D probabilities."""
-        return torch.sigmoid(self._split(self.d_replicas, images)).reshape(-1)
+        return torch.sigmoid(self._split(self.d_replicas, images, "infer.score")).reshape(-1)
 
     def rank(self, images: torch.Tensor, ascending: bool = False,
              max_out: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,10 +106,11 @@ class GanInference:
         most fake-looking first (nn_utils.lua:90-118). Stable, like
         jnp.argsort, so ties keep facegen's order."""
         scores = self.score(images)
-        order = torch.argsort(scores if ascending else -scores, stable=True)
-        if max_out is not None:
-            order = order[:max_out]
-        return images[order], scores[order]
+        with span("infer.rank"):
+            order = torch.argsort(scores if ascending else -scores, stable=True)
+            if max_out is not None:
+                order = order[:max_out]
+            return images[order], scores[order]
 
 
 def sanity_image(scale: int, channels: int, generator: torch.Generator) -> torch.Tensor:
@@ -164,15 +171,18 @@ def nearest_neighbours(queries: torch.Tensor, dataset, k: int = 1,
     if q.dtype == torch.uint8:
         q = q.float() / 255.0
     q = q.reshape(q.shape[0], -1).float()
-    if isinstance(dataset, list):
-        found = [_top_k(q, part, k) for part in dataset]
-        offsets = np.cumsum([0] + [part.shape[0] for part in dataset[:-1]])
-        d2 = torch.cat([d.to(q.device) for d, _ in found], dim=1)
-        idx = torch.cat([i.to(q.device) + int(o) for (_, i), o in zip(found, offsets)], dim=1)
-        d2, pick = torch.topk(-d2, k, dim=1)
-        d2, idx = -d2, idx.gather(1, pick)
-    else:
-        if not (torch.is_tensor(dataset) and dataset.dim() == 2):
-            dataset = prepare_nn_dataset(dataset, q.device)
-        d2, idx = _top_k(q, dataset, k)
-    return idx.cpu().numpy(), torch.sqrt(d2).cpu().numpy()
+    with span("infer.nn.search"):
+        if isinstance(dataset, list):
+            found = [_top_k(q, part, k) for part in dataset]
+            offsets = np.cumsum([0] + [part.shape[0] for part in dataset[:-1]])
+            d2 = torch.cat([d.to(q.device) for d, _ in found], dim=1)
+            idx = torch.cat([i.to(q.device) + int(o) for (_, i), o in zip(found, offsets)],
+                            dim=1)
+            d2, pick = torch.topk(-d2, k, dim=1)
+            d2, idx = -d2, idx.gather(1, pick)
+        else:
+            if not (torch.is_tensor(dataset) and dataset.dim() == 2):
+                dataset = prepare_nn_dataset(dataset, q.device)
+            d2, idx = _top_k(q, dataset, k)
+    with span("infer.nn.readback"):
+        return idx.cpu().numpy(), torch.sqrt(d2).cpu().numpy()

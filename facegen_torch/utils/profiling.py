@@ -4,6 +4,8 @@ log (counterpart of facegen/utils/profiling.py).
 - ``trace(logdir)``: a context manager around ``torch.profiler`` that
   writes a gzipped Chrome trace of the block (CPU and, where there is
   one, CUDA activity) under ``logdir``;
+- ``span(name)``: a named range of the program at a layer boundary,
+  recorded only while a profiler records;
 - ``aggregate_trace`` / ``format_op_table``: the per-op device-time table
   of the newest such trace, facegen's summary and tables from the GPU's
   own tracks;
@@ -22,6 +24,9 @@ import os
 import time
 from typing import List, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 # the categories of the events torch's profiler puts on a GPU's tracks;
 # cuda_runtime (the host's launch calls) and cpu_op are the host's
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -35,7 +40,6 @@ def trace(logdir: str):
     ``<worker>.<ns>.pt.trace.json.gz`` is written under ``logdir``. The
     caller synchronises the device inside the block if its work must
     finish there."""
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     os.makedirs(logdir, exist_ok=True)
@@ -45,6 +49,29 @@ def trace(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir, use_gzip=True)):
         yield
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context for the range ``name`` of the program: while a torch
+    profiler records (``trace`` above, or any ``torch.profiler.profile``),
+    ``record_function(name)``; otherwise one shared no-op context, so the
+    cost when nothing records is one read of the profiler's flag.
+
+    The spans sit at the layer boundaries: ``step.draw``, ``step.replay``,
+    ``step.eager`` (train/graph.py), ``loop.pools``, ``loop.summary``,
+    ``loop.readback``, ``loop.save`` (train/loop.py), ``data.pool``
+    (data/pipeline.py), ``infer.generate``, ``infer.score``, ``infer.rank``,
+    ``infer.nn.search`` and ``infer.nn.readback`` (utils/infer.py). A
+    span's parent is the span that encloses it on the host thread. In the trace each range has a host event (category
+    ``user_annotation``) and a device view (``gpu_user_annotation``): the
+    device work launched while it was the innermost range open, since
+    Kineto gives a kernel, copy or fill to that range alone."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _newest_trace(logdir: str) -> str:
@@ -66,10 +93,8 @@ def aggregate_trace(logdir: str, top: int = 25, min_share: float = 0.0):
     and CPU ops are left out), and sums their durations by name: by kernel
     for kernels, by copy or fill kind for the others.
 
-    Returns facegen's summary: ``total_us``, ``module_total_us`` (the GPU
-    spans of ``record_function`` ranges, category gpu_user_annotation,
-    which enclose the kernels as facegen's module track does), ``device``
-    (the devices of the trace), ``ops`` (name, total_us, calls, category,
+    Returns facegen's summary: ``total_us``, ``device`` (the devices of
+    the trace), ``ops`` (name, total_us, calls, category,
     share, tflops, gbps; sorted by time, cut to ``top`` rows of share >=
     ``min_share``) and ``categories``. ``tflops`` and ``gbps`` are None
     where the trace counts no flops or bytes (kernels: torch records
@@ -82,16 +107,14 @@ def aggregate_trace(logdir: str, top: int = 25, min_share: float = 0.0):
     agg: dict = {}
     cats: dict = {}
     pids = set()
-    total = module_total = 0.0
+    total = 0.0
     for ev in events:
         if ev.get("ph") != "X":
             continue
         cat = ev.get("cat", "")
-        dur = float(ev.get("dur", 0.0))
-        if cat == "gpu_user_annotation":
-            module_total += dur
         if cat not in DEVICE_CATEGORIES:
             continue
+        dur = float(ev.get("dur", 0.0))
         args = ev.get("args", {})
         row = agg.setdefault(ev.get("name", "?"), [0.0, 0, cat, 0.0, 0.0])
         row[0] += dur
@@ -127,8 +150,7 @@ def aggregate_trace(logdir: str, top: int = 25, min_share: float = 0.0):
         device = ", ".join(n for n in names if n) or f"GPU track(s) {sorted(pids)}"
     else:
         device = "host (no device track)"
-    return {"total_us": total, "module_total_us": module_total,
-            "device": device, "ops": ops, "categories": categories}
+    return {"total_us": total, "device": device, "ops": ops, "categories": categories}
 
 
 def _fmt_rate(value: Optional[float], spec: str) -> str:
@@ -140,8 +162,7 @@ def format_op_table(summary: dict) -> str:
     tables (by category, by op)."""
     lines = [
         f"device track(s): {summary['device']};"
-        f" leaf-op time {summary['total_us'] / 1e3:.2f} ms"
-        f" (module track {summary.get('module_total_us', 0.0) / 1e3:.2f} ms)",
+        f" leaf-op time {summary['total_us'] / 1e3:.2f} ms",
         "",
         "| category | time (us) | calls | share |",
         "|---|---:|---:|---:|",
@@ -175,8 +196,6 @@ class _NanDebugging:
     forward is under way, pushed by a pre-hook)."""
 
     def __init__(self):
-        import torch
-
         self.stack: List = []
         mod = torch.nn.modules.module
         self.handles = [mod.register_module_forward_pre_hook(self._enter),
@@ -193,8 +212,6 @@ class _NanDebugging:
         return "/".join(parts)
 
     def _exit(self, module, args, output):
-        import torch
-
         try:
             outs = output if isinstance(output, (tuple, list)) else (output,)
             for t in outs:
@@ -222,8 +239,6 @@ def enable_nan_debugging(enable: bool = True) -> None:
     which raises FloatingPointError naming the module. Both wait for the
     device at every check, so they cannot run under CUDA-graph capture.
     ``enable=False`` turns both off."""
-    import torch
-
     global _NAN_DEBUGGING
     torch.autograd.set_detect_anomaly(enable, check_nan=True)
     if enable and _NAN_DEBUGGING is None:

@@ -975,6 +975,50 @@ def test_trace_of_graphed_replays_lists_the_three_kernels(cuda_device, tmp_path)
     assert summary["total_us"] > 0 and summary["device"] != "host (no device track)"
 
 
+@pytest.mark.cuda
+def test_replay_spans_their_device_views_and_kernels(cuda_device, tmp_path):
+    """Under the profiler the graphed GAN step gives one ``step.replay`` span
+    (utils/profiling.py:span) and one ``step.draw`` a replay; each replay's
+    device view starts no earlier than its host span, within 2 us (the
+    trace's host and device events share one clock), and holds the same
+    count of kernels on every replay, the upsample-conv's and the update's
+    among them."""
+    import gzip
+    import json
+
+    from facegen_torch.config import TrainConfig
+    from facegen_torch.train.graph import GraphedStep
+    from facegen_torch.utils.profiling import _newest_trace, trace
+
+    cfg = TrainConfig().validate()
+    pool = _gan_pool(cuda_device)
+    state, step = _gan_step(cuda_device, cfg)
+    runner = GraphedStep(step, state, pool.shape[0])
+    runner.set_pool(pool)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    runner.run(gen, 2)  # the warm-up step and the capture
+    replays = 5
+    with trace(str(tmp_path)):
+        runner.run(gen, replays)
+        torch.cuda.synchronize()
+    with gzip.open(_newest_trace(str(tmp_path)), "rt") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(cat, name):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                      for e in events if e.get("cat") == cat and e.get("name") == name)
+
+    host = spans("user_annotation", "step.replay")
+    views = spans("gpu_user_annotation", "step.replay")
+    assert len(host) == len(views) == len(spans("user_annotation", "step.draw")) == replays
+    for (hs, _), (vs, _) in zip(host, views):
+        assert vs >= hs - 2.0, (hs, vs)
+    starts = [float(e["ts"]) for e in events if e.get("cat") == "kernel"]
+    counts = [sum(1 for t in starts if vs <= t <= ve) for vs, ve in views]
+    assert len(set(counts)) == 1, counts
+    assert counts[0] >= sum(runner.launches_per_replay.values()) > 0
+
+
 # ------------------------------------------ the c2f, autoencoder and denoiser graphs
 FAMILY = ("c2f", "autoencoder", "denoiser")
 # a replay's launches: none of the upsample-conv kernels; the update's two
