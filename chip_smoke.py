@@ -7,10 +7,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles the CUDA kernels from facegen_torch/csrc (the
-   upsample-conv's three and the update's two, csrc/fused_update.cu), one
-   nvcc per source, in parallel (seconds), prints ptxas's registers and
-   spills, and fails unless the bf16 forward, dx and dW kernels hold HGMMA
-   (wgmma) instructions in their SASS (cuobjdump);
+   upsample-conv's three, the update's two, csrc/fused_update.cu, and the
+   batch norm + PReLU's four, csrc/bn_prelu.cu), one nvcc per source, in
+   parallel (seconds), prints ptxas's registers and spills, and fails
+   unless the bf16 forward, dx and dW kernels hold HGMMA (wgmma)
+   instructions in their SASS (cuobjdump);
 3. kernels: the upsample + conv forward kernel against its plain PyTorch
    version (the phase conv) at G's two layers at the sampler's batch
    (N = 1024) and at every batch of the training path (16, 32, 100,
@@ -196,6 +197,19 @@ Phases, each printing its own lines; any failure exits non-zero:
     with the plain versions and, for the update, torch._fused_adam_ on the
     same leaves (ungated, no penalty): each row's bound (bytes at
     3.35 TB/s) and share of it.
+33. the batch norm + PReLU kernels (csrc/bn_prelu.cu; run after phase 32):
+    the train-mode statistics and apply, the eval apply and the backward's
+    reduction and dx against their plain versions (ops/bn_prelu.py) and
+    against BatchNorm then PReLU under autograd, bf16 and fp32, at G32's
+    two pairs at N = 16 and 32 (train) and G32's and G16's at N = 1024
+    (eval, bit-equal), with their launches; then each kernel's row of the
+    table in bf16 at those shapes: its device ms from the profiler's
+    events (exactly one a call, or the phase fails), its bound (bytes at
+    3.35 TB/s) and share of it (above 1.05 fails), and the ms of the whole
+    forward or backward it belongs to beside its plain version's and the
+    library's (F.batch_norm then F.prelu). Every path's launch count of
+    the four kernels (one counter) is checked: 12 a GAN training step
+    (none where the batch norms train over a mesh) and 2 a G call in eval.
 
 Every step profile (phases 5-29) reads the device's events from a trace
 (facegen_torch.utils.profiling: ``trace`` + ``aggregate_trace``) and the
@@ -232,9 +246,19 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # and the gated optax update
     "fused_prep": ("facegen_torch/csrc/fused_update.cu", "facegen/train/losses.py:32"),
     "fused_update": ("facegen_torch/csrc/fused_update.cu", "facegen/train/optim.py:48"),
+    # G's batch norm + PReLU pairs: no Pallas kernel either, XLA's fusion of
+    # facegen/nn/layers.py's batch_norm and prelu
+    "bn_prelu_stats": ("facegen_torch/csrc/bn_prelu.cu", "facegen/nn/layers.py:169,126"),
+    "bn_prelu_apply": ("facegen_torch/csrc/bn_prelu.cu", "facegen/nn/layers.py:169,126"),
+    "bn_prelu_bwd_reduce": ("facegen_torch/csrc/bn_prelu.cu", "facegen/nn/layers.py:169,126"),
+    "bn_prelu_bwd_dx": ("facegen_torch/csrc/bn_prelu.cu", "facegen/nn/layers.py:169,126"),
 }
 UPCONV = ("upsample_conv_fwd", "upsample_conv_dx", "upsample_conv_dw")
-SOURCES = ("upsample_conv", "upsample_conv_bwd", "fused_update")
+BN_PRELU = ("bn_prelu_stats", "bn_prelu_apply", "bn_prelu_bwd_reduce", "bn_prelu_bwd_dx")
+# the kernels counted one by one (the four batch norm + PReLU kernels share
+# one counter, "bn_prelu" in _launches, ops/bn_prelu.py:BN_PRELU_LAUNCHES)
+COUNTED = UPCONV + ("fused_prep", "fused_update")
+SOURCES = ("upsample_conv", "upsample_conv_bwd", "fused_update", "bn_prelu")
 
 # (N, H, Cin, Cout, K): G32's upconv1 and upconv2 at the sampler's batch
 G_SHAPES = [(1024, 8, 128, 256, 5), (1024, 16, 256, 128, 5)]
@@ -349,6 +373,31 @@ EXPORT_TOL = 1e-4
 # (fp64 partials against fp32 sums); counts exact
 UPDATE_TOL = 1e-6
 SUMS_RTOL = 1e-5
+# the batch norm + PReLU kernels against their plain versions and against
+# BatchNorm then PReLU on the same card tensors (the card tests'
+# tolerances): in eval the output bit for bit; in train the batch's mean
+# and rstd and the moved running statistics within 1e-5 relative l2 (fp64
+# block merges against torch's reductions), the output within the rounding
+# a last-bit change of the statistics can flip (BN_Y_TOL), dx within
+# BN_DX_TOL of its largest entry, the weight's and bias's gradients within
+# 1e-4 relative l2, the slope's within one bf16 rounding (fp32: 1e-4)
+BN_STAT_TOL = 1e-5
+BN_Y_TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=2e-2, rtol=2.0 ** -7)}
+BN_DX_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+BN_PARAM_TOL = 1e-4
+# G32's and G16's batch norms, (H, C): 16x16x256 and 32x32x128; 8x8x256
+# and 16x16x128
+BN_LAYERS = {"G32.bn1": (16, 256), "G32.bn2": (32, 128), "G16.bn1": (8, 256),
+             "G16.bn2": (16, 128)}
+# the main paths' pairs, (layer, N, train): G32's in train mode at N = 16
+# (the D phase's no-grad fakes) and 32 (the G phase, forward and
+# backward), and in eval at the sampler's N = 1024, G16's too (the c2f
+# sampler's base)
+BN_SHAPES = ([(layer, n, True) for layer in ("G32.bn1", "G32.bn2") for n in (16, 32)]
+             + [(layer, 1024, False) for layer in BN_LAYERS])
+# a kernel's reading is refused above this share of its bound: faster than
+# the bytes allow means the timer saw other events or too few of them
+MAX_SHARE = 1.05
 
 # the H100 SXM's published dense bf16 tensor-core rate, fp32 rate outside
 # the tensor cores, and HBM3 bandwidth
@@ -635,6 +684,9 @@ def phase_main_path(tmp: str, store: str):
     print(f"main path: sample.main took {run_s:.3f} s; {launches} kernel launches "
           f"for {runs} G calls")
     check(launches == 2 * runs, f"expected {2 * runs} kernel launches, got {launches}")
+    check(by_kernel["bn_prelu"] == _bn_prelu(g_calls=runs),
+          f"expected {_bn_prelu(g_calls=runs)} batch norm + PReLU launches (2 a G call), got "
+          f"{by_kernel}")
     for run in range(1, runs + 1):
         for name in (f"random1024_{run:04d}", f"random256_{run:04d}", f"best_{run:04d}",
                      f"worst_{run:04d}", f"random_{run:04d}", f"best_{run:04d}_neighbours"):
@@ -1059,6 +1111,218 @@ def phase_update_kernels():
     return out
 
 
+def _bn_inputs(n, h, c, dtype, seed=0):
+    """Card tensors for a batch norm + PReLU pair: x and dy (n, h, h, c),
+    and fp32 weight, bias, slope, running mean and running variance."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + n * h + c)
+    x = torch.randn(n, h, h, c, generator=g) * 1.5 + torch.rand(c, generator=g) - 0.5
+    params = [torch.rand(c, generator=g) + 0.5, torch.rand(c, generator=g) * 0.4 - 0.2,
+              torch.rand(1, generator=g) * 0.3 + 0.1, torch.rand(c, generator=g) - 0.5,
+              torch.rand(c, generator=g) + 0.5]
+    dy = torch.randn(n, h, h, c, generator=g)
+    return x.to("cuda", dtype), dy.to("cuda", dtype), [p.cuda() for p in params]
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def _check_bn_prelu(layer, n, dtype, training):
+    """The kernels at one shape against ``forward_reference`` /
+    ``backward_reference`` and against BatchNorm then PReLU (modules, under
+    autograd) on the same card tensors, and their launches; returns the
+    largest |error| of the output and of dx against the plain version."""
+    import torch
+
+    from facegen_torch.nn.layers import BatchNorm, PReLU
+    from facegen_torch.ops import bn_prelu as bp
+
+    h, c = BN_LAYERS[layer]
+    tag = str(dtype).removeprefix("torch.")
+    x, dy, (w, b, a, rm, rv) = _bn_inputs(n, h, c, dtype)
+    bn, pr = BatchNorm(c, device="cuda"), PReLU(device="cuda")
+    bn.train(training)
+    with torch.no_grad():
+        for t, v in ((bn.weight, w), (bn.bias, b), (pr.weight, a), (bn.running_mean, rm),
+                     (bn.running_var, rv)):
+            t.copy_(v)
+    k_rm, k_rv, r_rm, r_rv = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    before = bp.BN_PRELU_LAUNCHES
+    y, mean, scale = bp.forward(x, w, b, a, k_rm, k_rv, training, bn.eps, bn.MOMENTUM)
+    fwd_launches = bp.BN_PRELU_LAUNCHES - before
+    ry, rmean, rscale = bp.forward_reference(x, w, b, a, r_rm, r_rv, training, bn.eps,
+                                             bn.MOMENTUM)
+    xg = x.clone().requires_grad_()
+    my = pr(bn(xg))  # the modules, as G ran them before the kernels
+    mdx, mdw, mdb, mda = torch.autograd.grad(my, (xg, bn.weight, bn.bias, pr.weight), dy)
+    before = bp.BN_PRELU_LAUNCHES
+    dx, dw, db, da = bp.backward(dy, x, mean, scale, training, bn.eps, w, b, a)
+    bwd_launches = bp.BN_PRELU_LAUNCHES - before
+    rdx, rdw, rdb, rda = bp.backward_reference(dy, x, mean, scale, training, bn.eps, w, b, a)
+    torch.cuda.synchronize()
+    y_err = float((y.float() - ry.float()).abs().max())
+    dx_err = float((dx.float() - rdx.float()).abs().max())
+    if training:
+        tol = BN_Y_TOL[tag]
+        y_ok = all(bool(((y.float() - want.float()).abs()
+                         <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+                   for want in (ry, my.detach()))
+        stat_errs = [_rel(mean, rmean), _rel(scale, rscale), _rel(k_rm, r_rm), _rel(k_rv, r_rv),
+                     _rel(k_rm, bn.running_mean), _rel(k_rv, bn.running_var)]
+        y_note = f"y within rounding: {y_ok}; statistics {max(stat_errs):.2e}"
+        y_ok = y_ok and max(stat_errs) < BN_STAT_TOL
+    else:
+        y_ok = (torch.equal(y, ry) and torch.equal(y, my.detach()) and torch.equal(k_rm, rm)
+                and torch.equal(k_rv, rv))
+        y_note = f"y bit-equal to both: {y_ok}"
+    grad_errs = {}
+    for label, (gx, gw, gb, ga) in (("plain", (rdx, rdw, rdb, rda)),
+                                    ("modules", (mdx, mdw, mdb, mda))):
+        grad_errs[label] = (float((dx.float() - gx.float()).abs().max())
+                            / float(gx.float().abs().max()), _rel(dw, gw), _rel(db, gb),
+                            _rel(da, ga))
+    slope_tol = 2.0 ** -7 if dtype == torch.bfloat16 else BN_PARAM_TOL
+    grads_ok = all(e[0] <= BN_DX_TOL[tag] and e[1] < BN_PARAM_TOL and e[2] < BN_PARAM_TOL
+                   and e[3] < slope_tol for e in grad_errs.values())
+    launches_ok = (fwd_launches, bwd_launches) == (2 if training else 1, 2)
+    ok = y_ok and grads_ok and launches_ok
+    print(f"bn_prelu check {tag} {layer} N={n} {'train' if training else 'eval'}: {y_note}; "
+          f"max |y - plain| {y_err:.3e}; gradients (dx of its max, weight, bias, slope) "
+          + "; ".join(f"vs {k} " + ", ".join(f"{v:.2e}" for v in e)
+                      for k, e in grad_errs.items())
+          + f"; launches {fwd_launches} + {bwd_launches}; {'ok' if ok else 'FAIL'}")
+    check(ok, f"the batch norm + PReLU kernels disagree ({tag} {layer} N={n} "
+              f"{'train' if training else 'eval'})")
+    return y_err, dx_err
+
+
+def _kernel_ms(fn, names, iters=20):
+    """Device ms per call of each kernel in ``names`` that ``fn`` launches:
+    ``iters`` calls under the profiler (``_device_ops``), each kernel's
+    events summed and divided by ``iters``. Refuses a reading with another
+    number of events than ``iters`` for any kernel."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ops = _device_ops(lambda: [fn() for _ in range(iters)])["ops"]
+    out = {}
+    for name in names:
+        rows = [r for r in ops if name in r["name"]]
+        calls = sum(r["calls"] for r in rows)
+        check(calls == iters, f"the profiler saw {calls} events of {name} in {iters} calls")
+        out[name] = sum(r["total_us"] for r in rows) / iters / 1e3
+    return out
+
+
+def phase_bn_prelu_kernels():
+    """Phase 33: the batch norm + PReLU kernels (csrc/bn_prelu.cu) against
+    their plain versions and against BatchNorm then PReLU at every main-path
+    shape (BN_SHAPES), bf16 and fp32; then each kernel's row of the table in
+    bf16: its ms (the profiler's events, ``_kernel_ms``), its bound (bytes
+    at 3.35 TB/s: stats reads x; apply reads x and writes y; the reduction
+    reads x and dy; dx reads x and dy and writes dx) and share of it, and,
+    for the whole forward or backward it belongs to, the call's ms, the
+    plain version's and the library's (F.batch_norm then F.prelu on the
+    channels-last view; for the backward, autograd's forward and backward
+    less its forward), each a CUDA graph of 20 calls in alternating turns.
+    Returns the kernels line's numbers: each kernel summed over its
+    launches in a GAN training step (stats and apply at N = 16 and 32,
+    the backward at N = 32; both layers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from facegen_torch.nn.layers import BatchNorm
+    from facegen_torch.ops import bn_prelu as bp
+
+    max_err = dict.fromkeys(BN_PRELU, 0.0)
+    for layer, n, training in BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            y_err, dx_err = _check_bn_prelu(layer, n, dtype, training)
+            if dtype == torch.bfloat16 and training:
+                for k in BN_PRELU:
+                    max_err[k] = max(max_err[k], dx_err if k == "bn_prelu_bwd_dx" else y_err)
+
+    eps, mom = 1e-5, BatchNorm.MOMENTUM
+    step = {k: [] for k in BN_PRELU}  # the rows of a training step's launches
+    evals = []  # the eval applies' rows (N = 1024)
+    for layer, n, training in BN_SHAPES:
+        h, c = BN_LAYERS[layer]
+        x, dy, (w, b, a, rm, rv) = _bn_inputs(n, h, c, torch.bfloat16, seed=7)
+        size = x.numel() * x.element_size()
+        xl = x.permute(0, 3, 1, 2)  # NCHW view of NHWC = channels_last
+
+        def fwd():
+            return bp.forward(x, w, b, a, rm, rv, training, eps, mom)
+
+        def lib_fwd():
+            return F.prelu(F.batch_norm(xl, rm, rv, w, b, training, mom, eps), a.to(x.dtype))
+
+        calls = [("forward", ("bn_prelu_stats", "bn_prelu_apply") if training
+                  else ("bn_prelu_apply",),
+                  {"kernel": fwd, "plain": lambda: bp.forward_reference(x, w, b, a, rm, rv,
+                                                                        training, eps, mom),
+                   "library": lib_fwd})]
+        if training:
+            _, mean, scale = fwd()
+            wg, bg, ag = (t.detach().requires_grad_() for t in (w, b, a))
+            dyl = dy.permute(0, 3, 1, 2)
+
+            def lib_step():  # less lib_fwd: the library's backward
+                xg = xl.detach().requires_grad_()
+                out = F.prelu(F.batch_norm(xg, rm, rv, wg, bg, True, mom, eps), ag.to(x.dtype))
+                return torch.autograd.grad(out, (xg, wg, bg, ag), dyl)
+
+            calls.append(("backward", ("bn_prelu_bwd_reduce", "bn_prelu_bwd_dx"),
+                          {"kernel": lambda: bp.backward(dy, x, mean, scale, True, eps, w, b, a),
+                           "plain": lambda: bp.backward_reference(dy, x, mean, scale, True, eps,
+                                                                  w, b, a),
+                           "library": lib_step, "library_forward": lib_fwd}))
+        moved = {"bn_prelu_stats": size, "bn_prelu_apply": 2 * size,
+                 "bn_prelu_bwd_reduce": 2 * size, "bn_prelu_bwd_dx": 3 * size}
+        for call, names, fns in calls:
+            per_kernel = _kernel_ms(fns["kernel"], names)
+            t, runs = _time_turns(fns)
+            library = t["library"] - t.get("library_forward", 0.0)
+            spread = "; ".join(f"{k} {min(v):.4f}-{max(v):.4f}" for k, v in runs.items())
+            for name in names:
+                bound_ms, bound_by = _bound(0, moved[name])
+                row = {"kernel": name, "shape": f"{layer} N={n} {h}x{h}x{c}",
+                       "mode": "train" if training else "eval", "ms": per_kernel[name],
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "share_of_bound": bound_ms / per_kernel[name],
+                       "gb_per_s": moved[name] / per_kernel[name] / 1e6, "call": call,
+                       "call_ms": t["kernel"], "plain_ms": t["plain"], "library_ms": library}
+                print(f"table {json.dumps(row)} spread(ms) {spread}")
+                check(row["share_of_bound"] <= MAX_SHARE,
+                      f"{name} at {row['shape']} read {row['share_of_bound']:.2f} of its bound")
+                if training and (call == "forward" or n == 32):
+                    step[name].append(row)
+                elif not training:
+                    evals.append(row)
+            check(sum(per_kernel.values()) <= MAX_SHARE * t["kernel"],
+                  f"{layer} N={n} {call}: its kernels' events add up to "
+                  f"{sum(per_kernel.values()):.4f} ms, more than the call's {t['kernel']:.4f} ms")
+        del x, dy, xl
+    out = {}
+    for name, rows in step.items():
+        out[name] = {"max_abs_err": max_err[name], "ms": sum(r["ms"] for r in rows),
+                     "plain_ms": sum(r["plain_ms"] for r in rows),
+                     "library_ms": sum(r["library_ms"] for r in rows),
+                     "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+                     "launches_per_step": len(rows),
+                     "plain_and_library_of": "the whole forward or backward of each launch"}
+        print(f"{name} over a GAN training step's launches: {json.dumps(out[name])}")
+    sampler = {k: sum(r[k] for r in evals if r["shape"].startswith("G32."))
+               for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"bn_prelu_apply at the sampler's G call (G32's two pairs, N = 1024, eval): "
+          f"{json.dumps(sampler)}")
+    return out
+
+
 def write_store(tmp: str) -> str:
     """A 4096-image synthetic store (64x64 uint8 faces) under ``tmp``."""
     import numpy as np
@@ -1074,25 +1338,42 @@ def write_store(tmp: str) -> str:
 
 
 def _reset_launches():
+    from facegen_torch.ops import bn_prelu as bp
     from facegen_torch.ops import fused_update as fu
     from facegen_torch.ops import upsample_conv as uc
 
     uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0
     fu.PREP_LAUNCHES = fu.UPDATE_LAUNCHES = 0
+    bp.BN_PRELU_LAUNCHES = 0
 
 
 def _launches():
+    from facegen_torch.ops import bn_prelu as bp
     from facegen_torch.ops import fused_update as fu
     from facegen_torch.ops import upsample_conv as uc
 
     return {"upsample_conv_fwd": uc.KERNEL_LAUNCHES, "upsample_conv_dx": uc.DX_LAUNCHES,
             "upsample_conv_dw": uc.DW_LAUNCHES, "fused_prep": fu.PREP_LAUNCHES,
-            "fused_update": fu.UPDATE_LAUNCHES}
+            "fused_update": fu.UPDATE_LAUNCHES, "bn_prelu": bp.BN_PRELU_LAUNCHES}
+
+
+def _counter(kernel):
+    """The key of ``_launches`` that counts ``kernel``'s launches."""
+    return "bn_prelu" if kernel in BN_PRELU else kernel
+
+
+def _bn_prelu(steps=0, g_calls=0):
+    """The batch norm + PReLU kernels' launches on a GAN path of G32 or G16:
+    12 a training step (G's two pairs, 2 forward launches each in the D
+    and the G phase, 2 backward launches each in the G phase) and 2 an
+    eval G call (one apply a pair)."""
+    return 12 * steps + 2 * g_calls
 
 
 def _upconv_replay(per_replay):
     """The upsample-conv kernels' entries of a graph's launches per replay."""
-    return {k: v for k, v in per_replay.items() if k not in ("PREP_LAUNCHES", "UPDATE_LAUNCHES")}
+    return {k: v for k, v in per_replay.items()
+            if k not in ("PREP_LAUNCHES", "UPDATE_LAUNCHES", "BN_PRELU_LAUNCHES")}
 
 
 def _upconv(launches):
@@ -1107,9 +1388,11 @@ def _updates(iterations, prep=None):
 
 
 # a GAN step's launches per replay: the upsample-conv's forward at both
-# layers in both phases, dx and dW in the G phase, and D's and G's update
+# layers in both phases, dx and dW in the G phase, D's and G's update, and
+# G's two batch norm + PReLU pairs (2 forward launches each in both phases,
+# 2 backward launches each in the G phase)
 GAN_REPLAY = {"KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2, "DW_LAUNCHES": 2, "PREP_LAUNCHES": 2,
-              "UPDATE_LAUNCHES": 2}
+              "UPDATE_LAUNCHES": 2, "BN_PRELU_LAUNCHES": 12}
 
 
 def phase_training(tmp: str, store: str):
@@ -1148,6 +1431,10 @@ def phase_training(tmp: str, store: str):
     # and the clamp; G: the clamp) and the update
     check({k: launches[k] for k in ("fused_prep", "fused_update")} == _updates(2 * steps),
           f"update launches {launches} != 2 x {steps} steps each")
+    # 12 a step, 2 a G call of the grids
+    check(launches["bn_prelu"] == _bn_prelu(steps, 2 * viz_calls),
+          f"batch norm + PReLU launches {launches['bn_prelu']} != "
+          f"{_bn_prelu(steps, 2 * viz_calls)}")
     for name in ("adversarial", "adversarial.old"):
         check(os.path.exists(os.path.join(save, name, "arrays.npz")), f"missing checkpoint {name}")
     for name in ("samples_fixed", "best50", "worst50", "real100"):
@@ -1310,7 +1597,7 @@ def _graph_vs_eager(label, runner, log, run, run_eager, updates, top=0):
     check(route.strip() == GRAPH_ROUTE and runner.graph is not None,
           f"{label}: the step was not captured: {route!r}")
     want = {"KERNEL_LAUNCHES": 0, "DX_LAUNCHES": 0, "DW_LAUNCHES": 0,
-            "PREP_LAUNCHES": updates[0], "UPDATE_LAUNCHES": updates[1]}
+            "PREP_LAUNCHES": updates[0], "UPDATE_LAUNCHES": updates[1], "BN_PRELU_LAUNCHES": 0}
     check(runner.launches_per_replay == want,
           f"{label}: launches per replay {runner.launches_per_replay}, want {want}")
     print(f"{label}: {route.strip()}; captured in {runner.capture_ms:.1f} ms after "
@@ -1475,7 +1762,8 @@ def phase_c2f_training(tmp: str, store: str):
           f"(fine {cfg.fine_size}, coarse {cfg.coarse_size}, batch {cfg.batch_size}, "
           f"{cfg.compute_dtype}); launches {launches}")
     check(steps == 126, f"expected 2 x 63 steps at the default flags, got {steps}")
-    want = {**dict.fromkeys(UPCONV, 0), **_updates(2 * steps)}  # D's and G's update a step
+    # D's and G's update a step; the c2f's nets hold no batch norm
+    want = {**dict.fromkeys(UPCONV, 0), **_updates(2 * steps), "bn_prelu": 0}
     check(launches == want, f"c2f launches {launches}, want {want}")
     name = ckpt_name(cfg)
     for n in (name, name + ".old", name + "_best"):
@@ -1574,6 +1862,9 @@ def phase_c2f_sampler(tmp: str, c2f_save: str):
           f"launches {launches}")
     check(launches["upsample_conv_fwd"] == 2 * runs,
           f"expected {2 * runs} forward launches (G16's two layers a run), got {launches}")
+    check(launches["bn_prelu"] == _bn_prelu(g_calls=runs),
+          f"expected {_bn_prelu(g_calls=runs)} batch norm + PReLU launches (G16's two pairs a "
+          f"run), got {launches}")
     for run in range(1, runs + 1):
         for name in ("random1024", "random256", "best", "worst", "random"):
             path = os.path.join(out_dir, f"{name}_{run:04d}_base.png")
@@ -1697,7 +1988,8 @@ def _report_fp32_trainer(label, trainer, run_s, launches, rows, describe, log, r
 
     print(f"{label}: {describe} took {run_s:.3f} s; launches {launches}")
     steps = 2 * (trainer.n_pool // trainer.cfg.batch_size)  # the counted run's 2 epochs
-    want = {**dict.fromkeys(UPCONV, 0), **_updates(updates[1] * steps, updates[0] * steps)}
+    want = {**dict.fromkeys(UPCONV, 0), **_updates(updates[1] * steps, updates[0] * steps),
+            "bn_prelu": 0}  # the family's batch norms feed LeakyReLUs
     check(launches == want, f"the {label} launched {launches}, want {want}")
     for r in rows:
         check(all(math.isfinite(v) for k, v in r.items() if k.startswith(("loss", "val"))),
@@ -1827,7 +2119,7 @@ def phase_training_denoise(store: str, denoiser_save: str):
     # per step 4 forward (G in the D and the G phase), 2 dx, 2 dW; the one
     # grid set runs G on the fixed and on the random noise
     want = {"upsample_conv_fwd": 4 * steps + 4, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps), "bn_prelu": _bn_prelu(steps, 2)}
     check(launches == want, f"launches {launches}, want {want}")
     viz = os.path.join(denoiser_save, "viz")
     _check_files(os.path.join(viz, "samples_fixed.png"), os.path.join(viz, "samples_denoised.png"))
@@ -2237,7 +2529,7 @@ def phase_epochs_per_compile(tmp: str, store: str):
     print(f"epochsPerCompile path: train.main {' '.join(argv[4:])} took {run_s:.3f} s for "
           f"{steps} steps; {trainer.readbacks} read-backs; launches {launches}")
     want = {"upsample_conv_fwd": 4 * steps, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps), "bn_prelu": _bn_prelu(steps)}
     check(launches == want, f"launches {launches}, want {want}")
     check(trainer.epochs_per_compile == 4 and trainer.readbacks == 2,
           f"{trainer.epochs_per_compile} epochs per chunk, {trainer.readbacks} read-backs")
@@ -2274,9 +2566,10 @@ def phase_weights_vis(tmp: str, store: str):
     launches = _launches()
     steps = steps_per_epoch(trainer.cfg)
     # per step 4 forward, 2 dx, 2 dW; the grid set 4 forward; each dump's
-    # G (fp32, eval) 2 forward
+    # G (fp32, eval) 2 forward; the dumps hook G's modules, so their batch
+    # norms and PReLUs run their own forwards
     want = {"upsample_conv_fwd": 4 * steps + 4 + 2 * 4, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps), "bn_prelu": _bn_prelu(steps, 2)}
     print(f"weightsVisFreq path: train.main --weightsVisFreq 16 --epochs 1 took {run_s:.3f} s; "
           f"launches {launches}")
     check(launches == want, f"launches {launches}, want {want}")
@@ -2339,7 +2632,7 @@ def phase_lfw_builder(tmp: str):
     launches = _launches()
     steps = steps_per_epoch(trainer.cfg)
     want = {"upsample_conv_fwd": 4 * steps, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps), "bn_prelu": _bn_prelu(steps)}
     check(launches == want, f"launches {launches}, want {want}")
     check(trainer.source.size == 256, f"the trainer's store has {trainer.source.size} rows")
     rows = _metrics_rows(save)
@@ -2387,15 +2680,18 @@ def _train_state(cfg, device, seed=5, g_biases=False, mesh=None):
 # a group, with the wrappers' counts set to 0 before it and printed after
 DP_CLI = (
     "import json, runpy, sys\n"
+    "from facegen_torch.ops import bn_prelu as bp\n"
     "from facegen_torch.ops import fused_update as fu\n"
     "from facegen_torch.ops import upsample_conv as uc\n"
     "uc.KERNEL_LAUNCHES = uc.DX_LAUNCHES = uc.DW_LAUNCHES = 0\n"
     "fu.PREP_LAUNCHES = fu.UPDATE_LAUNCHES = 0\n"
+    "bp.BN_PRELU_LAUNCHES = 0\n"
     "sys.argv = ['facegen_torch.train'] + sys.argv[1:]\n"
     "runpy.run_module('facegen_torch.train', run_name='__main__', alter_sys=True)\n"
     "print('launches ' + json.dumps({'upsample_conv_fwd': uc.KERNEL_LAUNCHES, "
     "'upsample_conv_dx': uc.DX_LAUNCHES, 'upsample_conv_dw': uc.DW_LAUNCHES, "
-    "'fused_prep': fu.PREP_LAUNCHES, 'fused_update': fu.UPDATE_LAUNCHES}))\n"
+    "'fused_prep': fu.PREP_LAUNCHES, 'fused_update': fu.UPDATE_LAUNCHES, "
+    "'bn_prelu': bp.BN_PRELU_LAUNCHES}))\n"
 )
 
 
@@ -2444,7 +2740,7 @@ def phase_dp_nccl(tmp: str, store: str):
     check(bool(captured), "the 1-rank NCCL trainer did not capture its step")
     steps = 2 * steps_per_epoch(TrainConfig())
     want = {"upsample_conv_fwd": 4 * steps + 4 * 2, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps), "bn_prelu": _bn_prelu(steps, 4)}
     check(launches == want, f"launches {launches}, want {want}")
     rows = _metrics_rows(save)
     check([r["epoch"] for r in rows] == [1, 2], f"epochs {[r['epoch'] for r in rows]}")
@@ -2690,7 +2986,7 @@ def phase_dp_gloo(tmp: str):
                for n in (20, 15)}}  # D32b's and G32's update, 3 steps on 2 ranks
     check(by_shape == want, f"launches by shape {by_shape}, want {want}")
     return {name: sum(v for k, v in by_shape.items() if k.startswith(name + " "))
-            for name in KERNELS}
+            for name in COUNTED}
 
 
 def _np_rel_l2(ours, ref):
@@ -2739,6 +3035,8 @@ def phase_dp_sampler(tmp: str, store: str):
           f"{launches['2 replicas']} against {launches['one device']}")
     check(launches["2 replicas"]["upsample_conv_fwd"] == 2 * 2 * 2,
           f"2 replicas x 2 layers x 2 runs forward launches, got {launches['2 replicas']}")
+    check(launches["2 replicas"]["bn_prelu"] == _bn_prelu(g_calls=2 * 2),
+          f"2 replicas x 2 runs x 2 batch norm + PReLU launches, got {launches['2 replicas']}")
 
     g, d, _ = gan.restore_gan("adversarial", default_dir=save_dir, device=dev)
     noise = GanInference(g, d, 100).noise(sample.run_generator(1, 1), sample.N_SAMPLES)
@@ -2863,7 +3161,7 @@ def phase_gspmd_nccl(tmp: str, store: str):
         dist.destroy_process_group()
     steps = steps_per_epoch(tcfg)
     want = {"upsample_conv_fwd": 4 * steps + 4, "upsample_conv_dx": 2 * steps,
-            "upsample_conv_dw": 2 * steps, **_updates(2 * steps)}
+            "upsample_conv_dw": 2 * steps, **_updates(2 * steps), "bn_prelu": _bn_prelu(steps, 2)}
     print(f"gspmd nccl path: Trainer on make_mesh2d(1, 1), 1 epoch of {steps} steps at the "
           f"default flags in {run_s:.3f} s (with the capture and the grids): loss_d "
           f"{stats[0]['loss_d_mean']:.4f} loss_g {stats[0]['loss_g_mean']:.4f}; "
@@ -3228,9 +3526,12 @@ def phase_gspmd_gloo(tmp: str, store: str):
     per_rank = [json.loads(log.rsplit("launches ", 1)[1].splitlines()[0]) for log in logs]
     route = next((ln for ln in logs[0].splitlines() if "step route:" in ln), "")
     steps = steps_per_epoch(TrainConfig(n_epoch=256))
+    # the batch norms train over the mesh (their own path); rank 0's grids
+    # run G in eval, where its pairs take the kernel
     want = [{"upsample_conv_fwd": 4 * steps + (4 if r == 0 else 0),
              "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps,
-             **_updates(2 * steps)} for r in range(world)]
+             **_updates(2 * steps), "bn_prelu": _bn_prelu(g_calls=2 if r == 0 else 0)}
+            for r in range(world)]
     rows = _metrics_rows(saves[0])
     print(f"gspmd 2x2 path: python -m facegen_torch.train --meshShape 2,2 as 4 gloo ranks sharing "
           f"cuda:0 (maybe_initialize(backend='gloo') before the CLI), 1 epoch of {steps} steps "
@@ -3297,7 +3598,7 @@ def phase_gspmd_gloo(tmp: str, store: str):
             "upsample_conv_dx N=16": 2 * 3, "upsample_conv_dw N=16": 2 * 3}
     for r, (_, m) in enumerate(loaded):
         check(m["launches"] == want, f"rank {r} launches by shape {m['launches']}, want {want}")
-    return {name: sum(lr[name] for lr in per_rank) for name in KERNELS}
+    return {name: sum(lr[name] for lr in per_rank) for name in COUNTED + ("bn_prelu",)}
 
 
 GSPMD_FAMILY_CLI = (
@@ -3381,7 +3682,7 @@ def phase_gspmd_family(tmp: str, store: str):
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" (tolerance {tol}); {'ok' if ok else 'FAIL'}")
     check(ok_all, "a 2x1 family step disagrees with its single-device step")
-    return dict(zip(KERNELS, (sum(r["launches"][k] for r in res) for k in range(len(KERNELS)))))
+    return dict(zip(COUNTED, (sum(r["launches"][k] for r in res) for k in range(len(COUNTED)))))
 
 
 # the uneven (3, 1) mesh: three gloo ranks sharing the card, each of
@@ -3501,9 +3802,12 @@ def phase_uneven_mesh(tmp: str, store: str):
               for name in ("gan32", "gan4", "c2f", "autoencoder", "denoiser")}
     metas = [m for _, m in loaded["gan32"]]
     steps = steps_per_epoch(TrainConfig(n_epoch=256))
+    # the batch norms train over the mesh (their own path); rank 0's grids
+    # run G in eval, where its pairs take the kernel
     want = [{"upsample_conv_fwd": 4 * steps + (4 if r == 0 else 0),
              "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps,
-             **_updates(2 * steps)} for r in range(world)]
+             **_updates(2 * steps), "bn_prelu": _bn_prelu(g_calls=2 if r == 0 else 0)}
+            for r in range(world)]
     cli = [m["cli"] for m in metas]
     print(f"uneven 3x1 path: 3 gloo ranks sharing cuda:0 in {run_s:.3f} s (3 processes, with "
           f"their start, the CLIs and the steps); python -m facegen_torch.train --meshShape 3,1 "
@@ -3580,7 +3884,8 @@ def phase_uneven_mesh(tmp: str, store: str):
     for row in UNEVEN_ROWS:
         print(f"uneven 3x1 path: kernel at its local shape {json.dumps(row)}")
     check(ok_all, "a 3x1 step disagrees with its single-device step")
-    return {name: sum(c["gan"]["launches"][name] for c in cli) for name in KERNELS}
+    return {name: sum(c["gan"]["launches"][name] for c in cli)
+            for name in COUNTED + ("bn_prelu",)}
 
 
 def _sum_counts(*counts):
@@ -3646,7 +3951,7 @@ def phase_boundary_pad(tmp: str, store: str):
             check(tr.step.pad.active and tr.step.pad.pad == 5, "the padder is not on")
             check(launches == {"upsample_conv_fwd": 4 * steps + 4,
                                "upsample_conv_dx": 2 * steps, "upsample_conv_dw": 2 * steps,
-                               **_updates(2 * steps)},
+                               **_updates(2 * steps), "bn_prelu": _bn_prelu(steps, 2)},
                   f"padded launches {launches}")
             check(tr.graphed.launches_per_replay == GAN_REPLAY,
                   f"padded launches per replay {tr.graphed.launches_per_replay}")
@@ -3808,6 +4113,8 @@ def phase_gspmd_sampler(tmp: str, store: str):
           f"launches {launches['2x2']} against {launches['one device']}")
     check(launches["2x2"]["upsample_conv_fwd"] == 2 * 2 * 2,
           f"2 groups x 2 layers x 2 runs forward launches, got {launches['2x2']}")
+    check(launches["2x2"]["bn_prelu"] == _bn_prelu(g_calls=2 * 2),
+          f"2 groups x 2 runs x 2 batch norm + PReLU launches, got {launches['2x2']}")
     g, d, _ = gan.restore_gan("adversarial", default_dir=save_dir, device=dev)
     noise = GanInference(g, d, 100).noise(sample.run_generator(1, 1), sample.N_SAMPLES)
     lines, ok = [], True
@@ -3934,7 +4241,7 @@ def phase_quality_report(tmp: str, store: str):
             "sample (A vs a grid of 1024 of A's samples)": (common + ["--samples_b", grid],
                                                      SAMPLE_KEYS, 2),
             "self (A)": (common, SELF_KEYS, 2)}
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(COUNTED + ("bn_prelu",), 0)
     for label, (argv, keys, fwd) in runs.items():
         torch.cuda.synchronize()
         _reset_launches()
@@ -3949,7 +4256,7 @@ def phase_quality_report(tmp: str, store: str):
         check(_key_tree(report) == keys, f"{label}: keys {_key_tree(report)}")
         check(all(np.isfinite(v) for v in _numbers(report)), f"{label}: non-finite {report}")
         want = {"upsample_conv_fwd": fwd, "upsample_conv_dx": 0, "upsample_conv_dw": 0,
-                **_updates(0)}
+                **_updates(0), "bn_prelu": _bn_prelu(g_calls=fwd // 2)}
         check(launches == want, f"{label}: launches {launches}, want {want}")
         print(f"quality report {label}: parity.main took {run_s:.3f} s (wall, with checkpoint "
               f"loads, store preparation and host statistics); launches {launches}")
@@ -4043,7 +4350,8 @@ def phase_trace_and_debug(tmp: str, store: str, graphed_ms: float):
     launches = _launches()
     steps = steps_per_epoch(cfg)
     want = {"upsample_conv_fwd": 4 * 2 * steps + 4 * 2, "upsample_conv_dx": 2 * 2 * steps,
-            "upsample_conv_dw": 2 * 2 * steps, **_updates(2 * 2 * steps)}
+            "upsample_conv_dw": 2 * 2 * steps, **_updates(2 * 2 * steps),
+            "bn_prelu": _bn_prelu(2 * steps, 4)}
     print(f"trace path: Trainer(trace_dir=...).run(2) took {run_s:.3f} s; launches {launches}")
     check(launches == want, f"launches {launches}, want {want}")
     check(trainer.epochs_per_compile == 1 and trainer.graphed.graph is not None,
@@ -4111,6 +4419,7 @@ def main() -> int:
             summary = {"upsample_conv_fwd": phase_kernels()}
             bwd = phase_bwd_kernels()
             summary.update(phase_update_kernels())
+            summary.update(phase_bn_prelu_kernels())
         summary["upsample_conv_dx"], summary["upsample_conv_dw"] = bwd["dx"], bwd["dw"]
         with tempfile.TemporaryDirectory() as tmp:
             store = write_store(tmp)
@@ -4149,14 +4458,19 @@ def main() -> int:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     print(f"launches by path: {json.dumps(by_path)}")
-    # launches: the training path's 2-epoch run, which runs all five
+    # launches: the training path's 2-epoch run, which runs all nine
     # kernels; max_abs_err (bf16) and ms (both layers at N = 32; the
-    # update's kernels: D32b's and G32's launch at the default flags) at
-    # its shapes; launches_by_path: each path's run, counted from 0
+    # update's kernels: D32b's and G32's launch at the default flags; the
+    # batch norm + PReLU kernels: their launches in a step) at its shapes;
+    # launches_by_path: each path's run, counted from 0 (the batch norm +
+    # PReLU kernels: their one counter, the four together; null where a
+    # path counts launches by shape through the other kernels' wrappers)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **summary[name],
-         "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}
+         "launches": launches[_counter(name)], **summary[name],
+         **({"launch_counter": "bn_prelu (all four kernels)"} if name in BN_PRELU else {}),
+         "launches_by_path": {path: counts.get(_counter(name))
+                              for path, counts in by_path.items()}}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

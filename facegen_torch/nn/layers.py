@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from facegen_torch.nn.init import uniform_
+from facegen_torch.ops.bn_prelu import bn_prelu
 from facegen_torch.ops.upsample_conv import (
     UpsampleConvFunction,
     _collapse_matrix,
@@ -39,11 +40,47 @@ def _torch_reset_scale(fan_in: int) -> float:
 
 
 def sequential(*layers) -> nn.Sequential:
-    """nn.Sequential of (name, module) pairs, children named
+    """``Sequential`` of (name, module) pairs, children named
     ``{index:02d}_{name}`` like facegen's parameter tree keys."""
-    return nn.Sequential(OrderedDict(
+    return Sequential(OrderedDict(
         (f"{i:02d}_{name}", m) for i, (name, m) in enumerate(layers)
     ))
+
+
+class Sequential(nn.Sequential):
+    """nn.Sequential whose forward runs each ``BatchNorm`` then ``PReLU``
+    pair that ``fused_pair`` accepts as one call of ``ops/bn_prelu.py``
+    (its kernels: statistics and apply in train mode, apply in eval, and
+    one backward) when the input is on a CUDA device. Every other module,
+    and every pair on the CPU, runs its own forward. Children, names and
+    state_dict keys are nn.Sequential's."""
+
+    def forward(self, x):
+        modules = list(self._modules.values())
+        i = 0
+        while i < len(modules):
+            m = modules[i]
+            after = modules[i + 1] if i + 1 < len(modules) else None
+            if fused_pair(m, after) and x.is_cuda:
+                x = bn_prelu(x, m.weight, m.bias, after.weight, m.running_mean, m.running_var,
+                             m.training, m.eps, m.MOMENTUM)
+                i += 2
+            else:
+                x = m(x)
+                i += 1
+        return x
+
+
+def fused_pair(m: nn.Module, after: Optional[nn.Module]) -> bool:
+    """Whether ``Sequential`` runs ``m`` and the module ``after`` it as one
+    batch norm + PReLU call on a CUDA input: a ``BatchNorm`` directly
+    followed by a ``PReLU``, unless the batch norm trains over a mesh (the
+    2-D mesh's synchronised batch norm keeps its own path; in eval mode
+    the mesh changes nothing) or either module carries a forward hook (a
+    hook asks for the batch norm's own output, as utils/netvis.py's do)."""
+    return (isinstance(m, BatchNorm) and isinstance(after, PReLU)
+            and (m.mesh is None or not m.training)
+            and not any(k._forward_hooks or k._forward_pre_hooks for k in (m, after)))
 
 
 class Branches(nn.Module):

@@ -50,7 +50,8 @@ Launch counts: the kernels' wrappers count launches in Python, so a
 replay would count nothing. What the capture counted is taken back and
 recorded, and each replay adds it (``ops/upsample_conv.py``,
 ``ops/fused_update.py``: every trainer's update is two kernels a net
-iteration, the first left out where it has nothing to do). The counts
+iteration, the first left out where it has nothing to do;
+``ops/bn_prelu.py``: the GAN's 12, none in the other trainers). The counts
 under replay are thus derived from the capture, not observed; that the
 replayed kernels ran is shown by the graph's parity with eager steps.
 
@@ -81,6 +82,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from facegen_torch.ops import bn_prelu as bp
 from facegen_torch.ops import fused_update as fu
 from facegen_torch.ops import upsample_conv as uc
 from facegen_torch.parallel.gspmd import Mesh2D
@@ -96,7 +98,7 @@ from facegen_torch.utils.profiling import span
 
 # the kernels' launch counters: (module, name)
 _COUNTERS = ((uc, "KERNEL_LAUNCHES"), (uc, "DX_LAUNCHES"), (uc, "DW_LAUNCHES"),
-             (fu, "PREP_LAUNCHES"), (fu, "UPDATE_LAUNCHES"))
+             (fu, "PREP_LAUNCHES"), (fu, "UPDATE_LAUNCHES"), (bp, "BN_PRELU_LAUNCHES"))
 WARMUP_STEPS = 1  # eager steps on a card before the capture
 NO_CAPTURE = "capture=False asks for no capture"
 

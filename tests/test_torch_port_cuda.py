@@ -31,6 +31,7 @@ import torch
 
 from facegen_torch.models import gan
 from facegen_torch.ops import _build
+from facegen_torch.ops import bn_prelu as bp
 from facegen_torch.ops import fused_update as fu
 from facegen_torch.ops import upsample_conv as uc
 from facegen_torch.utils.infer import GanInference
@@ -94,7 +95,7 @@ def test_g32_on_the_card_matches_the_cpu(cuda_device):
     g_gpu, d_gpu = gan.init_gan(torch.Generator().manual_seed(0), 32, 3, 100,
                                 reference_init=False, device=cuda_device)
     noise = GanInference(g_cpu, d_cpu, 100).noise(torch.Generator().manual_seed(1), 64)
-    before = uc.KERNEL_LAUNCHES
+    before, bn_before = uc.KERNEL_LAUNCHES, bp.BN_PRELU_LAUNCHES
     for dtype in (torch.float32, torch.bfloat16):
         ours = GanInference(g_gpu, d_gpu, 100, compute_dtype=dtype).generate(noise)
         ref = GanInference(g_cpu, d_cpu, 100, compute_dtype=torch.float32).generate(noise)
@@ -102,6 +103,7 @@ def test_g32_on_the_card_matches_the_cpu(cuda_device):
         torch.testing.assert_close(ours.cpu(), ref, rtol=0,
                                    atol=1e-4 if dtype == torch.float32 else 3e-2)
     assert uc.KERNEL_LAUNCHES == before + 4  # two upsample-convs per G call
+    assert bp.BN_PRELU_LAUNCHES == bn_before + 4  # one eval apply per batch norm
 
 
 TRAIN_SHAPES = [(32, 8, 128, 256), (32, 16, 256, 128)]  # G32's upconv1, upconv2 at batch 32
@@ -231,14 +233,17 @@ def test_function_gradients_match_autograd_of_the_plain_forward(cuda_device, n, 
 @pytest.mark.cuda
 def test_g32_training_step_runs_the_three_kernels(cuda_device):
     """One bf16 G-phase pass of the default model: two launches of each
-    kernel, finite gradients for every G parameter."""
+    upsample-conv kernel, four of the batch norm + PReLU kernels a pair,
+    finite gradients for every G parameter."""
     g, d = gan.init_gan(torch.Generator().manual_seed(0), 32, 3, 100, device=cuda_device)
     g.train()
     noise = torch.rand(32, 100, device=cuda_device) * 2 - 1
     before = (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES)
+    bn_before = bp.BN_PRELU_LAUNCHES
     d(g(noise.bfloat16())).float().sum().backward()
     torch.cuda.synchronize()
     assert (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES) == tuple(b + 2 for b in before)
+    assert bp.BN_PRELU_LAUNCHES == bn_before + 8  # two pairs: 2 forward + 2 backward each
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
@@ -599,7 +604,8 @@ def test_graphed_boundary_pad_steps_match_eager_ones(cuda_device):
     ones within 1e-5 relative l2, the padded weights made from the live
     parameters in every replay (nothing cached: the third step's D reads
     the second's update); the capture launches the kernels as the
-    unpadded step does (4, 2, 2, and the update's 2 and 2)."""
+    unpadded step does (4, 2, 2, the update's 2 and 2, and the batch norm +
+    PReLU's 12)."""
     from facegen_torch.config import TrainConfig
     from facegen_torch.train.graph import GraphedStep
 
@@ -616,7 +622,7 @@ def test_graphed_boundary_pad_steps_match_eager_ones(cuda_device):
     torch.cuda.synchronize()
     assert runner.launches_per_replay == {"KERNEL_LAUNCHES": 4, "DX_LAUNCHES": 2,
                                           "DW_LAUNCHES": 2, "PREP_LAUNCHES": 2,
-                                          "UPDATE_LAUNCHES": 2}
+                                          "UPDATE_LAUNCHES": 2, "BN_PRELU_LAUNCHES": 12}
     assert tuple(graphed.g.get_parameter("09_conv_out.weight").shape) == (3, 128, 3, 3)
     _assert_states_close(graphed, eager, 1e-5)
 
@@ -813,11 +819,14 @@ def test_graphed_draws_and_launch_counts(cuda_device):
     pool = _gan_pool(cuda_device)
     state, step = _gan_step(cuda_device, cfg)
     counts = lambda: (uc.KERNEL_LAUNCHES, uc.DX_LAUNCHES, uc.DW_LAUNCHES,  # noqa: E731
-                      fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES)
+                      fu.PREP_LAUNCHES, fu.UPDATE_LAUNCHES, bp.BN_PRELU_LAUNCHES)
     before = counts()
     _eager_steps(state, step, pool, torch.Generator(cuda_device).manual_seed(1), 1)
     per_step = tuple(b - a for a, b in zip(before, counts()))
-    assert per_step == (4, 2, 2, 2, 2)  # the update's two kernels once per net
+    # the update's two kernels once per net; G's two batch norm + PReLU
+    # pairs: 2 launches each in the D phase's no-grad forward, 2 + 2 in the
+    # G phase's forward and backward
+    assert per_step == (4, 2, 2, 2, 2, 12)
     runner = GraphedStep(step, state, pool.shape[0])
     runner.set_pool(pool)
     before = counts()
@@ -826,7 +835,8 @@ def test_graphed_draws_and_launch_counts(cuda_device):
     assert tuple(b - a for a, b in zip(before, counts())) == tuple(5 * n for n in per_step)
     assert runner.launches_per_replay == dict(zip(("KERNEL_LAUNCHES", "DX_LAUNCHES",
                                                    "DW_LAUNCHES", "PREP_LAUNCHES",
-                                                   "UPDATE_LAUNCHES"), per_step))
+                                                   "UPDATE_LAUNCHES", "BN_PRELU_LAUNCHES"),
+                                                  per_step))
     gen = torch.Generator(cuda_device).manual_seed(2)
     for _ in range(5):
         want = draw_step(gen, cfg, pool.shape[0], step.mask_specs)
@@ -1024,10 +1034,11 @@ FAMILY = ("c2f", "autoencoder", "denoiser")
 # a replay's launches: none of the upsample-conv kernels; the update's two
 # kernels per net iteration (c2f: D and G; denoiser: its two decoders; the
 # autoencoder: its one net, whose prep has work here only through
-# --coefL1, as it has no clamp)
+# --coefL1, as it has no clamp); no batch norm + PReLU launches (the
+# autoencoder's and the denoiser's batch norms feed LeakyReLUs)
 FAMILY_LAUNCHES = {
     kind: {"KERNEL_LAUNCHES": 0, "DX_LAUNCHES": 0, "DW_LAUNCHES": 0, "PREP_LAUNCHES": n,
-           "UPDATE_LAUNCHES": n}
+           "UPDATE_LAUNCHES": n, "BN_PRELU_LAUNCHES": 0}
     for kind, n in (("c2f", 2), ("autoencoder", 1), ("denoiser", 2))}
 
 
@@ -1421,3 +1432,122 @@ def test_penalised_update_on_the_card_matches_the_cpu(cuda_device, nan_leaf):
     assert int(s_g["count"]) == int(s_c["count"])
     for kind in ("mu", "nu"):
         assert _rel_l2(s_g[kind], s_c[kind]) <= UPDATE_TOL
+
+
+# ------------------------------------------ the batch norm + PReLU kernels
+# G32's and G16's batch norms (16x16x256, 32x32x128; 8x8x256, 16x16x128)
+BN_LAYERS = [(16, 256), (32, 128), (8, 256), (16, 128)]
+
+
+def _bn_inputs(n, h, c, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed + n * h + c)
+    x = torch.randn(n, h, h, c, generator=g) * 1.5 + torch.rand(c, generator=g) - 0.5
+    params = [torch.rand(c, generator=g) + 0.5, torch.rand(c, generator=g) * 0.4 - 0.2,
+              torch.rand(1, generator=g) * 0.3 + 0.1, torch.rand(c, generator=g) - 0.5,
+              torch.rand(c, generator=g) + 0.5]
+    dy = torch.randn(n, h, h, c, generator=g)
+    return x.to(device, dtype), dy.to(device, dtype), [p.to(device) for p in params]
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 32, 1024])
+@pytest.mark.parametrize("h,c", BN_LAYERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("training", [True, False])
+def test_bn_prelu_kernels_match_the_plain_version(cuda_device, n, h, c, dtype, training):
+    """The four kernels (csrc/bn_prelu.cu) against ``forward_reference`` and
+    ``backward_reference`` on the same card tensors, at every main-path
+    shape: in eval the output bit for bit, and bit for bit against
+    BatchNorm then PReLU called as modules; in train the batch's mean and
+    rstd and the moved running statistics within 1e-5 relative l2 (fp64
+    block merges against torch's reductions), the output within the
+    rounding a last-bit change of the statistics can flip; the gradients
+    from the kernel's own saved statistics: dx within 2^-7 (bf16) or 1e-4
+    (fp32) of its largest entry, the weight's and bias's within 1e-4
+    relative l2, the slope's within one bf16 rounding (sums in another
+    order). The launches: 2 (train) or 1 (eval) forward, 2 backward."""
+    x, dy, (w, b, a, rm, rv) = _bn_inputs(n, h, c, dtype, cuda_device)
+    k_rm, k_rv, r_rm, r_rv = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    before = bp.BN_PRELU_LAUNCHES
+    y, mean, scale = bp.forward(x, w, b, a, k_rm, k_rv, training, 1e-5, 0.1)
+    assert bp.BN_PRELU_LAUNCHES == before + (2 if training else 1)
+    ry, rmean, rscale = bp.forward_reference(x, w, b, a, r_rm, r_rv, training, 1e-5, 0.1)
+    if training:
+        assert _rel(mean, rmean) < 1e-5 and _rel(scale, rscale) < 1e-5
+        assert _rel(k_rm, r_rm) < 1e-5 and _rel(k_rv, r_rv) < 1e-5
+        # a flipped rounding moves an entry by one unit in the last place
+        torch.testing.assert_close(y.float(), ry.float(), atol=TOLS[dtype]["atol"],
+                                   rtol=2**-7 if dtype == torch.bfloat16 else 1e-4)
+    else:
+        from facegen_torch.nn.layers import BatchNorm, PReLU
+
+        bn, pr = BatchNorm(c, device=cuda_device).eval(), PReLU(device=cuda_device)
+        with torch.no_grad():
+            for t, v in ((bn.weight, w), (bn.bias, b), (pr.weight, a), (bn.running_mean, rm),
+                         (bn.running_var, rv)):
+                t.copy_(v)
+            assert torch.equal(y, ry) and torch.equal(y, pr(bn(x)))
+        assert torch.equal(k_rm, rm) and torch.equal(k_rv, rv)
+    before = bp.BN_PRELU_LAUNCHES
+    got = bp.backward(dy, x, mean, scale, training, 1e-5, w, b, a)
+    assert bp.BN_PRELU_LAUNCHES == before + 2
+    dx, dw, db, da = got
+    rdx, rdw, rdb, rda = bp.backward_reference(dy, x, mean, scale, training, 1e-5, w, b, a)
+    dx_tol = 2**-7 if dtype == torch.bfloat16 else 1e-4
+    assert float((dx.float() - rdx.float()).abs().max()) <= dx_tol * float(rdx.float().abs().max())
+    assert _rel(dw, rdw) < 1e-4 and _rel(db, rdb) < 1e-4
+    assert _rel(da, rda) < (2**-7 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", BN_LAYERS[:2])
+def test_bn_prelu_replays_give_the_same_bits(cuda_device, h, c):
+    """A train-mode forward and backward captured in a CUDA graph: a replay
+    equals the eager call bit for bit (statistics, output, gradients,
+    running statistics), and two more replays repeat its statistics and
+    gradients: the block-order merges use no atomics on the values."""
+    x, dy, (w, b, a, rm, rv) = _bn_inputs(32, h, c, torch.bfloat16, cuda_device, seed=5)
+    outs = {}
+
+    def body(key):
+        y, mean, scale = bp.forward(x, w, b, a, rm, rv, True, 1e-5, 0.1)
+        outs[key] = (y, mean, scale) + bp.backward(dy, x, mean, scale, True, 1e-5, w, b, a)
+
+    rm0, rv0 = rm.clone(), rv.clone()
+    body("eager")
+    eager = [t.clone() for t in outs["eager"]] + [rm.clone(), rv.clone()]
+    rm.copy_(rm0)
+    rv.copy_(rv0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body("graph")
+    rm.copy_(rm0)
+    rv.copy_(rv0)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in outs["graph"]] + [rm.clone(), rv.clone()]
+    assert all(torch.equal(p, q) for p, q in zip(first, eager))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(outs["graph"], first[:-2]))
+
+
+@pytest.mark.cuda
+def test_bn_prelu_refuses_what_the_kernels_do_not_take(cuda_device):
+    """A channel count that is no divisor of the block or does not fill the
+    16-byte loads, an fp16 input, and a per-channel tensor of another
+    length raise; nothing falls back."""
+    x, _, (w, b, a, rm, rv) = _bn_inputs(2, 4, 24, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="channels"):
+        bp.forward(x, w, b, a, rm, rv, True, 1e-5, 0.1)
+    x, _, (w, b, a, rm, rv) = _bn_inputs(2, 4, 16, torch.bfloat16, cuda_device)
+    with pytest.raises(TypeError, match="activations"):
+        bp.forward(x.half(), w, b, a, rm, rv, True, 1e-5, 0.1)
+    with pytest.raises(ValueError, match="per-channel"):
+        bp.forward(x, w[:8], b, a, rm, rv, True, 1e-5, 0.1)
