@@ -231,6 +231,7 @@ class SampleConfig:
     save_c2f: str = ""            # --save_c2f32 (empty = --save_base)
     c2f_tries: int = 10           # candidate diffs per image (sample.lua:177)
     mesh_shape: Tuple[int, ...] = ()  # 'DP' or 'DP,MP' serving cards; empty = one (sample.py)
+    truncation_psi: float = 1.0   # --truncationPsi: StyleGAN2's truncation (1 = none)
 
     @property
     def channels(self) -> int:

@@ -6,6 +6,8 @@
 - ``create_d``: D16_d at 16px, D32b at 32px (models.lua:279-316,
   382-416), returning logits; the reference's final sigmoid is applied
   where a probability is needed.
+- ``restore_gan`` also rebuilds a StyleGAN2 checkpoint (its meta's
+  ``arch``; models/stylegan2.py), which the sampler serves.
 - The reference's unused variants, which no CLI reaches: the
   three-branch ``create_d16``, ``create_d16_b``, ``create_d16_c``,
   ``create_d32`` and the flat ``create_g_flat`` (facegen/models/gan.py:203-346).
@@ -27,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from facegen_torch.models import stylegan2
 from facegen_torch.nn import init as winit
 from facegen_torch.nn.layers import (
     AvgPool,
@@ -321,7 +324,9 @@ def restore_gan(
     (facegen/models/gan.py:396-450). Non-None keyword values are checked
     overrides: one that contradicts the stored config raises with both
     values. Returns (g, d, resolved) where resolved maps
-    scale/grayscale/channels/noise_dim/noise_view to the values used."""
+    scale/grayscale/channels/noise_dim/noise_view to the values used. A
+    StyleGAN2 checkpoint (its "arch") is rebuilt from its stored widths
+    (models/stylegan2.py); its resolved values carry ``arch`` too."""
     from facegen_torch.utils import checkpoint as ckpt
 
     directory, name = ckpt.split_network_arg(network, default_dir)
@@ -345,6 +350,12 @@ def restore_gan(
         "noise_dim": int(pick(noise_dim, "noise_dim", 100)),
     }
     resolved["channels"] = 1 if resolved["grayscale"] else 3
+    if stored.get("arch") == stylegan2.ARCH:
+        g, d = stylegan2.create_stylegan2(stylegan2.StyleGAN2Config.from_meta(stored),
+                                          generator=torch.Generator().manual_seed(seed),
+                                          device=device)
+        ckpt.load_stylegan2(directory, name, g, d)
+        return g, d, {**resolved, "arch": stylegan2.ARCH}
     resolved["noise_view"] = str(pick(None, "noise_view", "nhwc"))
     g, d = init_gan(
         torch.Generator().manual_seed(seed), resolved["scale"], resolved["channels"],

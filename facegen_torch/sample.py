@@ -26,6 +26,13 @@ sharded (utils/infer.py); the grids are those of one device. 'DP,MP'
 serves on DP x MP cards: DP replica groups of MP cards, each keeping the
 large leaves as MP shards on its cards and gathering them onto its
 first card for a call (facegen's gspmd_infer_jit, parallel/gspmd.py).
+
+A StyleGAN2 checkpoint (models/stylegan2.py; ``--scale`` is its
+resolution, 256 for config F) is served the same way, its 1024 faces in
+G and D calls of ``stylegan2.SERVE_BATCH``, from N(0, 1) latents
+truncated by --truncationPsi (default 1: none). It refuses --c2f (the
+refiner takes G16's 16x16 faces) and a model axis (MP > 1: the leaf rule
+shards facegen's nets' leaves); --meshShape DP serves it on replicas.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from facegen_torch.config import SampleConfig, mesh_axes
-from facegen_torch.models import c2f, gan
+from facegen_torch.models import c2f, gan, stylegan2
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_grid, save_png, to_grid
@@ -200,7 +207,22 @@ def run_sampling(cfg: SampleConfig, dataset=None, device=None, noise=None,
     device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
     g, d, cfg = load_models(cfg, device)
     mp = mesh_axes(cfg.mesh_shape)[1] if cfg.mesh_shape else 1  # the cards of a replica group
-    inf = GanInference(g, d, cfg.noise_dim, devices=devices, mp=mp)
+    max_batch = None
+    if stylegan2.is_stylegan2(g):
+        checkpoint = cfg.network or CKPT_NAME
+        if cfg.c2f:
+            raise ValueError(f"--c2f refines G16's 16x16 faces through a c2f pair; "
+                             f"{checkpoint!r} is a StyleGAN2 checkpoint at {cfg.scale}x"
+                             f"{cfg.scale}, which --c2f cannot refine")
+        if mp > 1:
+            raise ValueError(f"--meshShape {','.join(map(str, cfg.mesh_shape))}: a model axis "
+                             f"shards facegen's nets' leaves; {checkpoint!r} is a StyleGAN2 "
+                             f"checkpoint, served on replicas only ('DP' or 'DP,1')")
+        g.psi = cfg.truncation_psi
+        max_batch = stylegan2.SERVE_BATCH
+    elif cfg.truncation_psi != 1.0:
+        raise ValueError(f"--truncationPsi {cfg.truncation_psi}: StyleGAN2 checkpoints only")
+    inf = GanInference(g, d, cfg.noise_dim, devices=devices, mp=mp, max_batch=max_batch)
     c2f_nets = None
     if cfg.c2f:  # the refinement nets, loaded once (sample.lua:70)
         g_c2f, d_c2f, c2f_res = load_c2f(cfg, device)
@@ -304,6 +326,8 @@ def main(argv=None):
                    help="serve data parallel on 'DP' cards (or 'DP,1'; -1 = all visible) "
                         "from this process, or on DP groups of MP cards that shard the "
                         "large leaves ('DP,MP'); empty = --gpu alone")
+    p.add_argument("--truncationPsi", type=float, default=1.0, dest="truncation_psi",
+                   help="StyleGAN2 checkpoints: w = w_avg + psi (w - w_avg); 1 = none")
     a = p.parse_args(argv)
     try:
         mesh = tuple(int(v) for v in a.mesh_shape.split(",")) if a.mesh_shape else ()
@@ -329,7 +353,7 @@ def main(argv=None):
         writeto=a.writeto, aws=a.aws, dataset_dir=a.dataset_dir,
         d_network=a.d_network, c2f=a.c2f, c2f_network=a.c2f_network,
         d_c2f_network=a.d_c2f_network, save_c2f=a.save_c2f, c2f_tries=a.c2f_tries,
-        mesh_shape=mesh,
+        mesh_shape=mesh, truncation_psi=a.truncation_psi,
     )
     run_sampling(cfg, device=torch.device("cuda", a.gpu), devices=devices)
     print("Finished.")

@@ -33,6 +33,13 @@ rank's shards. The nets' parameters are full on every rank (the gathered
 work weights). A checkpoint is thus facegen's layout whatever the mesh
 it was saved on, and resumes on one device or on any mesh.
 
+A StyleGAN2 checkpoint (models/stylegan2.py) keeps its nets' state
+dicts as they are, keyed ``G/<key>`` and ``D/<key>`` in torch's layouts
+(``G/synthesis.b4.conv1.weight``, the const noise ``…noise_const`` and
+``G/mapping.w_avg`` included); meta.json's "config" holds ``arch``
+("stylegan2") and the widths ``restore_gan`` rebuilds it from. facegen
+has no such net and does not read it.
+
 The autoencoder family's checkpoints (facegen/train/ae_loop.py) use the
 same leaf mapping under other roots: ``autoencoder`` holds ``params/…``,
 ``state/…`` (none: the flat AE has no batch norm) and Adam's
@@ -373,4 +380,23 @@ def load_gan(directory: str, name: str, g: nn.Module, d: nn.Module) -> dict:
     sds = jax_to_torch(arrays)
     g.load_state_dict(sds["g"], strict=True)
     d.load_state_dict(sds["d"], strict=True)
+    return meta
+
+
+def save_stylegan2(directory: str, name: str, g: nn.Module, d: nn.Module) -> str:
+    """Write a StyleGAN2 G and D (``G/<key>``, ``D/<key>``) with
+    ``g.cfg.meta()`` as meta.json's "config"."""
+    arrays = {f"{net}/{k}": v.detach().cpu().numpy()
+              for net, m in (("G", g), ("D", d)) for k, v in m.state_dict().items()}
+    return save(directory, name, arrays, meta={"config": g.cfg.meta()})
+
+
+@torch.no_grad()
+def load_stylegan2(directory: str, name: str, g: nn.Module, d: nn.Module) -> dict:
+    """Load a StyleGAN2 checkpoint into ``g`` and ``d`` (strict); returns its meta."""
+    arrays, meta = load(directory, name)
+    for net, m in (("G", g), ("D", d)):
+        prefix = net + "/"
+        m.load_state_dict({k[len(prefix):]: torch.from_numpy(v) for k, v in arrays.items()
+                           if k.startswith(prefix)}, strict=True)
     return meta

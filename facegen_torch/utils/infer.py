@@ -11,6 +11,14 @@ once for the whole request. ``prepare_nn_dataset`` shards the dataset's
 rows over the devices, padded with sentinel rows that never win, and
 ``nearest_neighbours`` merges each shard's top-k.
 
+A net whose output for a row depends on other rows of its batch (D's
+minibatch stddev in StyleGAN2, over groups of ``batch_group`` consecutive
+rows) is split only at multiples of its group: over several devices the
+request's rows must be a multiple of it, each device takes whole groups
+and the wrap-padding adds whole groups. ``max_batch`` cuts each net call
+on a device into calls of at most that many rows (a multiple of every
+group), for nets whose activations at a request's size would not fit.
+
 With ``mp`` > 1 (--meshShape 'DP,MP') the devices are DP replica groups of
 MP devices each, ``devices[g * mp:(g + 1) * mp]``: group g keeps each
 leaf that facegen's rule shards (parallel/gspmd.py:leaf_spec) as MP
@@ -36,15 +44,23 @@ class GanInference:
     """Eval-mode G/D execution (dropout off, batch norm from running
     statistics, nn_utils.lua:207-222). Noise and activations are in
     ``compute_dtype`` (bf16 by default); parameters stay fp32 and are
-    cast at use; D's sigmoid runs on fp32 logits."""
+    cast at use; D's sigmoid runs on fp32 logits. A G that declares
+    ``fp32_latent`` (StyleGAN2's, whose mapping is fp32) takes the noise
+    in fp32 and ``compute_dtype`` as its second argument; one that
+    declares ``normal_latent`` draws N(0, 1) noise."""
 
     def __init__(self, g: nn.Module, d: nn.Module, noise_dim: int,
                  compute_dtype: torch.dtype = torch.bfloat16, devices: Optional[Sequence] = None,
-                 mp: int = 1):
+                 mp: int = 1, max_batch: Optional[int] = None):
         self.g = g.eval()
         self.d = d.eval()
         self.noise_dim = noise_dim
         self.dtype = compute_dtype
+        group = max(batch_group(g), batch_group(d))
+        if max_batch is not None and max_batch % group:
+            raise ValueError(f"max_batch {max_batch} is not a multiple of the nets' "
+                             f"batch group {group}")
+        self.max_batch = max_batch
         self.device = next(g.parameters()).device
         # a replica of G and of D per device, or per group of mp devices,
         # of a data-parallel request
@@ -64,26 +80,46 @@ class GanInference:
         self.request_devices = [next(net.parameters()).device if isinstance(net, nn.Module)
                                 else net.device for net in self.g_replicas]
 
+    def _input(self, net, x: torch.Tensor, device) -> torch.Tensor:
+        return x.to(device, torch.float32 if getattr(net, "fp32_latent", False) else self.dtype)
+
+    def _call(self, net, x: torch.Tensor) -> torch.Tensor:
+        """``net`` on ``x``, in calls of at most ``max_batch`` rows."""
+        args = (self.dtype,) if getattr(net, "fp32_latent", False) else ()
+        if self.max_batch is None or x.shape[0] <= self.max_batch:
+            return net(x, *args)
+        return torch.cat([net(part, *args) for part in x.split(self.max_batch)])
+
     def _split(self, nets: List[nn.Module], x: torch.Tensor, name: str) -> torch.Tensor:
         """``nets[i]`` on the i-th of ``len(nets)`` equal parts of ``x``,
-        wrap-padded; the fp32 outputs in order on ``self.device``, cut back
-        to ``len(x)``. The span ``name`` covers the nets' calls, and on one
+        wrap-padded, each part whole groups of the nets' ``batch_group``;
+        the fp32 outputs in order on ``self.device``, cut back to
+        ``len(x)``. The span ``name`` covers the nets' calls, and on one
         device neither the cast in nor the fp32 copy out."""
         if len(nets) == 1:
-            x = x.to(self.device, self.dtype)
+            x = self._input(nets[0], x, self.device)
             with span(name):
-                y = nets[0](x)
+                y = self._call(nets[0], x)
             return y.float()
         n, k = x.shape[0], len(nets)
-        total = n + (-n % k)
+        group = max(batch_group(net) for net in nets)
+        if n % group:
+            raise ValueError(f"{n} rows over {k} devices: the net computes statistics over "
+                             f"groups of {group} rows, so a request it splits must be a "
+                             f"multiple of {group}")
+        part = group * -(-n // (group * k))
+        total = part * k
         padded = x.repeat((-(-total // n),) + (1,) * (x.dim() - 1))[:total]
         with span(name):
-            parts = [net(part.to(dev, self.dtype))
-                     for net, part, dev in zip(nets, padded.chunk(k), self.request_devices)]
+            parts = [self._call(net, self._input(net, chunk, dev))
+                     for net, chunk, dev in zip(nets, padded.split(part), self.request_devices)]
         return torch.cat([p.float().to(self.device) for p in parts])[:n]
 
     def noise(self, generator: torch.Generator, n: int) -> torch.Tensor:
-        """U(-1, 1) noise (nn_utils.lua:35-39), drawn on the generator's device."""
+        """U(-1, 1) noise (nn_utils.lua:35-39), or N(0, 1) for a G that
+        declares ``normal_latent``, drawn on the generator's device."""
+        if getattr(self.g, "normal_latent", False):
+            return torch.randn(n, self.noise_dim, generator=generator, device=generator.device)
         u = torch.rand(n, self.noise_dim, generator=generator, device=generator.device)
         return u * 2.0 - 1.0
 
@@ -111,6 +147,11 @@ class GanInference:
             if max_out is not None:
                 order = order[:max_out]
             return images[order], scores[order]
+
+
+def batch_group(net) -> int:
+    """The rows a net's output for one row depends on together (1: none)."""
+    return getattr(net, "batch_group", 1)
 
 
 def sanity_image(scale: int, channels: int, generator: torch.Generator) -> torch.Tensor:

@@ -64,7 +64,9 @@ def span(name: str):
     ``step.eager`` (train/graph.py), ``loop.pools``, ``loop.summary``,
     ``loop.readback``, ``loop.save`` (train/loop.py), ``data.pool``
     (data/pipeline.py), ``infer.generate``, ``infer.score``, ``infer.rank``,
-    ``infer.nn.search`` and ``infer.nn.readback`` (utils/infer.py). A
+    ``infer.nn.search`` and ``infer.nn.readback`` (utils/infer.py),
+    ``sg2.mapping``, ``sg2.synthesis`` (models/stylegan2.py) and
+    ``sg2.fir`` (nn/style.py, each FIR resample of StyleGAN2's G and D). A
     span's parent is the span that encloses it on the host thread. In the trace each range has a host event (category
     ``user_annotation``) and a device view (``gpu_user_annotation``): the
     device work launched while it was the innermost range open, since
