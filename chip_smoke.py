@@ -959,7 +959,7 @@ def _update_leaves(shapes, dev, seed, tx):
 
 
 def _state_list(state):
-    from facegen_torch.train.optim import _state_tensors
+    from facegen_torch.ops.fused_update import _state_tensors
 
     return _state_tensors(state)
 
@@ -3292,7 +3292,8 @@ def gspmd_family_steps(dev, mesh=None, steps=3):
     from facegen_torch.data.synthetic import draw_synthetic_faces
     from facegen_torch.models import ae, c2f
     from facegen_torch.nn.init import gaussian_overwrite
-    from facegen_torch.parallel.gspmd import set_batch_norm_mesh, shard_params
+    from facegen_torch.nn.layers import set_batch_norm_mesh
+    from facegen_torch.parallel.gspmd import shard_params
     from facegen_torch.train.ae_loop import (
         AEDraws,
         AEStep,

@@ -38,6 +38,7 @@ from facegen_torch.nn.layers import (
     Sigmoid,
     Tanh,
     WhiteNoise,
+    full_fp32,
     sequential,
 )
 
@@ -125,8 +126,7 @@ def load_denoiser_fn(cfg, device) -> Callable[[torch.Tensor], torch.Tensor]:
     """Load ``<cfg.save>/denoiser_{c}x{h}x{w}/`` and return an image ->
     image function that runs AE1's decoder alone, as train.lua's
     ``--denoise`` does (train.lua:101-110): eval mode, fp32, with TF32
-    off (``sample.full_fp32``). A missing checkpoint raises."""
-    from facegen_torch.sample import full_fp32
+    off (``nn/layers.py:full_fp32``). A missing checkpoint raises."""
     from facegen_torch.utils import checkpoint as ckpt
 
     name = denoiser_ckpt_name(cfg.scale, cfg.channels)

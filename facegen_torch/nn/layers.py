@@ -16,6 +16,7 @@ train/ae_loop.py).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import OrderedDict
 from typing import Optional, Sequence
@@ -32,6 +33,19 @@ from facegen_torch.ops.upsample_conv import (
     collapse_weights,
     upsample_conv,
 )
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN convolutions and cuBLAS matmuls in full fp32, not TF32 (on
+    by default for cuDNN), for the block; the previous settings after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def _torch_reset_scale(fan_in: int) -> float:
@@ -293,7 +307,7 @@ class BatchNorm(nn.Module):
     running ones: new = (1 - momentum) * old + momentum * batch, with the
     unbiased variance (torch's convention, momentum 0.1); in eval mode it
     uses the running statistics. With ``mesh`` (a 2-D mesh of more than
-    one data row, parallel/gspmd.py:set_batch_norm_mesh) the batch is the
+    one data row, ``set_batch_norm_mesh``) the batch is the
     global one: ``SyncBatchNormFunction``, the unbiased factor from the
     global count."""
 
@@ -338,6 +352,15 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean) * inv + self.bias).to(x.dtype)
+
+
+def set_batch_norm_mesh(module: nn.Module, mesh) -> None:
+    """Point the module's batch norms at ``mesh``'s data group (a
+    parallel/gspmd.py:Mesh2D, or None): in training mode they normalise by
+    the global batch's statistics when it has more than one data row."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh if mesh is not None and mesh.dp > 1 else None
 
 
 class Dropout(nn.Module):

@@ -4,7 +4,7 @@ kernels (csrc/fused_update.cu) and their plain versions.
 ``prep`` adds the L1/L2 penalty's gradient, clamps, and reduces the
 pre-update parameters' sum |p| and sum p^2 (for the penalty in the loss)
 and the count of clamped gradient entries that are not finite (for
-``guard_nonfinite``). ``update`` is the gated optimizer update of
+``guard_nonfinite``). ``update`` is the gated update of an optimizer of
 ``train/optim.py``: Adam, Adagrad, SGD and SGD with momentum, applied
 only where a device bool gate holds. ``train/optim.py:penalised_update``
 joins the two for every trainer's iteration.
@@ -12,9 +12,9 @@ joins the two for every trainer's iteration.
 Neither replaces a Pallas kernel: they stand for what XLA fuses from
 facegen's tree.maps of the update (facegen/train/losses.py:32-62,
 facegen/train/optim.py:48-67). The plain versions are the port's
-composition of torch ops, leaf by leaf: ``losses.add_penalty_grads``,
-``losses.clamp_grads``, ``losses.penalty_sums`` and the finite check, and
-``optim.gated_update``.
+composition of torch ops, leaf by leaf, and live here:
+``add_penalty_grads``, ``clamp_grads``, ``penalty_sums`` and the finite
+check, and ``gated_update``.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel
 or raises; nothing falls back. The kernels update in place, and a leaf's
@@ -52,6 +52,55 @@ Gate = Union[bool, torch.Tensor]
 
 
 # ------------------------------------------------------------ plain versions
+def penalty_sums(params: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(||p||_1, ||p||_2^2) over all parameters, 0-d fp32 tensors."""
+    with torch.no_grad():
+        return sum(p.abs().sum() for p in params), sum((p * p).sum() for p in params)
+
+
+def add_penalty_grads(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
+                      sign_coef: float, linear_coef: float) -> List[torch.Tensor]:
+    """grads + sign_coef * sign(p) + linear_coef * p (adversarial.lua:108).
+    D passes (D_L1, D_L2). G passes (G_L2, G_L2) with the reference's bug
+    (adversarial.lua:223 uses G_L2 for both terms; the step's
+    ``reference_g_penalty_bug``), else (G_L1, G_L2)."""
+    if sign_coef == 0.0 and linear_coef == 0.0:
+        return list(grads)
+    return [g + sign_coef * torch.sign(p) + linear_coef * p for g, p in zip(grads, params)]
+
+
+def clamp_grads(grads: Sequence[torch.Tensor], clamp: float) -> List[torch.Tensor]:
+    """Clamp every gradient entry to [-clamp, clamp]; 0 disables
+    (adversarial.lua:121-123, 226-228)."""
+    if clamp == 0.0:
+        return list(grads)
+    return [g.clamp(-clamp, clamp) for g in grads]
+
+
+def _state_tensors(state: dict) -> List[torch.Tensor]:
+    out = []
+    for key in sorted(state):
+        v = state[key]
+        out.extend(v if isinstance(v, list) else [v])
+    return out
+
+
+@torch.no_grad()
+def gated_update(tx, grads: Sequence[torch.Tensor], state: dict,
+                 params: Sequence[torch.Tensor], do_update: Gate) -> None:
+    """Apply ``tx`` (an optimizer of train/optim.py) in place to ``params``
+    and ``state`` where ``do_update`` holds. ``do_update`` is a 0-d bool
+    tensor (the D gate), chosen per element with torch.where on the
+    device, or the Python True (G's ungated step). In place: the port
+    updates the parameters the modules hold, where facegen returns new
+    arrays."""
+    updates, new_state = tx.update(list(grads), state, list(params))
+    new_params = [p + u for p, u in zip(params, updates)]
+    olds, news = list(params) + _state_tensors(state), new_params + _state_tensors(new_state)
+    for old, new in zip(olds, news):
+        old.copy_(new if do_update is True else torch.where(do_update, new, old))
+
+
 def prep_reference(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                    sign_coef: float, linear_coef: float, clamp: float, sums: bool = False,
                    count: bool = False) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
@@ -60,24 +109,16 @@ def prep_reference(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor]
     ``sums`` or ``count``, a (3,) fp32 tensor of sum |p| and sum p^2 over
     all parameters (0 unless ``sums``) and the number of entries of the
     new gradients that are not finite (0 unless ``count``), else None)."""
-    from facegen_torch.train import losses
-
-    grads = losses.clamp_grads(losses.add_penalty_grads(grads, params, sign_coef, linear_coef),
-                               clamp)
+    grads = clamp_grads(add_penalty_grads(grads, params, sign_coef, linear_coef), clamp)
     if not (sums or count):
         return grads, None
     zero = torch.zeros((), device=params[0].device)
-    l1, l2 = losses.penalty_sums(params) if sums else (zero, zero)
+    l1, l2 = penalty_sums(params) if sums else (zero, zero)
     bad = sum((~torch.isfinite(g)).sum() for g in grads).float() if count else zero
     return grads, torch.stack([l1, l2, bad])
 
 
-def update_reference(tx, grads: Sequence[torch.Tensor], state: dict,
-                     params: Sequence[torch.Tensor], gate: Gate) -> None:
-    """``optim.gated_update``: ``tx`` applied in place where ``gate`` holds."""
-    from facegen_torch.train.optim import gated_update
-
-    gated_update(tx, grads, state, params, gate)
+update_reference = gated_update  # ``update``'s plain version
 
 
 # ------------------------------------------------------------------ wrappers

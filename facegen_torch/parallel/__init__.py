@@ -13,6 +13,7 @@ from facegen_torch.parallel.gspmd import (  # noqa: F401
 )
 from facegen_torch.parallel.mesh import (  # noqa: F401
     DataMesh,
+    global_mesh,
     make_mesh,
     replicate,
     resolve_mesh_shape,
@@ -20,7 +21,6 @@ from facegen_torch.parallel.mesh import (  # noqa: F401
     training_mesh,
 )
 from facegen_torch.parallel.multihost import (  # noqa: F401
-    global_mesh,
     is_multiprocess,
     maybe_initialize,
     warmup_collectives,

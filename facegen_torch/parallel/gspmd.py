@@ -30,11 +30,12 @@ and writes the collectives itself:
 - **The state**: a leaf the rule shards (``leaf_spec``) is held by each
   rank of a model group as its 1/mp shard, and so are its optimizer
   moments (``ShardedParams``). The update is elementwise, so each rank
-  updates its own shard; the shards are then all-gathered over the model
-  group into the module's parameter, the persistent work buffer the next
-  forward reads. The model axis thus divides the memory of the parameters'
-  masters and moments, not the FLOPs: the ranks of one data row compute
-  the same rows with the same gathered weights.
+  updates its own shard (train/optim.py:penalised_update); the shards are
+  then all-gathered over the model group into the module's parameter, the
+  persistent work buffer the next forward reads. The model axis thus
+  divides the memory of the parameters' masters and moments, not the
+  FLOPs: the ranks of one data row compute the same rows with the same
+  gathered weights.
 - **Serving** (``ShardedReplica``, utils/infer.py): a replica group of mp
   devices keeps each sharded leaf as mp shards, one on each of its
   devices, and gathers them onto its first device for a call.
@@ -55,7 +56,6 @@ import torch.distributed as dist
 from torch import nn
 
 from facegen_torch.config import mesh_axes
-from facegen_torch.ops import fused_update
 from facegen_torch.parallel.multihost import rank_device
 
 MIN_SHARD = 64  # facegen's min_shard: smaller dims stay replicated
@@ -384,15 +384,6 @@ class ShardedParams:
         for work, master in self.works:
             self.mesh.all_gather_(work, master)
 
-    def update(self, tx, grads: Sequence[torch.Tensor], opt: dict, do_update) -> None:
-        """The gated update of the masters (ops/fused_update.py:update) with
-        this rank's shards of the full gradients ``grads``, then the gather
-        into the parameters. A sharded leaf's gradient must come in its
-        parameter's shard-major layout (``flat_all_reduce``'s ``like``), so
-        that its shard shares its master's layout."""
-        fused_update.update(tx, self.shards(grads), opt, self.masters, do_update)
-        self.gather_()
-
     @torch.no_grad()
     def full(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Full tensors of the parameters' shapes from tensors of the
@@ -438,17 +429,6 @@ def gather_params(shards: Optional[Dict[str, ShardedParams]], opts: Dict[str, di
     if shards is None:
         return dict(opts)
     return {k: shards[k].full_opt(v) for k, v in opts.items()}
-
-
-def set_batch_norm_mesh(module: nn.Module, mesh: Optional[Mesh2D]) -> None:
-    """Point the module's batch norms at ``mesh``'s data group: in training
-    mode they normalise by the global batch's statistics when it has more
-    than one rank (nn/layers.py:BatchNorm)."""
-    from facegen_torch.nn.layers import BatchNorm
-
-    for m in module.modules():
-        if isinstance(m, BatchNorm):
-            m.mesh = mesh if mesh is not None and mesh.dp > 1 else None
 
 
 def _memory_order(t: torch.Tensor) -> List[int]:

@@ -31,7 +31,7 @@ on the 2-D mesh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Sequence
+from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -98,6 +98,10 @@ def make_mesh(mesh_shape: Sequence[int] = (-1,), device=None) -> DataMesh:
     return DataMesh(rank, size, device)
 
 
+# facegen's global_mesh (facegen/parallel/multihost.py:68-74): the data mesh over every rank
+global_mesh = make_mesh
+
+
 def training_mesh(mesh_shape: Sequence[int], device=None, exact: bool = False):
     """The mesh a trainer runs ``--meshShape`` on over the process group
     that is up: None without a group (a shape of more than one rank raises
@@ -114,6 +118,19 @@ def training_mesh(mesh_shape: Sequence[int], device=None, exact: bool = False):
         resolve_axes(mesh_shape, 1)
         return None
     return make_mesh(mesh_shape, device=device)
+
+
+def placement(mesh, device, gpu: int) -> Tuple[torch.device, bool]:
+    """(a trainer's device, whether it writes the logs, metrics,
+    checkpoints and grids) on ``mesh`` (a ``DataMesh``, a gspmd.Mesh2D or
+    None): the mesh's rank's device, which a given ``device`` must be, and
+    rank 0 writes; without a mesh ``device``, by default ``cuda:{gpu}``."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device}, but the mesh's rank runs on {mesh.device}")
+        device = mesh.device
+    return (torch.device(device if device is not None else f"cuda:{gpu}"),
+            mesh is None or mesh.rank == 0)
 
 
 @torch.no_grad()

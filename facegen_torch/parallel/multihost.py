@@ -18,9 +18,9 @@ process never spans devices.
 - ``warmup_collectives`` runs a tiny all-reduce before the first step. It
   makes NCCL build its communicator then, and not inside a CUDA-graph
   capture, which cannot create one.
-- ``global_mesh`` is the 1-D data mesh over every rank, and
-  ``hybrid_mesh`` (parallel/gspmd.py) the 2-D mesh with the hosts on the
-  data axis.
+- ``global_mesh`` (parallel/mesh.py) is the 1-D data mesh over every
+  rank, and ``hybrid_mesh`` (parallel/gspmd.py) the 2-D mesh with the
+  hosts on the data axis.
 - facegen's ``global_put``, ``global_put_tree`` and ``shard_pool_global``
   (:144-180) assemble one global array from each process's rows. They
   have no counterpart here: each process already owns only its rows and
@@ -123,14 +123,6 @@ def maybe_initialize(env: Optional[Mapping[str, str]] = None, device_type: str =
 
 def is_multiprocess() -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
-
-
-def global_mesh(mesh_shape=(-1,), device=None):
-    """The 1-D data mesh over every rank of the group (facegen's
-    ``global_mesh``, :68-74): parallel/mesh.py's ``make_mesh``."""
-    from facegen_torch.parallel.mesh import make_mesh
-
-    return make_mesh(mesh_shape, device=device)
 
 
 def warmup_collectives(mesh) -> None:

@@ -38,7 +38,6 @@ shards facegen's nets' leaves); --meshShape DP serves it on replicas.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import os
 
@@ -49,6 +48,7 @@ import torch.nn.functional as F
 from facegen_torch.config import SampleConfig, mesh_axes
 from facegen_torch.models import c2f, gan, stylegan2
 from facegen_torch.nn.init import seeded_generator
+from facegen_torch.nn.layers import full_fp32
 from facegen_torch.utils import checkpoint as ckpt
 from facegen_torch.utils.grids import save_grid, save_png, to_grid
 from facegen_torch.utils.infer import GanInference, nearest_neighbours, prepare_nn_dataset
@@ -102,19 +102,6 @@ def load_c2f(cfg: SampleConfig, device):
                                  f"but the c2f G checkpoint {cfg.c2f_network!r} has "
                                  f"{k}={res[k]}")
     return g, d, res
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """cuDNN convolutions and cuBLAS matmuls in full fp32, not TF32 (on
-    by default for cuDNN), for the block; the previous settings after."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 @torch.no_grad()

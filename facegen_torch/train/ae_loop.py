@@ -60,14 +60,9 @@ from facegen_torch.data.pipeline import make_source
 from facegen_torch.models import ae
 from facegen_torch.nn import dropout
 from facegen_torch.nn.init import gaussian_overwrite, seeded_generator
-from facegen_torch.parallel.gspmd import (
-    ShardedParams,
-    flat_all_reduce,
-    global_rows,
-    set_batch_norm_mesh,
-    shard_params,
-)
-from facegen_torch.parallel.mesh import replicate
+from facegen_torch.nn.layers import set_batch_norm_mesh
+from facegen_torch.parallel.gspmd import ShardedParams, flat_all_reduce, global_rows, shard_params
+from facegen_torch.parallel.mesh import placement, replicate
 from facegen_torch.train import losses
 from facegen_torch.train.graph import StepGraph, copy_into
 from facegen_torch.train.optim import adam, penalised_update
@@ -171,15 +166,6 @@ class _MeshStep:
             *grads, loss = flat_all_reduce(self.mesh, self._flat, key, [*grads, loss], params)
         return list(grads), loss
 
-    def _update(self, shards, grads, opt: dict, params, clamp: float,
-                penalty: bool) -> torch.Tensor:
-        """The L1/L2 penalty's gradient on every parameter, biases included,
-        the clamp and Adam (``penalised_update``, no gate), on ``shards`` on a
-        2-D mesh; the loss's penalty (with ``penalty``)."""
-        cfg = self.cfg
-        return penalised_update(self.tx, grads, opt, params, cfg.coef_l1, cfg.coef_l1,
-                                cfg.coef_l2, clamp, penalty=penalty, shards=shards)[0]
-
 
 class AEStep(_MeshStep):
     """``step(model, opt, pool, draws) -> loss`` (with the penalty),
@@ -202,9 +188,11 @@ class AEStep(_MeshStep):
         params = list(model.parameters())
         grads, loss = self._grads("ae", losses.batch_mean((model(x) - x).abs(), self.global_rows),
                                   params)
-        # the penalty in the loss and the gradients, and no clamp
-        # (train_autoencoder.lua:196-204)
-        return loss + self._update(self.shards, grads, opt, params, 0.0, True)
+        # the L1/L2 penalty on every parameter, biases included, in the loss
+        # and the gradients, and no clamp (train_autoencoder.lua:196-204)
+        cfg = self.cfg
+        return loss + penalised_update(self.tx, grads, opt, params, cfg.coef_l1, cfg.coef_l1,
+                                       cfg.coef_l2, 0.0, penalty=True, shards=self.shards)[0]
 
 
 @dataclasses.dataclass
@@ -235,8 +223,10 @@ class DenoiserStep(_MeshStep):
         grads, loss = self._grads(key, loss, params)
         # the penalty feeds the gradient only: the reported loss stays the
         # bare BCE (train_denoiser.lua:272, 311); then the clamp (:289-291)
-        self._update(None if st.shards is None else st.shards[key], grads, opt, params,
-                     self.cfg.ae_clamp, False)
+        cfg = self.cfg
+        penalised_update(self.tx, grads, opt, params, cfg.coef_l1, cfg.coef_l1, cfg.coef_l2,
+                         cfg.ae_clamp, penalty=False,
+                         shards=None if st.shards is None else st.shards[key])
         return loss
 
     def __call__(self, st: DenoiserState, pool: torch.Tensor,
@@ -282,17 +272,6 @@ class _Trainer:
     and at the end of a run, then the reconstruction grid unless
     --noplot (rank 0's, on a mesh)."""
 
-    def _place(self, cfg: TrainConfig, device, verbose: bool, mesh) -> None:
-        if mesh is not None:
-            if device is not None and torch.device(device) != mesh.device:
-                raise ValueError(f"device {device}, but the mesh's rank runs on {mesh.device}")
-            device = mesh.device
-        self.cfg = cfg
-        self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
-        self.mesh = mesh
-        self.writes = mesh is None or mesh.rank == 0
-        self.verbose = verbose and self.writes
-
     def run(self, epochs: Optional[int] = None) -> Iterator[dict]:
         """Train ``epochs`` epochs (default --epochs, else 1), yielding
         each epoch's stats."""
@@ -317,8 +296,10 @@ class AETrainer(_Trainer):
 
     def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None,
                  capture: bool = True):
-        self._place(cfg.validate(), device, verbose, mesh)
-        cfg = self.cfg
+        cfg = self.cfg = cfg.validate()
+        self.device, self.writes = placement(mesh, device, cfg.gpu)
+        self.mesh = mesh
+        self.verbose = verbose and self.writes
         self.n_pool = pool_size(cfg, mesh)
         # weights drawn on the CPU: the same seed gives the same weights on every device
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -377,8 +358,10 @@ class DenoiserTrainer(_Trainer):
 
     def __init__(self, cfg: TrainConfig, device=None, verbose: bool = True, mesh=None,
                  capture: bool = True):
-        self._place(cfg.validate(), device, verbose, mesh)
-        cfg = self.cfg
+        cfg = self.cfg = cfg.validate()
+        self.device, self.writes = placement(mesh, device, cfg.gpu)
+        self.mesh = mesh
+        self.verbose = verbose and self.writes
         self.n_pool = pool_size(cfg, mesh)
         enc, dec1, dec2 = ae.init_denoiser(torch.Generator().manual_seed(cfg.seed), cfg.scale,
                                            cfg.channels, device=self.device)

@@ -66,7 +66,7 @@ from facegen_torch.models import c2f as c2f_models
 from facegen_torch.nn import dropout
 from facegen_torch.nn.init import seeded_generator
 from facegen_torch.parallel.gspmd import flat_all_reduce, global_rows, shard_params
-from facegen_torch.parallel.mesh import replicate
+from facegen_torch.parallel.mesh import placement, replicate
 from facegen_torch.train import losses, metrics as M
 from facegen_torch.train.graph import StepGraph
 from facegen_torch.train.optim import make_c2f_optimizer, penalised_update
@@ -200,15 +200,6 @@ class C2FStep:
             d, cfg.batch_size, (cfg.img_shape, cfg.img_shape), device)
         self._flat: Dict[str, torch.Tensor] = {}
 
-    def _update(self, state: C2FState, net: str, tx, grads, params, sign_coef: float,
-                l1: float, l2: float, clamp: float) -> torch.Tensor:
-        """``net``'s iteration tail (``penalised_update``, no gate), on this
-        rank's shards of its state on a 2-D mesh; the loss's penalty."""
-        opt = state.opt_g if net == "g" else state.opt_d
-        shards = None if state.shards is None else state.shards[net]
-        return penalised_update(tx, grads, opt, params, sign_coef, l1, l2, clamp,
-                                shards=shards)[0]
-
     def d_iteration(self, state: C2FState, pool: C2FPool, draws: C2FDDraws):
         cfg, g, d, mesh, pad = self.cfg, state.g, state.d, self.mesh, self.pad
         params = list(d.parameters())
@@ -240,8 +231,9 @@ class C2FStep:
                                                         [*grads, loss, acc, counts], params)
             acc, counts = acc.clone(), counts.to(torch.int32)
         # penalties on the pre-update parameters, then the clamp and the update
-        loss = loss + self._update(state, "d", self.tx_d, grads, params, cfg.d_l1, cfg.d_l1,
-                                   cfg.d_l2, cfg.d_clamp)
+        loss = loss + penalised_update(
+            self.tx_d, grads, state.opt_d, params, cfg.d_l1, cfg.d_l1, cfg.d_l2, cfg.d_clamp,
+            shards=None if state.shards is None else state.shards["d"])[0]
         state.confusion += counts
         return loss, acc
 
@@ -266,8 +258,9 @@ class C2FStep:
             *grads, loss = flat_all_reduce(mesh, self._flat, "g", [*grads, loss], params)
         # the reference's bug (adversarial.lua:223): G_L2 scales the sign term too
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
-        return loss + self._update(state, "g", self.tx_g, grads, params, sign_coef, cfg.g_l1,
-                                   cfg.g_l2, cfg.g_clamp)
+        return loss + penalised_update(
+            self.tx_g, grads, state.opt_g, params, sign_coef, cfg.g_l1, cfg.g_l2, cfg.g_clamp,
+            shards=None if state.shards is None else state.shards["g"])[0]
 
     def __call__(self, state: C2FState, pool: C2FPool, draws: C2FStepDraws) -> C2FStepMetrics:
         zero = torch.zeros((), device=pool.fine.device)
@@ -324,13 +317,8 @@ class C2FTrainer:
     def __init__(self, cfg: C2FConfig, device=None, source=None, verbose: bool = True,
                  mesh=None, capture: bool = True):
         self.cfg = cfg.validate()
-        if mesh is not None:
-            if device is not None and torch.device(device) != mesh.device:
-                raise ValueError(f"device {device}, but the mesh's rank runs on {mesh.device}")
-            device = mesh.device
-        self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
+        self.device, self.writes = placement(mesh, device, cfg.gpu)
         self.mesh = mesh
-        self.writes = mesh is None or mesh.rank == 0  # logs, metrics, checkpoints, grids
         self.verbose = verbose and self.writes
         if source is None:
             # the fine-size source; its first val_size rows are the validation set

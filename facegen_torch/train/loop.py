@@ -69,7 +69,7 @@ from facegen_torch.config import TrainConfig
 from facegen_torch.data.pipeline import make_source
 from facegen_torch.models import ae, gan
 from facegen_torch.nn.init import seeded_generator
-from facegen_torch.parallel.mesh import replicate, shard_pool
+from facegen_torch.parallel.mesh import placement, replicate, shard_pool
 from facegen_torch.train import metrics as M
 from facegen_torch.train.graph import GraphedStep
 from facegen_torch.train.step import (
@@ -122,13 +122,8 @@ class Trainer:
         self.cfg = cfg.validate()
         if cfg.scale not in (16, 32):  # the AE and denoiser CLIs share the flag, not the limit
             raise ValueError(f"--scale {cfg.scale}: G16/G32 only (16 or 32)")
-        if mesh is not None:
-            if device is not None and torch.device(device) != mesh.device:
-                raise ValueError(f"device {device}, but the mesh's rank runs on {mesh.device}")
-            device = mesh.device
-        self.device = torch.device(device if device is not None else f"cuda:{cfg.gpu}")
+        self.device, self.writes = placement(mesh, device, cfg.gpu)
         self.mesh = mesh
-        self.writes = mesh is None or mesh.rank == 0  # logs, metrics, checkpoints, grids
         self.verbose = verbose and self.writes
         self.source = make_source(cfg, self.device)
         # weights drawn on the CPU: the same seed gives the same weights on every device

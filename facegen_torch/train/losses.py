@@ -1,17 +1,20 @@
 """GAN losses and weight penalties (counterpart of facegen/train/losses.py).
 
-BCE is computed from logits, and the L1/L2 penalties are added to the
-gradients explicitly, as the reference adds them to its flat gradient
-(adversarial.lua:103-109, 218-224). Parameters and gradients are lists
-of tensors in the same order.
+BCE is computed from logits. The L1/L2 penalties' gradients and the
+clamp are part of the update tail (ops/fused_update.py:add_penalty_grads,
+clamp_grads), as the reference adds them to its flat gradient
+(adversarial.lua:103-109, 218-224); here is the penalty's loss term.
+Parameters are lists of tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
+
+from facegen_torch.ops.fused_update import penalty_sums
 
 
 def batch_mean(per: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
@@ -35,12 +38,6 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     return batch_mean(per, rows)
 
 
-def penalty_sums(params: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(||p||_1, ||p||_2^2) over all parameters, 0-d fp32 tensors."""
-    with torch.no_grad():
-        return sum(p.abs().sum() for p in params), sum((p * p).sum() for p in params)
-
-
 def penalty_loss(params: Sequence[torch.Tensor], l1: float, l2: float) -> torch.Tensor:
     """L1 * ||p||_1 + L2 * ||p||_2^2 / 2 over all parameters
     (adversarial.lua:105-106); a 0-d fp32 tensor on the params' device."""
@@ -48,25 +45,6 @@ def penalty_loss(params: Sequence[torch.Tensor], l1: float, l2: float) -> torch.
         return torch.zeros((), device=params[0].device)
     l1_term, l2_term = penalty_sums(params)
     return l1 * l1_term + l2 * l2_term / 2.0
-
-
-def add_penalty_grads(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
-                      sign_coef: float, linear_coef: float) -> List[torch.Tensor]:
-    """grads + sign_coef * sign(p) + linear_coef * p (adversarial.lua:108).
-    D passes (D_L1, D_L2). G passes (G_L2, G_L2) with the reference's bug
-    (adversarial.lua:223 uses G_L2 for both terms; the step's
-    ``reference_g_penalty_bug``), else (G_L1, G_L2)."""
-    if sign_coef == 0.0 and linear_coef == 0.0:
-        return list(grads)
-    return [g + sign_coef * torch.sign(p) + linear_coef * p for g, p in zip(grads, params)]
-
-
-def clamp_grads(grads: Sequence[torch.Tensor], clamp: float) -> List[torch.Tensor]:
-    """Clamp every gradient entry to [-clamp, clamp]; 0 disables
-    (adversarial.lua:121-123, 226-228)."""
-    if clamp == 0.0:
-        return list(grads)
-    return [g.clamp(-clamp, clamp) for g in grads]
 
 
 def batch_accuracy(logits: torch.Tensor, targets: torch.Tensor,

@@ -10,25 +10,25 @@ The checkpoint writes them under optax's leaf names (utils/checkpoint.py).
 On a 2-D mesh ``init`` gets a rank's masters (parallel/gspmd.py:
 ShardedParams), so the moments have the shards' shapes.
 
-``gated_update`` applies an update only where the gate is open and
-leaves parameters, moments and Adam's step count untouched otherwise,
-as the reference's interruptible optimizers skip a step
-(interruptable_optimizers.lua:22-27). The gate is a device tensor and the
-choice is ``torch.where``: no value is read back to the host. With
-``do_update=True`` it is a plain update: G's step and the c2f trainer's
-stock optimizers (``make_c2f_optimizer``), which have no gate.
-
 ``penalised_update`` is every trainer's iteration tail in facegen's
 order: the penalty on the pre-update parameters, its gradient, the clamp,
-the finite check, the gate, the update. On CUDA tensors it is two kernels
-over all of a net's leaves (ops/fused_update.py); on the CPU the plain
-composition of ``losses`` and ``gated_update``. Each optimizer names its
-``kind`` and ``hyper``-parameters for the kernel.
+the finite check, the gate, the update. It is the one place that chooses
+where an update runs: on a net's parameters, or on a 2-D mesh on this
+rank's masters followed by their gather. The update is applied only where
+the gate is open and leaves parameters, moments and Adam's step count
+untouched otherwise, as the reference's interruptible optimizers skip a
+step (interruptable_optimizers.lua:22-27). The gate is a device tensor:
+no value is read back to the host. With ``gate=True`` it is a plain
+update: G's step and the c2f trainer's stock optimizers
+(``make_c2f_optimizer``), which have no gate. On CUDA tensors it is two
+kernels over all of a net's leaves (ops/fused_update.py); on the CPU
+their plain versions there (``gated_update`` and the rest). Each
+optimizer names its ``kind`` and ``hyper``-parameters for the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -137,30 +137,6 @@ def make_c2f_optimizer(method: str, cfg, which: str) -> Optimizer:
     raise ValueError(f"unknown optimizer {method!r}")
 
 
-def _state_tensors(state: State) -> List[torch.Tensor]:
-    out = []
-    for key in sorted(state):
-        v = state[key]
-        out.extend(v if isinstance(v, list) else [v])
-    return out
-
-
-@torch.no_grad()
-def gated_update(tx: Optimizer, grads: Sequence[torch.Tensor], state: State,
-                 params: Sequence[torch.Tensor],
-                 do_update: Union[bool, torch.Tensor]) -> None:
-    """Apply ``tx`` in place to ``params`` and ``state`` where ``do_update``
-    holds. ``do_update`` is a 0-d bool tensor (the D gate), chosen per
-    element with torch.where on the device, or the Python True (G's
-    ungated step). In place: the port updates the parameters the
-    modules hold, where facegen returns new arrays."""
-    updates, new_state = tx.update(list(grads), state, list(params))
-    new_params = [p + u for p, u in zip(params, updates)]
-    olds, news = list(params) + _state_tensors(state), new_params + _state_tensors(new_state)
-    for old, new in zip(olds, news):
-        old.copy_(new if do_update is True else torch.where(do_update, new, old))
-
-
 @torch.no_grad()
 def penalised_update(tx: Optimizer, grads: Sequence[torch.Tensor], state: State,
                      params: Sequence[torch.Tensor], sign_coef: float, l1: float, l2: float,
@@ -172,9 +148,10 @@ def penalised_update(tx: Optimizer, grads: Sequence[torch.Tensor], state: State,
     of the pre-update ``params`` and are clamped to [-clamp, clamp] (0: no
     clamp); with ``guard`` the gate closes when any of them is not finite;
     then ``tx`` updates ``params`` and ``state`` in place where the gate
-    holds. On a 2-D mesh ``shards`` (parallel/gspmd.py:ShardedParams)
-    takes the update on this rank's masters, made from ``state``, after the
-    penalty and clamp on the full ``params``.
+    holds. On a 2-D mesh the update runs on ``shards``'s masters
+    (parallel/gspmd.py:ShardedParams), which ``state`` is made from, with
+    this rank's shards of the penalised, clamped full gradients, and the
+    masters are then gathered into ``params``.
 
     Returns (the loss's penalty ``l1 * ||p||_1 + l2 * ||p||_2^2 / 2``
     (losses.penalty_loss; zeros without ``penalty`` or with both 0), the
@@ -182,7 +159,8 @@ def penalised_update(tx: Optimizer, grads: Sequence[torch.Tensor], state: State,
     ``grads`` may be overwritten. On the card a gradient that does not
     share its parameter's layout is first copied into it (one copy a conv
     weight: ops/fused_update.py:in_layouts_of); on a mesh the gradients
-    come in the parameters' layouts (parallel/gspmd.py:flat_all_reduce)."""
+    come in the parameters' layouts, a sharded leaf's shard-major, so that
+    its shard shares its master's (parallel/gspmd.py:flat_all_reduce)."""
     params = list(params)
     if params[0].device.type == "cuda":  # the kernels walk p and g in one layout
         grads = fused_update.in_layouts_of(params, grads)
@@ -194,8 +172,9 @@ def penalised_update(tx: Optimizer, grads: Sequence[torch.Tensor], state: State,
     if guard:
         finite = stats[2] == 0
         gate = finite if gate is True else gate & finite
-    if shards is not None:
-        shards.update(tx, grads, state, gate)
-    else:
+    if shards is None:
         fused_update.update(tx, grads, state, params, gate)
+    else:
+        fused_update.update(tx, shards.shards(grads), state, shards.masters, gate)
+        shards.gather_()
     return term, gate

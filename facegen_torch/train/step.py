@@ -74,10 +74,11 @@ from torch import nn
 
 from facegen_torch.config import TrainConfig
 from facegen_torch.nn import dropout
-from facegen_torch.parallel.gspmd import (
-    Mesh2D, flat_all_reduce, global_rows, set_batch_norm_mesh, shard_params)
+from facegen_torch.nn.layers import set_batch_norm_mesh
+from facegen_torch.ops.fused_update import _state_tensors
+from facegen_torch.parallel.gspmd import Mesh2D, flat_all_reduce, global_rows, shard_params
 from facegen_torch.train import losses, metrics
-from facegen_torch.train.optim import _state_tensors, make_optimizer, penalised_update
+from facegen_torch.train.optim import make_optimizer, penalised_update
 
 
 @dataclasses.dataclass
@@ -381,16 +382,6 @@ class TrainStep:
                 b.copy_(r)
         return out[len(stats):]
 
-    def _update(self, state: GanState, net: str, tx, grads, params, sign_coef: float,
-                l1: float, l2: float, clamp: float, gate):
-        """``net``'s iteration tail (``penalised_update``), on this rank's
-        shards of its state on a 2-D mesh; (the loss's penalty, the gate
-        applied)."""
-        opt = state.opt_g if net == "g" else state.opt_d
-        shards = None if state.shards is None else state.shards[net]
-        return penalised_update(tx, grads, opt, params, sign_coef, l1, l2, clamp, gate,
-                                self.cfg.guard_nonfinite, shards=shards)
-
     def d_iteration(self, state: GanState, pool: torch.Tensor, draws: DDraws):
         cfg, g, d, pad = self.cfg, state.g, state.d, self.pad
         params = list(d.parameters())
@@ -429,9 +420,10 @@ class TrainStep:
         # the penalty on the pre-update parameters, its gradient, the clamp,
         # and the gate, closed too by a gradient that is not finite under
         # guard_nonfinite (facegen/train/step.py:301-323)
-        penalty, do_train = self._update(state, "d", self.tx_d, grads, params, cfg.d_l1,
-                                         cfg.d_l1, cfg.d_l2, cfg.d_clamp,
-                                         acc_avg < cfg.d_max_acc)
+        penalty, do_train = penalised_update(
+            self.tx_d, grads, state.opt_d, params, cfg.d_l1, cfg.d_l1, cfg.d_l2, cfg.d_clamp,
+            acc_avg < cfg.d_max_acc, cfg.guard_nonfinite,
+            shards=None if state.shards is None else state.shards["d"])
         loss = loss + penalty
         state.confusion += counts
         state.trained_d += do_train.int()
@@ -458,8 +450,9 @@ class TrainStep:
         # the reference's bug (adversarial.lua:223): G_L2 scales the sign term
         # too; no gate but the finite check (facegen/train/step.py:362-372)
         sign_coef = cfg.g_l2 if cfg.reference_g_penalty_bug else cfg.g_l1
-        penalty, _ = self._update(state, "g", self.tx_g, grads, params, sign_coef, cfg.g_l1,
-                                  cfg.g_l2, cfg.g_clamp, True)
+        penalty, _ = penalised_update(
+            self.tx_g, grads, state.opt_g, params, sign_coef, cfg.g_l1, cfg.g_l2, cfg.g_clamp,
+            True, cfg.guard_nonfinite, shards=None if state.shards is None else state.shards["g"])
         return loss + penalty
 
     def __call__(self, state: GanState, pool: torch.Tensor, draws: StepDraws) -> StepMetrics:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from facegen_torch.nn.layers import full_fp32
 from facegen_torch.utils import grids
 
 
@@ -55,8 +56,6 @@ def visualize_network(module: nn.Sequential, x: torch.Tensor, out_dir: str,
     {layer key: png path}. The network runs in eval mode (batch norms on
     their running statistics, no dropout), as facegen's ``Ctx(key,
     False)``, in fp32 with TF32 off on the card; its mode is restored."""
-    from facegen_torch.sample import full_fp32
-
     os.makedirs(out_dir, exist_ok=True)
     was_training = module.training
     module.eval()

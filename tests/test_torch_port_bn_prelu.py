@@ -127,7 +127,7 @@ def test_the_denoisers_batch_norms_and_a_meshs_are_not_paired():
     assert not any(_pairs(seq) for seq in seqs)
     bn, pr = _pair(8, 3)
     assert layers.fused_pair(bn, pr)
-    bn.mesh = object()  # parallel/gspmd.py:set_batch_norm_mesh's synchronised batch norm
+    bn.mesh = object()  # nn/layers.py:set_batch_norm_mesh's synchronised batch norm
     assert bn.training and not layers.fused_pair(bn, pr)
 
 

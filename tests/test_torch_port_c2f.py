@@ -51,6 +51,7 @@ from facegen_torch.data.pipeline import DataSource, prepare_pool
 from facegen_torch.models import c2f, gan
 from facegen_torch.nn import dropout
 from facegen_torch.nn import layers as L
+from facegen_torch.ops import fused_update
 from facegen_torch.train import optim
 from facegen_torch.train.c2f import (
     C2FDDraws,
@@ -277,12 +278,12 @@ def test_c2f_optimizers_match_optax(method, which, flags):
         grads = [rs.randn(*a.shape).astype(np.float32) for a in params]
         updates, js = tx.update(grads, js, jp)
         jp = optax.apply_updates(jp, updates)
-        optim.gated_update(ours_tx, [torch.from_numpy(g) for g in grads], ts, tp, True)
+        fused_update.gated_update(ours_tx, [torch.from_numpy(g) for g in grads], ts, tp, True)
     for o, t in zip(tp, jp):
         np.testing.assert_allclose(o.numpy(), np.asarray(t), rtol=1e-6, atol=1e-9)
     theirs = [np.asarray(x) for x in jax.tree_util.tree_leaves(js)]
     mine = ([ts["count"]] + ts["mu"] + ts["nu"] if method == "adam"
-            else optim._state_tensors(ts))
+            else fused_update._state_tensors(ts))
     assert len(mine) == len(theirs)
     for o, t in zip(mine, theirs):
         np.testing.assert_allclose(o.numpy(), t, rtol=1e-6, atol=1e-9)

@@ -1272,7 +1272,7 @@ def _state_copy(state):
 
 
 def _state_list(state):
-    from facegen_torch.train.optim import _state_tensors
+    from facegen_torch.ops.fused_update import _state_tensors
 
     return _state_tensors(state)
 

@@ -103,7 +103,7 @@ def _state_leaves(method, topt):
     """The port's state in optax's leaf order (Adam: count, mu..., nu...)."""
     if method == "adam":
         return [topt["count"]] + topt["mu"] + topt["nu"]
-    return optim._state_tensors(topt)
+    return fused_update._state_tensors(topt)
 
 
 def _assert_match(method, tp, topt, ours, jp, jopt, theirs):
@@ -134,8 +134,8 @@ def test_penalised_update_matches_facegen(method, gate, net):
     if gate == "closed":  # bit-equal to the state after the first iteration
         tp1, topt1, *_ = _run(method, net, D_COEFS, [True])
         assert all(torch.equal(a, b) for a, b in zip(tp, tp1))
-        assert all(torch.equal(a, b) for a, b in zip(optim._state_tensors(topt),
-                                                      optim._state_tensors(topt1)))
+        assert all(torch.equal(a, b) for a, b in zip(fused_update._state_tensors(topt),
+                                                      fused_update._state_tensors(topt1)))
 
 
 @pytest.mark.parametrize("nan_leaf", [None, 0, 7, 14], ids=["finite", "leaf0", "leaf7",

@@ -28,6 +28,7 @@ from facegen.train.optim import make_optimizer as jax_make_optimizer
 from facegen.train.step import steps_per_epoch as jax_steps_per_epoch
 from facegen_torch import train
 from facegen_torch.config import TrainConfig, train_config_from_args
+from facegen_torch.ops import fused_update
 from facegen_torch.train import losses, metrics, optim
 from facegen_torch.train.step import steps_per_epoch
 
@@ -58,7 +59,8 @@ def test_penalties_and_clamp_match_jax(sign_coef, linear_coef, clamp):
     np.testing.assert_allclose(float(losses.penalty_loss(tp, sign_coef, linear_coef)),
                                float(jax_losses.penalty_loss(params, sign_coef, linear_coef)),
                                rtol=RTOL)
-    ours = losses.clamp_grads(losses.add_penalty_grads(tg, tp, sign_coef, linear_coef), clamp)
+    ours = fused_update.clamp_grads(
+        fused_update.add_penalty_grads(tg, tp, sign_coef, linear_coef), clamp)
     theirs = jax_losses.clamp_grads(
         jax_losses.add_penalty_grads(grads, params, sign_coef, linear_coef), clamp)
     for o, t in zip(ours, theirs):
@@ -96,12 +98,12 @@ def test_gated_optimizers_match_optax(method, flags):
     for step, gate in enumerate([True, False, True]):
         grads = _arrays(10 + step, SHAPES)
         jp, js = jax_gated_update(tx, grads, js, jp, jnp.bool_(gate))
-        optim.gated_update(ours_tx, [torch.from_numpy(g) for g in grads], ts, tp,
-                           torch.tensor(gate))
+        fused_update.gated_update(ours_tx, [torch.from_numpy(g) for g in grads], ts, tp,
+                                  torch.tensor(gate))
     for o, t in zip(tp, jp):
         np.testing.assert_allclose(o.numpy(), np.asarray(t), rtol=RTOL, atol=1e-9)
     theirs = jax.tree_util.tree_leaves(js)
-    mine = optim._state_tensors(ts)
+    mine = fused_update._state_tensors(ts)
     if method == "adam":  # optax's leaf order: count, mu..., nu...
         mine = [ts["count"]] + ts["mu"] + ts["nu"]
         assert int(ts["count"]) == int(theirs[0]) == 2
@@ -114,7 +116,7 @@ def test_closed_gate_leaves_everything_untouched():
     tx = optim.adam(1e-3)
     params = [torch.ones(3)]
     state = tx.init(params)
-    optim.gated_update(tx, [torch.ones(3)], state, params, torch.tensor(False))
+    fused_update.gated_update(tx, [torch.ones(3)], state, params, torch.tensor(False))
     assert torch.equal(params[0], torch.ones(3)) and int(state["count"]) == 0
     assert not state["mu"][0].any() and not state["nu"][0].any()
 

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from facegen_torch.config import C2FConfig, TrainConfig
 from facegen_torch.data.c2f import C2FPool
 from facegen_torch.models import ae, c2f, gan
+from facegen_torch.nn.layers import set_batch_norm_mesh
 from facegen_torch.parallel import (
     Mesh2D,
     ensure_mesh2d,
@@ -43,7 +44,7 @@ from facegen_torch.parallel import (
     mesh2d_from_shape,
     training_mesh,
 )
-from facegen_torch.parallel.gspmd import set_batch_norm_mesh, shard_params
+from facegen_torch.parallel.gspmd import shard_params
 from facegen_torch.train import main as train_main
 from facegen_torch.train.ae_loop import (
     AEDraws,
